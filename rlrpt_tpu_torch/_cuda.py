@@ -22,8 +22,16 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = ("mega_default.cu", "mega_guided.cu")
 HEADERS = ("path_common.cuh",)
+# -fmad=false: no a*b+c contraction, so the kernels round every f32
+# operation as the torch twins' separate ops do on the card.  With
+# contraction a ray origin or a Moller-Trumbore term moves by an ulp, a
+# grazing hit flips now and then, and the flipped slot draws every later
+# sample at other RNG iteration keys: at 32 spp 2.4% of the pixels of a
+# 720x720 B3 frame then differ from the twin's.  Without it the frames
+# are bit-identical, for about 16% more kernel time (PERF.md).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 
 class MegaParams(ctypes.Structure):

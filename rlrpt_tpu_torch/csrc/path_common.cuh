@@ -5,9 +5,10 @@
 //
 // Every formula keeps the operation order of the JAX reference
 // (rlrpt_tpu/ops/megakernel.py, rlrpt_tpu/ops/guided_mega.py) and of the
-// plain torch twins beside the wrappers, so a kernel and its twin agree to
-// f32 rounding; only FMA contraction and the transcendental functions
-// differ in the last bit.
+// plain torch twins beside the wrappers.  Built without FMA contraction
+// (_cuda.py NVCC_FLAGS), a kernel then rounds each f32 operation as its
+// twin's separate torch ops do on the card, and the two frames agree bit
+// for bit; against the JAX kernels on the CPU they agree to f32 rounding.
 #pragma once
 
 #include <cstdint>

@@ -125,3 +125,24 @@ def test_frame_layout():
     assert torch.all(flat[cfg.n_pixels:] == 0)
     assert float(path_sum.sum()) >= cfg.n_pixels * 2   # >= 1 segment each
     assert int(iters.max()) > 0
+
+
+def test_lane_efficiency_of_slot_iterations():
+    """The sweep tool's lane efficiency: active slot-iterations over the
+    lane-iterations a group of slots spends while its longest slot runs."""
+    from rlrpt_tpu_torch.tools.mega_sweep import lane_efficiency
+    flat = torch.full((256,), 7, dtype=torch.int32)
+    assert lane_efficiency(flat, 32) == lane_efficiency(flat, 128) == 1.0
+    one = torch.zeros((64,), dtype=torch.int32)
+    one[3] = 8
+    assert lane_efficiency(one, 32) == 8 / (32 * 8)
+    cfg = RenderConfig(width=16, height=16, samples_per_pixel=1,
+                       max_ray_bounces=20)
+    tris, mat = mk.pack_scene(cornell_box())
+    n_slots = mk.n_slots_for(cfg.n_pixels, 128, 1)
+    _, path_sum, iters = mk.mega_default_frame(
+        9, mk.camera_vector(Camera.create(CAM)), tris, mat, cfg, n_slots, 1)
+    # pix_mux 1, 1 spp: a slot is active for exactly its path's segments
+    assert int(iters.sum()) == int(path_sum.sum())
+    warp, block = lane_efficiency(iters, 32), lane_efficiency(iters, 128)
+    assert 0.0 < block <= warp <= 1.0
