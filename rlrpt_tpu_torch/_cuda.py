@@ -1,7 +1,8 @@
 """Build and bind the package's hand-written CUDA kernels.
 
 The sources in ``csrc/`` are compiled with ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, loaded with
+(``sm_90a``), one ``nvcc`` process per source, all started together, and
+linked into one shared library with a plain C interface, loaded with
 ``ctypes``.  The build happens at the first CUDA launch, never at import,
 into ``build/kernels/`` beside the package (a directory git ignores); the
 library's file name carries a hash of the sources and flags, so an edited
@@ -20,7 +21,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("mega_default.cu", "mega_guided.cu")
+SOURCES = ("mega_default.cu", "mega_guided.cu", "mega_train.cu",
+           "closest_hit.cu")
 HEADERS = ("path_common.cuh",)
 # -fmad=false: no a*b+c contraction, so the kernels round every f32
 # operation as the torch twins' separate ops do on the card.  With
@@ -30,8 +32,7 @@ HEADERS = ("path_common.cuh",)
 # 720x720 B3 frame then differ from the twin's.  Without it the frames
 # are bit-identical, for about 16% more kernel time (PERF.md).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 class MegaParams(ctypes.Structure):
@@ -54,6 +55,15 @@ class MegaParams(ctypes.Structure):
         ("n_sectors", ctypes.c_int), ("sector_grid", ctypes.c_int),
         ("uv_bins", ctypes.c_int), ("s_pad", ctypes.c_int),
         ("pdf_scale", ctypes.c_float), ("inv_gdir", ctypes.c_float),
+    ]
+
+
+class TrainParams(ctypes.Structure):
+    """Mirror of ``TrainParams`` in csrc/mega_train.cu (4-byte fields)."""
+
+    _fields_ = [
+        ("n_cols", ctypes.c_int), ("max_iters", ctypes.c_int),
+        ("radiance_threshold", ctypes.c_float), ("irr_scale", ctypes.c_float),
     ]
 
 
@@ -91,16 +101,36 @@ def library() -> ctypes.CDLL:
     BuildInfo.path = so
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(CSRC / s) for s in SOURCES)]
+        stem = so.with_name(f"{so.stem}.{os.getpid()}")
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        objs, procs = [], []
+        for src in SOURCES:
+            obj = Path(f"{stem}.{src}.o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for cmd, proc in procs:
+            out, _ = proc.communicate()
+            logs.append(out)
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{out}")
+        tmp = Path(f"{stem}.so")
+        if not failed:
+            cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            logs.append(proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{logs[-1]}")
+        for obj in objs:
+            obj.unlink(missing_ok=True)
         BuildInfo.seconds = time.perf_counter() - t0
-        BuildInfo.log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{BuildInfo.log}")
+        BuildInfo.log = "".join(logs)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     lib.rlrpt_cuda_error_string.argtypes = [ctypes.c_int]

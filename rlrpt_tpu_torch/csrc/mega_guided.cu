@@ -18,59 +18,12 @@
 // here the column is a plain load.  The wrapper hands the table over
 // transposed, (C, S_pad), so a column is contiguous and is read as
 // 16-byte vectors; the sector count is a compare per entry, exact for any
-// table (monotone or not), as the TPU kernel's comparison count is.
+// table (monotone or not), as the TPU kernel's comparison count is.  The
+// sampler (rlrpt::CdfSampler) lives in path_common.cuh: B2 draws the same
+// paths with it.
 #include "path_common.cuh"
 
 namespace {
-
-struct CdfSampler {
-  const __nv_bfloat16* __restrict__ cdf;   // (n_cols, s_pad), s_pad % 8 == 0
-
-  __device__ __forceinline__ void operator()(
-      const rlrpt::MegaParams& p, int pix, uint32_t it1, float u1, float u2,
-      const rlrpt::Hit& h, float nx, float ny, float nz, float& dx, float& dy,
-      float& dz, float& scale) const {
-    const float us = rlrpt::uniform01(p.seed, pix, it1, 5);   // sector draw
-    // Column c = tri * uv^2 + iu * uv + iv, (iu, iv) the clipped bins of
-    // the winner's barycentric u = u'/det, v = v'/det (guided_mega.py:
-    // 240-244, :347-351).
-    const float dsafe = h.det == 0.f ? 1.f : h.det;
-    const int ub = p.uv_bins;
-    const int iu = min(max(static_cast<int>(h.up / dsafe * ub), 0), ub - 1);
-    const int iv = min(max(static_cast<int>(h.vp / dsafe * ub), 0), ub - 1);
-    const __nv_bfloat16* col =
-        cdf + static_cast<size_t>(h.tri * ub * ub + iu * ub + iv) * p.s_pad;
-
-    // sector = #{entries < us}, clipped to S-1; padding rows hold 2.0.
-    const uint4* col4 = reinterpret_cast<const uint4*>(col);
-    int cnt = 0;
-    for (int j = 0; j < p.s_pad / 8; ++j) {
-      const uint4 w = __ldg(col4 + j);
-      const __nv_bfloat162* pair = reinterpret_cast<const __nv_bfloat162*>(&w);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(pair[e]);
-        cnt += (f.x < us) + (f.y < us);
-      }
-    }
-    const int sector = min(cnt, p.n_sectors - 1);
-    // The last sector absorbs every draw >= cdf[S-2]: its probability is
-    // 1 - lo (guided_mega.py:372-376).
-    const float hi = sector == p.n_sectors - 1 ? 1.f
-                                               : __bfloat162float(col[sector]);
-    const float lo = sector > 0 ? __bfloat162float(col[sector - 1]) : 0.f;
-    const float pdf = fmaxf(hi - lo, 0.f) * p.pdf_scale;
-    const float pdf_safe = fmaxf(pdf, 1e-12f);
-
-    const int sxg = sector / p.sector_grid;
-    const int syg = sector - sxg * p.sector_grid;
-    const float gx = (static_cast<float>(sxg) + u1) * p.inv_gdir;
-    const float gy = (static_cast<float>(syg) + u2) * p.inv_gdir;
-    const float cost = rlrpt::concentric_dir(gx, gy, nx, ny, nz, dx, dy, dz);
-    // throughput *= (diffuse/pi) * cos / pdf
-    scale = cost / (static_cast<float>(rlrpt::kPiD) * pdf_safe);
-  }
-};
 
 __global__ void __launch_bounds__(rlrpt::kBlock)
     mega_guided_kernel(rlrpt::MegaParams p, const float4* __restrict__ tris,
@@ -78,7 +31,8 @@ __global__ void __launch_bounds__(rlrpt::kBlock)
                        const __nv_bfloat16* __restrict__ cdf,
                        float* __restrict__ rad, float* __restrict__ path_sum,
                        int* __restrict__ iters) {
-  rlrpt::run_slots(p, tris, mat, CdfSampler{cdf}, rad, path_sum, iters);
+  rlrpt::run_slots(p, tris, mat, rlrpt::CdfSampler{cdf, -1}, rad, path_sum,
+                   iters);
 }
 
 }  // namespace

@@ -1,7 +1,8 @@
-// Shared device code of the path-tracing megakernels (mega_default.cu,
-// mega_guided.cu): the counter PRNG, the camera-ray generator, one exact
-// f32 Moller-Trumbore closest-hit routine, the two hemisphere frames, and
-// the regenerative slot loop both kernels run.
+// Shared device code of the path-tracing kernels (mega_default.cu,
+// mega_guided.cu, mega_train.cu, closest_hit.cu): the counter PRNG, the
+// camera-ray generator, one exact f32 Moller-Trumbore closest-hit routine
+// and its shared-memory sweep, the two hemisphere frames, the guided CDF
+// sampler, and the per-slot step of the regenerative slot loop.
 //
 // Every formula keeps the operation order of the JAX reference
 // (rlrpt_tpu/ops/megakernel.py, rlrpt_tpu/ops/guided_mega.py) and of the
@@ -201,6 +202,30 @@ __device__ __forceinline__ void load_tile(float4* __restrict__ s_tri,
     s_tri[i] = tris[3 * first + i];
 }
 
+// Closest hit of one ray per thread over all n_tris triangles, streamed
+// through shared memory in tiles of kTileTris.  Every thread of the block
+// calls it (the tile loads are block barriers); only `act` threads test.
+// `resident`: the scene is one tile and s_tri already holds it.
+__device__ __forceinline__ Hit sweep(const float4* __restrict__ tris,
+                                     float4* __restrict__ s_tri, int n_tris,
+                                     bool resident, bool act, float ox,
+                                     float oy, float oz, float dx, float dy,
+                                     float dz) {
+  Hit h{kInf, -1, 0.f, 0.f, 0.f};
+  const int n_tiles = (n_tris + kTileTris - 1) / kTileTris;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int first = tile * kTileTris;
+    const int n = min(kTileTris, n_tris - first);
+    if (!resident) {
+      __syncthreads();
+      load_tile(s_tri, tris, first, n);
+      __syncthreads();
+    }
+    if (act) hit_tris(s_tri, n, first, ox, oy, oz, dx, dy, dz, h);
+  }
+  return h;
+}
+
 __device__ __forceinline__ void store_pixel(float* __restrict__ rad,
                                             const MegaParams& p, int k,
                                             int slot, float r, float g,
@@ -211,21 +236,209 @@ __device__ __forceinline__ void store_pixel(float* __restrict__ rad,
   o[2] = b;
 }
 
-// The whole-frame regenerative slot loop of megakernel.py:_mega_kernel,
-// one thread per ray slot.  Slot s owns pixels s + k*n_slots
+// Column of the binned tables for a surface hit: c = tri * uv^2 + iu * uv
+// + iv, (iu, iv) the clipped bins of the winner's barycentric u = u'/det,
+// v = v'/det (guided_mega.py:240-244, :347-351).
+__device__ __forceinline__ int bin_column(const Hit& h, int ub) {
+  const float dsafe = h.det == 0.f ? 1.f : h.det;
+  const int iu = min(max(static_cast<int>(h.up / dsafe * ub), 0), ub - 1);
+  const int iv = min(max(static_cast<int>(h.vp / dsafe * ub), 0), ub - 1);
+  return h.tri * ub * ub + iu * ub + iv;
+}
+
+// The guided bounce (B3, and B2's path): a sector drawn from the frozen
+// bf16 CDF column of the hit's bin, pdf = (hi - lo) * S / 2pi from the
+// same rounded values the draw compared, the Chiu concentric map of the
+// sector plus jitter.  `sector` keeps the last draw (B2's pending
+// transition reads it).
+struct CdfSampler {
+  const __nv_bfloat16* __restrict__ cdf;   // (n_cols, s_pad), s_pad % 8 == 0
+  mutable int sector;
+
+  __device__ __forceinline__ void operator()(
+      const MegaParams& p, int pix, uint32_t it1, float u1, float u2,
+      const Hit& h, float nx, float ny, float nz, float& dx, float& dy,
+      float& dz, float& scale) const {
+    const float us = uniform01(p.seed, pix, it1, 5);   // sector draw
+    const __nv_bfloat16* col =
+        cdf + static_cast<size_t>(bin_column(h, p.uv_bins)) * p.s_pad;
+
+    // sector = #{entries < us}, clipped to S-1; padding rows hold 2.0.
+    const uint4* col4 = reinterpret_cast<const uint4*>(col);
+    int cnt = 0;
+    for (int j = 0; j < p.s_pad / 8; ++j) {
+      const uint4 w = __ldg(col4 + j);
+      const __nv_bfloat162* pair = reinterpret_cast<const __nv_bfloat162*>(&w);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(pair[e]);
+        cnt += (f.x < us) + (f.y < us);
+      }
+    }
+    sector = min(cnt, p.n_sectors - 1);
+    // The last sector absorbs every draw >= cdf[S-2]: its probability is
+    // 1 - lo (guided_mega.py:372-376).
+    const float hi = sector == p.n_sectors - 1 ? 1.f
+                                               : __bfloat162float(col[sector]);
+    const float lo = sector > 0 ? __bfloat162float(col[sector - 1]) : 0.f;
+    const float pdf = fmaxf(hi - lo, 0.f) * p.pdf_scale;
+    const float pdf_safe = fmaxf(pdf, 1e-12f);
+
+    const int sxg = sector / p.sector_grid;
+    const int syg = sector - sxg * p.sector_grid;
+    const float gx = (static_cast<float>(sxg) + u1) * p.inv_gdir;
+    const float gy = (static_cast<float>(syg) + u2) * p.inv_gdir;
+    const float cost = concentric_dir(gx, gy, nx, ny, nz, dx, dy, dz);
+    // throughput *= (diffuse/pi) * cos / pdf
+    scale = cost / (static_cast<float>(kPiD) * pdf_safe);
+  }
+};
+
+// One ray slot between steps.  Slot s owns pixels s + k*n_slots
 // (k < pix_mux) and regenerates into the next sample, then the next pixel,
-// the moment a path ends.  A thread's iteration counter `it` rises by one
-// every step from 1 while the slot is active, which is the TPU tile's
-// counter, so the RNG keys (seed, pix, it, stream) draw the TPU's samples.
-//
-// Triangles stream through shared memory in tiles of kTileTris; a scene of
-// one tile is loaded once.  The loop is block-synchronous (a block runs
-// until its last slot drains) so that every thread reaches the tile
-// barriers.  `sample` turns a surface hit into the next direction and the
-// throughput factor brdf*cos/pdf:
+// the moment a path ends.
+struct Slot {
+  float ox, oy, oz, dx, dy, dz;
+  float tr, tg, tb;      // throughput of the current path
+  float ar, ag, ab;      // current pixel's radiance sum
+  float psum;            // sum of the slot's finished path lengths
+  int bounce, remaining, pix, k;
+  bool act;
+};
+
+__device__ __forceinline__ Slot start_slot(const MegaParams& p, int slot) {
+  Slot s;
+  const bool in_image = slot < p.n_slots && slot < p.n_pix;
+  s.ox = p.cam_x;
+  s.oy = p.cam_y;
+  s.oz = p.cam_z;
+  primary_dir(p, slot, uniform01(p.seed, slot, 0, 2),
+              uniform01(p.seed, slot, 0, 3), s.dx, s.dy, s.dz);
+  s.tr = s.tg = s.tb = 1.f;
+  s.ar = s.ag = s.ab = 0.f;
+  s.psum = 0.f;
+  s.bounce = 0;
+  s.remaining = in_image ? p.spp - 1 : 0;
+  s.pix = slot;
+  s.k = 0;
+  s.act = in_image;
+  return s;
+}
+
+// What one step did, for B2's TD update.
+struct StepEvent {
+  bool missed, hit_light;
+  bool survive;          // the path goes on (after the bounce cap and RR)
+  const float* m;        // the hit's material row (row 0 on a miss)
+};
+
+// One step of an active slot at iteration it1 (megakernel.py:_mega_kernel's
+// loop body): terminal contribution, bounce cap, the bounce `sample` draws
+// (next direction and throughput factor brdf*cos/pdf), optional Russian
+// roulette on RNG stream 4, and regeneration.  A thread's iteration
+// counter rises by one every step from 1 while the slot is active, which
+// is the TPU tile's counter, so the RNG keys (seed, pix, it, stream) draw
+// the TPU's samples.  `sample` has the signature
 //   void sample(p, pix, it1, u1, u2, h, nx, ny, nz, dx, dy, dz, scale)
-// Outputs: rad (pix_mux, n_slots, 3) per-pixel RGB sums, path_sum
-// (n_slots,) and iters (n_slots,), the slot's last active iteration.
+template <class Sampler>
+__device__ __forceinline__ StepEvent advance(const MegaParams& p,
+                                             const float* __restrict__ mat,
+                                             const Sampler& sample,
+                                             const Hit& h, uint32_t it1,
+                                             Slot& s, float* __restrict__ rad,
+                                             int slot) {
+  const float u1 = uniform01(p.seed, s.pix, it1, 0);
+  const float u2 = uniform01(p.seed, s.pix, it1, 1);
+  const float u3 = uniform01(p.seed, s.pix, it1, 2);
+  const float u4 = uniform01(p.seed, s.pix, it1, 3);
+
+  const bool missed = h.t >= kInf;
+  const float* m = mat + 16 * (missed ? 0 : h.tri);
+  const bool hit_light = !missed && __ldg(m + 9) > 0.5f;
+  const bool hit_surface = !missed && !hit_light;
+  if (missed) {
+    s.ar += s.tr * p.env;
+    s.ag += s.tg * p.env;
+    s.ab += s.tb * p.env;
+  } else if (hit_light) {
+    s.ar += s.tr * __ldg(m + 6);
+    s.ag += s.tg * __ldg(m + 7);
+    s.ab += s.tb * __ldg(m + 8);
+  }
+
+  const bool exhausted = hit_surface && s.bounce + 1 >= p.max_bounces;
+  bool survive = hit_surface && !exhausted;
+  bool rr_killed = false;
+  float sdx = 0.f, sdy = 0.f, sdz = 0.f;
+  if (survive) {
+    float scale;
+    sample(p, s.pix, it1, u1, u2, h, __ldg(m + 0), __ldg(m + 1),
+           __ldg(m + 2), sdx, sdy, sdz, scale);
+    s.tr = s.tr * __ldg(m + 3) * scale;
+    s.tg = s.tg * __ldg(m + 4) * scale;
+    s.tb = s.tb * __ldg(m + 5) * scale;
+    if (p.russian_roulette && s.bounce + 1 >= p.rr_start_bounce) {
+      // Unbiased kill/reweight on RNG stream 4 (megakernel.py:557-572).
+      const float u5 = uniform01(p.seed, s.pix, it1, 4);
+      const float p_keep =
+          fminf(fmaxf(fmaxf(s.tr, fmaxf(s.tg, s.tb)), p.rr_min_prob), 1.f);
+      rr_killed = u5 >= p_keep;
+      if (!rr_killed) {
+        const float inv_p = 1.f / p_keep;
+        s.tr *= inv_p;
+        s.tg *= inv_p;
+        s.tb *= inv_p;
+      }
+      survive = !rr_killed;
+    }
+  }
+  if (survive) {
+    s.ox = s.ox + h.t * s.dx + p.eps * sdx;
+    s.oy = s.oy + h.t * s.dy + p.eps * sdy;
+    s.oz = s.oz + h.t * s.dz + p.eps * sdz;
+    s.dx = sdx;
+    s.dy = sdy;
+    s.dz = sdz;
+  }
+  if (missed || hit_light || rr_killed)
+    s.psum += static_cast<float>(s.bounce + 1);
+  if (exhausted) s.psum += static_cast<float>(p.max_bounces);
+
+  if (survive) {
+    s.bounce += 1;
+  } else {
+    // Regeneration: the pixel's next sample, else the slot's next
+    // multiplexed pixel, else the slot goes idle.
+    if (s.remaining <= 0 && s.k + 1 < p.pix_mux &&
+        s.pix + p.n_slots < p.n_pix) {
+      store_pixel(rad, p, s.k, slot, s.ar, s.ag, s.ab);
+      s.ar = s.ag = s.ab = 0.f;
+      s.pix += p.n_slots;
+      s.k += 1;
+      s.remaining = p.spp;
+    }
+    if (s.remaining > 0) {
+      primary_dir(p, s.pix, u3, u4, s.dx, s.dy, s.dz);
+      s.ox = p.cam_x;
+      s.oy = p.cam_y;
+      s.oz = p.cam_z;
+      s.tr = s.tg = s.tb = 1.f;
+      s.bounce = 0;
+      s.remaining -= 1;
+    } else {
+      s.act = false;
+    }
+  }
+  return StepEvent{missed, hit_light, survive, m};
+}
+
+// The whole-frame regenerative slot loop of megakernel.py:_mega_kernel,
+// one thread per ray slot, `advance` once per iteration.  A scene of one
+// triangle tile is loaded once.  The loop is block-synchronous (a block
+// runs until its last slot drains) so that every thread reaches the tile
+// barriers.  Outputs: rad (pix_mux, n_slots, 3) per-pixel RGB sums,
+// path_sum (n_slots,) and iters (n_slots,), the slot's last active
+// iteration.
 template <class Sampler>
 __device__ __forceinline__ void run_slots(const MegaParams& p,
                                           const float4* __restrict__ tris,
@@ -236,127 +449,27 @@ __device__ __forceinline__ void run_slots(const MegaParams& p,
                                           int* __restrict__ iters) {
   __shared__ float4 s_tri[3 * kTileTris];
   const int slot = blockIdx.x * blockDim.x + threadIdx.x;
-  const int n_tiles = (p.n_tris + kTileTris - 1) / kTileTris;
-  if (n_tiles == 1) {
+  const bool resident = p.n_tris <= kTileTris;
+  if (resident) {
     load_tile(s_tri, tris, 0, p.n_tris);
     __syncthreads();
   }
 
-  const bool valid = slot < p.n_slots;
-  const bool in_image = valid && slot < p.n_pix;
-  float ox = p.cam_x, oy = p.cam_y, oz = p.cam_z, dx, dy, dz;
-  primary_dir(p, slot, uniform01(p.seed, slot, 0, 2),
-              uniform01(p.seed, slot, 0, 3), dx, dy, dz);
-  float tr = 1.f, tg = 1.f, tb = 1.f, psum = 0.f;
-  float ar = 0.f, ag = 0.f, ab = 0.f;   // current pixel's radiance sum
-  int bounce = 0, remaining = in_image ? p.spp - 1 : 0, pix = slot, k = 0;
-  bool act = in_image;
+  Slot s = start_slot(p, slot);
   uint32_t it = 0;
-
-  while (__syncthreads_or(act)) {
-    Hit h{kInf, -1, 0.f, 0.f, 0.f};
-    for (int tile = 0; tile < n_tiles; ++tile) {
-      const int first = tile * kTileTris;
-      const int n = min(kTileTris, p.n_tris - first);
-      if (n_tiles > 1) {
-        __syncthreads();
-        load_tile(s_tri, tris, first, n);
-        __syncthreads();
-      }
-      if (act) hit_tris(s_tri, n, first, ox, oy, oz, dx, dy, dz, h);
-    }
-    if (!act) continue;
-
-    const uint32_t it1 = it + 1;
-    const float u1 = uniform01(p.seed, pix, it1, 0);
-    const float u2 = uniform01(p.seed, pix, it1, 1);
-    const float u3 = uniform01(p.seed, pix, it1, 2);
-    const float u4 = uniform01(p.seed, pix, it1, 3);
-
-    const bool missed = h.t >= kInf;
-    const float* m = mat + 16 * (missed ? 0 : h.tri);
-    const bool hit_light = !missed && __ldg(m + 9) > 0.5f;
-    const bool hit_surface = !missed && !hit_light;
-    if (missed) {
-      ar += tr * p.env;
-      ag += tg * p.env;
-      ab += tb * p.env;
-    } else if (hit_light) {
-      ar += tr * __ldg(m + 6);
-      ag += tg * __ldg(m + 7);
-      ab += tb * __ldg(m + 8);
-    }
-
-    const bool exhausted = hit_surface && bounce + 1 >= p.max_bounces;
-    bool survive = hit_surface && !exhausted;
-    bool rr_killed = false;
-    float sdx = 0.f, sdy = 0.f, sdz = 0.f;
-    if (survive) {
-      float scale;
-      sample(p, pix, it1, u1, u2, h, __ldg(m + 0), __ldg(m + 1),
-             __ldg(m + 2), sdx, sdy, sdz, scale);
-      tr = tr * __ldg(m + 3) * scale;
-      tg = tg * __ldg(m + 4) * scale;
-      tb = tb * __ldg(m + 5) * scale;
-      if (p.russian_roulette && bounce + 1 >= p.rr_start_bounce) {
-        // Unbiased kill/reweight on RNG stream 4 (megakernel.py:557-572).
-        const float u5 = uniform01(p.seed, pix, it1, 4);
-        const float p_keep =
-            fminf(fmaxf(fmaxf(tr, fmaxf(tg, tb)), p.rr_min_prob), 1.f);
-        rr_killed = u5 >= p_keep;
-        if (!rr_killed) {
-          const float inv_p = 1.f / p_keep;
-          tr *= inv_p;
-          tg *= inv_p;
-          tb *= inv_p;
-        }
-        survive = !rr_killed;
-      }
-    }
-    if (survive) {
-      ox = ox + h.t * dx + p.eps * sdx;
-      oy = oy + h.t * dy + p.eps * sdy;
-      oz = oz + h.t * dz + p.eps * sdz;
-      dx = sdx;
-      dy = sdy;
-      dz = sdz;
-    }
-    if (missed || hit_light || rr_killed)
-      psum += static_cast<float>(bounce + 1);
-    if (exhausted) psum += static_cast<float>(p.max_bounces);
-
-    if (survive) {
-      bounce += 1;
-    } else {
-      // Regeneration: the pixel's next sample, else the slot's next
-      // multiplexed pixel, else the slot goes idle.
-      if (remaining <= 0 && k + 1 < p.pix_mux && pix + p.n_slots < p.n_pix) {
-        store_pixel(rad, p, k, slot, ar, ag, ab);
-        ar = ag = ab = 0.f;
-        pix += p.n_slots;
-        k += 1;
-        remaining = p.spp;
-      }
-      if (remaining > 0) {
-        primary_dir(p, pix, u3, u4, dx, dy, dz);
-        ox = p.cam_x;
-        oy = p.cam_y;
-        oz = p.cam_z;
-        tr = tg = tb = 1.f;
-        bounce = 0;
-        remaining -= 1;
-      } else {
-        act = false;
-      }
-    }
-    it = it1;
+  while (__syncthreads_or(s.act)) {
+    const Hit h = sweep(tris, s_tri, p.n_tris, resident, s.act, s.ox, s.oy,
+                        s.oz, s.dx, s.dy, s.dz);
+    if (!s.act) continue;
+    advance(p, mat, sample, h, it + 1, s, rad, slot);
+    it += 1;
   }
 
-  if (!valid) return;
-  store_pixel(rad, p, k, slot, ar, ag, ab);
-  for (int kk = k + 1; kk < p.pix_mux; ++kk)
+  if (slot >= p.n_slots) return;
+  store_pixel(rad, p, s.k, slot, s.ar, s.ag, s.ab);
+  for (int kk = s.k + 1; kk < p.pix_mux; ++kk)
     store_pixel(rad, p, kk, slot, 0.f, 0.f, 0.f);
-  path_sum[slot] = psum;
+  path_sum[slot] = s.psum;
   iters[slot] = static_cast<int>(it);
 }
 

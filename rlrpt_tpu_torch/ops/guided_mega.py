@@ -74,9 +74,21 @@ def _concentric_dir(gx, gy, nx, ny, nz):
             lx * tz + ly * nz + lz * bz, ly)
 
 
+def bin_column(hit, uv_bins: int) -> torch.Tensor:
+    """Column of the binned tables for each hit: tri * uv^2 + iu * uv + iv,
+    (iu, iv) the clipped bins of barycentric u'/det, v'/det
+    (csrc/path_common.cuh:bin_column)."""
+    _, tri, up, vp, det = hit
+    dsafe = torch.where(det == 0.0, torch.ones_like(det), det)
+    iu = torch.clamp((up / dsafe * uv_bins).to(torch.int64), 0, uv_bins - 1)
+    iv = torch.clamp((vp / dsafe * uv_bins).to(torch.int64), 0, uv_bins - 1)
+    return tri * (uv_bins * uv_bins) + iu * uv_bins + iv
+
+
 def _cdf_sampler(seed: int, cdf_t: torch.Tensor, sector_grid: int,
                  uv_bins: int):
-    """The guided bounce of the twin over a (C, S_pad) transposed table."""
+    """The guided bounce of the twin over a (C, S_pad) transposed table.
+    Its info is (sector, column) of every slot's draw."""
     n_sectors = sector_grid * sector_grid
     pdf_scale = float(torch.tensor(n_sectors / (2.0 * PI),
                                    dtype=torch.float32))
@@ -84,13 +96,8 @@ def _cdf_sampler(seed: int, cdf_t: torch.Tensor, sector_grid: int,
 
     def sample(pix, it1, u1, u2, hit, nx, ny, nz):
         us = _uniform(seed, pix, it1, 5)
-        _, tri, up, vp, det = hit
-        dsafe = torch.where(det == 0.0, torch.ones_like(det), det)
-        iu = torch.clamp((up / dsafe * uv_bins).to(torch.int64), 0,
-                         uv_bins - 1)
-        iv = torch.clamp((vp / dsafe * uv_bins).to(torch.int64), 0,
-                         uv_bins - 1)
-        col = cdf_t[tri * (uv_bins * uv_bins) + iu * uv_bins + iv].float()
+        column = bin_column(hit, uv_bins)
+        col = cdf_t[column].float()
         cnt = (col < us[:, None]).sum(dim=1)
         sector = torch.clamp(cnt, max=n_sectors - 1)
         hi = col.gather(1, sector[:, None])[:, 0]
@@ -108,7 +115,7 @@ def _cdf_sampler(seed: int, cdf_t: torch.Tensor, sector_grid: int,
         gy = (syg.float() + u2) * inv_gdir
         dx, dy, dz, cost = _concentric_dir(gx, gy, nx, ny, nz)
         # throughput *= (diffuse/pi) * cos / pdf
-        return dx, dy, dz, cost / (float(PI) * pdf_safe)
+        return dx, dy, dz, cost / (float(PI) * pdf_safe), (sector, column)
 
     return sample
 
@@ -120,6 +127,25 @@ def mega_guided_frame_plain(seed: int, cam: tuple, tris: torch.Tensor,
     """Plain torch twin of kernel B3 on the same inputs."""
     return run_slots_plain(seed, cam, tris, mat, cfg, n_slots, pix_mux,
                            _cdf_sampler(seed, cdf_t, sector_grid, uv_bins))
+
+
+def check_cdf(cdf_t: torch.Tensor, tris: torch.Tensor, sector_grid: int,
+              uv_bins: int) -> None:
+    """What the guided kernels take of a transposed (C, S_pad) table."""
+    n_cols = tris.shape[0] * uv_bins * uv_bins
+    if (cdf_t.dim() != 2 or cdf_t.shape[0] < n_cols
+            or cdf_t.dtype != torch.bfloat16 or not cdf_t.is_contiguous()):
+        raise ValueError(f"cdf_t must be a contiguous bf16 (C >= {n_cols}, "
+                         f"S_pad) table, got {cdf_t.dtype} "
+                         f"{tuple(cdf_t.shape)}")
+    if cdf_t.shape[1] < sector_grid * sector_grid:
+        raise ValueError(f"table has {cdf_t.shape[1]} sector rows for "
+                         f"{sector_grid}x{sector_grid} sectors")
+    if cdf_t.device != tris.device:
+        raise ValueError("cdf_t must be on the tables' device")
+    if tris.device.type == "cuda" and cdf_t.shape[1] % 8:
+        raise ValueError(f"the kernels read 8 sectors per load; S_pad "
+                         f"{cdf_t.shape[1]} is not a multiple of 8")
 
 
 KERNEL = _cuda.Kernel("rlrpt_mega_guided",
@@ -134,17 +160,7 @@ def mega_guided_frame(seed: int, cam: tuple, tris: torch.Tensor,
     transposed and contiguous.  Returns (rad, path_sum, iters) as
     ops.megakernel.mega_default_frame does.  CPU tensors take the twin."""
     check_tables(tris, mat)
-    n_cols = tris.shape[0] * uv_bins * uv_bins
-    if (cdf_t.dim() != 2 or cdf_t.shape[0] < n_cols
-            or cdf_t.dtype != torch.bfloat16 or not cdf_t.is_contiguous()):
-        raise ValueError(f"cdf_t must be a contiguous bf16 (C >= {n_cols}, "
-                         f"S_pad) table, got {cdf_t.dtype} "
-                         f"{tuple(cdf_t.shape)}")
-    if cdf_t.shape[1] < sector_grid * sector_grid:
-        raise ValueError(f"table has {cdf_t.shape[1]} sector rows for "
-                         f"{sector_grid}x{sector_grid} sectors")
-    if cdf_t.device != tris.device:
-        raise ValueError("cdf_t must be on the tables' device")
+    check_cdf(cdf_t, tris, sector_grid, uv_bins)
     if tris.device.type == "cpu":
         return mega_guided_frame_plain(seed, cam, tris, mat, cdf_t,
                                        sector_grid, uv_bins, cfg, n_slots,
@@ -152,9 +168,6 @@ def mega_guided_frame(seed: int, cam: tuple, tris: torch.Tensor,
     if tris.device.type != "cuda":
         raise ValueError(f"no kernel for device {tris.device}")
     s_pad = cdf_t.shape[1]
-    if s_pad % 8:
-        raise ValueError(f"the kernel reads 8 sectors per load; S_pad "
-                         f"{s_pad} is not a multiple of 8")
     n_sectors = sector_grid * sector_grid
     params = mega_params(
         seed, cam, tris.shape[0], cfg, n_slots, pix_mux,

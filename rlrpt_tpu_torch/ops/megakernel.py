@@ -204,11 +204,15 @@ def closest_hit_mt(ox, oy, oz, dx, dy, dz, tris):
 
 def run_slots_plain(seed: int, cam: tuple, tris: torch.Tensor,
                     mat: torch.Tensor, cfg: RenderConfig, n_slots: int,
-                    pix_mux: int, sample):
+                    pix_mux: int, sample, on_step=None):
     """The regenerative slot loop of the kernels (csrc/path_common.cuh:
-    run_slots), vectorised over slots: every step advances every active
-    slot by one bounce.  ``sample(pix, it1, u1, u2, hit, nx, ny, nz)``
-    returns (dx, dy, dz, scale) for surface hits.
+    run_slots, advance), vectorised over slots: every step advances every
+    active slot by one bounce.  ``sample(pix, it1, u1, u2, hit, nx, ny,
+    nz)`` returns (dx, dy, dz, scale, info) for surface hits, ``info``
+    whatever the sampler reports of its draw.  ``on_step(act, m, missed,
+    hit_light, survive, info)``, if given, sees every step after
+    the bounce cap and Russian roulette (``survive``: the path goes on);
+    it must not change the path state.
 
     Returns rad (pix_mux, n_slots, 3), path_sum (n_slots,) f32 and iters
     (n_slots,) i32: per slot, the iteration at which it went idle.
@@ -255,8 +259,8 @@ def run_slots_plain(seed: int, cam: tuple, tris: torch.Tensor,
 
         exhausted = hit_surface & (bounce + 1 >= cfg.max_ray_bounces)
         survive = hit_surface & ~exhausted
-        sdx, sdy, sdz, scale = sample(pix, it1, u1, u2, hit,
-                                      m[:, 0], m[:, 1], m[:, 2])
+        sdx, sdy, sdz, scale, info = sample(pix, it1, u1, u2, hit,
+                                            m[:, 0], m[:, 1], m[:, 2])
         tr = torch.where(survive, tr * m[:, 3] * scale, tr)
         tg = torch.where(survive, tg * m[:, 4] * scale, tg)
         tb = torch.where(survive, tb * m[:, 5] * scale, tb)
@@ -274,6 +278,8 @@ def run_slots_plain(seed: int, cam: tuple, tris: torch.Tensor,
             tg = torch.where(keep, tg * inv_p, tg)
             tb = torch.where(keep, tb * inv_p, tb)
             survive = survive & ~rr_killed
+        if on_step is not None:
+            on_step(act, m, missed, hit_light, survive, info)
 
         ox = torch.where(survive, ox + best_t * dx + cfg.eps * sdx, ox)
         oy = torch.where(survive, oy + best_t * dy + cfg.eps * sdy, oy)
@@ -319,7 +325,7 @@ def run_slots_plain(seed: int, cam: tuple, tris: torch.Tensor,
 
 def _uniform_sampler(pix, it1, u1, u2, hit, nx, ny, nz):
     dx, dy, dz = _uniform_hemisphere_dir(u1, u2, nx, ny, nz)
-    return dx, dy, dz, 2.0 * u1
+    return dx, dy, dz, 2.0 * u1, None
 
 
 def mega_default_frame_plain(seed: int, cam: tuple, tris: torch.Tensor,

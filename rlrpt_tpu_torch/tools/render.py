@@ -5,16 +5,20 @@
 
 Modes ported so far:
   default     the plain torch wavefront tracer (integrators.default_tracer)
+  wavefront   the persistent-wavefront tracer (integrators.wavefront), one
+              closest-hit launch per bounce (CUDA kernel B4a)
   mega        the default path-tracing megakernel (ops.megakernel, CUDA
               kernel B1)
-  sarsa-mega  the binned expected-SARSA pipeline: --frames learning frames,
-              a CDF rebuild, then a guided render with the frozen map
-              (ops.guided_mega, CUDA kernel B3).  The learning kernel (B2)
-              is not ported yet, so only --frames 0 runs: it renders with
-              the initial (uniform-radiance) table.
+  sarsa-mega  the binned expected-SARSA pipeline: --frames learning frames
+              (ops.guided_mega_train, CUDA kernel B2) with a CDF rebuild
+              after each, then a guided render with the learned map
+              (ops.guided_mega, CUDA kernel B3).  Prints avg_path and
+              td_scatters per frame.  --stats (the training stats file)
+              comes with utils/stats.py, not ported yet.
 
-Kernel seeds come from a torch.Generator seeded with --seed, so images
-differ from the JAX CLI's for the same --seed (both are unbiased).
+Kernel seeds come from a torch.Generator seeded with --seed: learning
+frame f takes the f-th draw and the final guided render the next one, so
+images differ from the JAX CLI's for the same --seed (both are unbiased).
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ from rlrpt_tpu_torch.config import RadianceVolumeConfig, RenderConfig
 from rlrpt_tpu_torch.scene import presets
 from rlrpt_tpu_torch.utils.image import write_bmp, write_png
 
-MODES = ("default", "mega", "sarsa-mega")
+MODES = ("default", "wavefront", "mega", "sarsa-mega")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -45,10 +49,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--spp", type=int, default=32)
     p.add_argument("--bounces", type=int, default=80)
     p.add_argument("--frames", type=int, default=1,
-                   help="sarsa-mega learning frames.  The learning kernel "
-                        "(ROADMAP item B2) is not ported yet: only "
-                        "--frames 0 runs, and the default of 1 raises "
-                        "NotImplementedError")
+                   help="sarsa-mega learning frames")
     p.add_argument("--seed", type=int, default=1984)
     p.add_argument("--out", default="render.png", help=".png or .bmp")
     p.add_argument("--grid-resolution", type=int, default=12)
@@ -63,7 +64,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def render(args: argparse.Namespace):
     """Render as ``args`` say; returns (image (H, W, 3) float32 tensor,
-    aux dict)."""
+    aux dict).  For sarsa-mega, aux also holds "frames" (per learning
+    frame: avg_path, td_scatters, seconds), "guided_seconds" and the
+    learned "q" and "visits"."""
     device = torch.device(args.device)
     cfg = RenderConfig(width=args.width, height=args.height,
                        samples_per_pixel=args.spp,
@@ -82,28 +85,47 @@ def render(args: argparse.Namespace):
     if args.mode == "default":
         from rlrpt_tpu_torch.integrators.default_tracer import render_default
         return render_default(next_seed(), scene, camera, cfg, device)
+    if args.mode == "wavefront":
+        from rlrpt_tpu_torch.integrators.wavefront import render_wavefront
+        return render_wavefront(next_seed(), scene, camera, cfg, device)
     if args.mode == "mega":
         from rlrpt_tpu_torch.ops.megakernel import render_default_mega
         return render_default_mega(next_seed(), scene, camera, cfg, device)
 
-    # sarsa-mega: the pipeline of rlrpt_tpu/tools/render.py:169-193.
+    # sarsa-mega: the pipeline of rlrpt_tpu/tools/render.py:160-193.
     from rlrpt_tpu_torch.ops.guided_mega import render_guided_mega
-    from rlrpt_tpu_torch.ops.guided_mega_train import (init_bin_q,
-                                                       rebuild_bin_cdf)
+    from rlrpt_tpu_torch.ops.guided_mega_train import (
+        init_bin_q, rebuild_bin_cdf, render_sarsa_mega_train)
     from rlrpt_tpu_torch.ops.megakernel import _t_pad
-    if args.frames > 0:
-        raise NotImplementedError(
-            "sarsa-mega learning frames need the in-kernel SARSA trainer, "
-            "ROADMAP item B2 (not ported yet); run with --frames 0")
     rl = RadianceVolumeConfig(grid_resolution=args.grid_resolution)
     if rl.grid_resolution == 12:
         rl = dataclasses.replace(rl, grid_resolution=11)
     gr, ub = rl.grid_resolution, 4
     t_pad = _t_pad(scene.n_triangles)
-    q, _ = init_bin_q(t_pad, ub, gr, rl.initial_radiance, device=device)
+    q, vis = init_bin_q(t_pad, ub, gr, rl.initial_radiance, device=device)
     table = rebuild_bin_cdf(q, gr, ub, t_pad,
                             defensive_mix=rl.defensive_mix)
-    return render_guided_mega(next_seed(), scene, camera, table, cfg, device)
+    frames = []
+    for fr in range(args.frames):
+        t0 = time.perf_counter()
+        _, q, vis, aux = render_sarsa_mega_train(
+            next_seed(), scene, camera, table, q, vis, cfg,
+            rl.radiance_threshold, device)
+        table = rebuild_bin_cdf(q, gr, ub, t_pad,
+                                defensive_mix=rl.defensive_mix)
+        stats = {"avg_path": float(aux["avg_path_length"]),
+                 "td_scatters": int(aux["td_scatter_count"])}
+        stats["seconds"] = time.perf_counter() - t0   # the reads waited
+        frames.append(stats)
+        print(f"frame {fr}: avg_path {stats['avg_path']:.2f}  td_scatters "
+              f"{stats['td_scatters']}")
+    t0 = time.perf_counter()
+    img, aux = render_guided_mega(next_seed(), scene, camera, table, cfg,
+                                  device)
+    float(aux["avg_path_length"])   # wait for the device
+    aux.update(frames=frames, guided_seconds=time.perf_counter() - t0, q=q,
+               visits=vis)
+    return img, aux
 
 
 def save(img, path: str) -> None:

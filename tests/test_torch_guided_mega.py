@@ -1,9 +1,10 @@
 """rlrpt_tpu_torch guided megakernel (B3's plain twin) and the binned-Q
 host helpers vs rlrpt_tpu.
 
-The CDF rebuild is bit-equal in bf16; the guided twin draws the JAX
-kernel's samples, so images agree per pixel up to paths where f32 rounding
-flips a hit or a uv bin.  The CUDA kernel is held against the twin on the
+The CDF rebuild agrees to 1 bf16 ulp (torch's sum and scan round in
+another order than XLA's); the guided twin draws the JAX kernel's
+samples, so images agree per pixel up to paths where f32 rounding flips a
+hit or a uv bin.  The CUDA kernel is held against the twin on the
 card by chip_smoke.py.
 """
 
@@ -65,13 +66,18 @@ def test_rebuild_bin_cdf_bit_equal(sector_grid, mix):
                             defensive_mix=mix)
     assert tt.cdf.dtype == torch.bfloat16
     assert (tt.sector_grid, tt.uv_bins, tt.t_pad) == (sector_grid, 4, T_PAD)
-    np.testing.assert_array_equal(
-        tt.cdf.view(torch.int16).numpy(),
-        np.asarray(tj.cdf).view(np.int16))
+    # Every entry is positive, so bf16 bit patterns order as the values:
+    # at most 1 ulp apart, and rarely that (1 of 92,160 entries at 12x12,
+    # none elsewhere; 23 of 1,638,400 over 20 skewed tables).
+    ulps = np.abs(tt.cdf.view(torch.int16).numpy().astype(np.int32)
+                  - np.asarray(tj.cdf).view(np.int16).astype(np.int32))
+    assert ulps.max() <= 1
+    assert (ulps > 0).sum() <= 1e-4 * ulps.size, (ulps > 0).sum()
     # the numpy hand-over of a bf16 table is exact
     tc = tri_bin_cdf_from_numpy(np.asarray(tj.cdf, np.float32),
                                 sector_grid, 4, T_PAD)
-    assert torch.equal(tc.cdf, tt.cdf)
+    np.testing.assert_array_equal(tc.cdf.view(torch.int16).numpy(),
+                                  np.asarray(tj.cdf).view(np.int16))
 
 
 @pytest.mark.parametrize("uv_bins,skew", [(4, 0.0), (4, 3.0), (2, 3.0)],
