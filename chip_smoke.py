@@ -4,9 +4,13 @@
 
 Builds the CUDA kernels from rlrpt_tpu_torch/csrc, holds each against its
 plain torch twin on the card (at small extra cases and at the main path's
-shapes) and times both at the main path's shapes, then drives each path
-through the entry points a user calls, with every launch count set to 0
-just before it and read just after:
+shapes), times both at the main path's shapes beside the kernel's bound
+(the least time for its work, from this run's segment counts), checks
+that a decreasing CDF table is refused, times B2's grid barrier and counts
+the device kernels of one B2 learning frame under torch.profiler (one
+launch of the train kernel, no host sync inside the frame), then drives
+each path through the entry points a user calls, with every launch count
+set to 0 just before it and read just after:
 
 * the default megakernel at the bench point (Cornell 720x720, 1 spp,
   80-bounce cap): B1;
@@ -38,6 +42,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -51,9 +56,60 @@ ROOT = Path(__file__).resolve().parent
 CAM = (0.0, 0.0, -3.0)
 TOL = "99% of pixels within atol 1e-4 rtol 1e-3; mean 0.5%; avg path 1%"
 
+# The least time the card could take for a kernel's work (bound_ms): the
+# larger of its f32 operations over the H100 SXM's 67 TFLOP/s (no tensor
+# cores; an FMA counts as two) and its bytes (each input read once, each
+# output written once) over 3.35 TB/s.  Counted from the sources, per
+# segment traced (a closest hit and the bounce after it):
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
+MT_OPS = 50   # f32 operations of one ray-triangle test: 46 adds and
+#             # multiplies, 4 compares (csrc/path_common.cuh:hit_tris; the
+#             # division of a hit aside)
+SEGMENT_OPS = {   # f32 operations of a step besides the hit test
+    "B1": 75,     # uniforms, hemisphere frame and direction, throughput,
+    #             # next origin (advance + UniformSampler)
+    "B3": 125,    # the same with CdfSampler: bin column, ~7 probes, pdf,
+    #             # concentric map
+    "B2": 131,    # B3's plus the TD target and the pending brdf
+}
+APPLY_OPS = 10    # f32 operations per (sector, column) cell per iteration
+
+
+def bound_ms(ops: float, nbytes: float) -> tuple[float, str]:
+    """(least time in ms, what sets it) for ops f32 operations and nbytes
+    of device memory traffic."""
+    t_ops, t_bytes = ops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def frame_bound(kernel: str, out, n_tris: int, table_bytes: int = 0,
+                extra_ops: float = 0.0) -> tuple[float, str]:
+    """bound_ms of a megakernel frame from its own outputs: segments =
+    the sum of path_sum (every step of every path); bytes = the tables
+    read and rad, path_sum, iters written."""
+    rad, path_sum, iters = out[:3]
+    segments = float(path_sum.double().sum())
+    ops = segments * (MT_OPS * n_tris + SEGMENT_OPS[kernel]) + extra_ops
+    nbytes = (n_tris * (48 + 64) + table_bytes + rad.numel() * 4
+              + path_sum.numel() * 4 + iters.numel() * 4)
+    return bound_ms(ops, nbytes)
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def kernel_name(symbol: str) -> str:
+    """The kernel's own name in a mangled symbol: the first <length><name>
+    run whose name ends in "kernel" (a length may follow hex digits)."""
+    for m in re.finditer(r"\d+", symbol):
+        for i in range(m.start(), m.end()):
+            n = int(symbol[i:m.end()])
+            name = symbol[m.end():m.end() + n]
+            if len(name) == n and name.endswith("kernel"):
+                return name
+    return symbol
 
 
 def check(ok: bool, msg: str) -> None:
@@ -115,20 +171,21 @@ def clutter_scene(device):
         device=device)
 
 
-def skewed_q(device, skew: float):
-    """The initial binned Q (Cornell, 11x11 sectors, uv_bins 4) skewed per
-    entry by exp(skew * U[0, 1)) from numpy seed 3."""
+def skewed_q(device, skew: float, t_pad: int = 40):
+    """The initial binned Q (11x11 sectors, uv_bins 4; t_pad 40 is the
+    Cornell box's) skewed per entry by exp(skew * U[0, 1)) from numpy
+    seed 3."""
     from rlrpt_tpu_torch.ops.guided_mega_train import init_bin_q
-    q, _ = init_bin_q(40, 4, 11, 100.0 / 121)
+    q, _ = init_bin_q(t_pad, 4, 11, 100.0 / 121)
     u = np.random.default_rng(3).random(q.shape)
     return (q * torch.from_numpy(np.exp(skew * u).astype(np.float32))).to(
         device)
 
 
-def skewed_table(device, skew: float):
+def skewed_table(device, skew: float, t_pad: int = 40):
     """skewed_q rebuilt to a CDF."""
     from rlrpt_tpu_torch.ops.guided_mega_train import rebuild_bin_cdf
-    return rebuild_bin_cdf(skewed_q(device, skew), 11, 4, 40)
+    return rebuild_bin_cdf(skewed_q(device, skew, t_pad), 11, 4, t_pad)
 
 
 def compare_train(name: str, k_out, p_out, b3_out, q_in, v_in) -> float:
@@ -184,6 +241,41 @@ def host_ms(fn):
     out = fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3, out
+
+
+def profile_train_frame(fn) -> tuple[dict, list, list]:
+    """fn() (one B2 learning frame) under torch.profiler: its device
+    kernels by name (memsets and copies included), and the host's stream
+    and device synchronisations before and after the train kernel's
+    cooperative launch (the profile's own closing one left out)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        with record_function("closing_sync"):
+            torch.cuda.synchronize()
+    kernels, host, starts, closing = {}, [], [], []
+    for e in prof.events():
+        if e.name == "closing_sync":
+            closing.append(e.time_range.start)
+        if e.device_type == DeviceType.CUDA:
+            name = "train_kernel" if "train_kernel" in e.name else e.name[:48]
+            kernels[name] = kernels.get(name, 0) + 1
+            if name == "train_kernel":
+                starts.append(e.time_range.start)
+        elif "Synchronize" in e.name or "LaunchCooperative" in e.name:
+            host.append((e.time_range.start, e.name))
+    host.sort()
+    # the launch call where the profiler records it, else the kernel's start
+    launch = [t for t, n in host if "LaunchCooperative" in n] or starts
+    check(len(launch) == 1, f"{len(launch)} train kernel launches profiled")
+    check(len(closing) == 1, "the profile's closing sync not found")
+    syncs = [(t, n) for t, n in host
+             if "Synchronize" in n and t < closing[0]]
+    return (kernels, [n for t, n in syncs if t < launch[0]],
+            [n for t, n in syncs if t > launch[0]])
 
 
 def sync(dev) -> None:
@@ -520,9 +612,12 @@ def main(argv=None) -> int:
         f"{time.perf_counter() - t0:.2f} s (nvcc "
         f"{_cuda.BuildInfo.seconds if _cuda.BuildInfo.seconds is not None else 'cached'}"
         f" s) -> {_cuda.BuildInfo.path.name}")
+    name = "?"
     for line in _cuda.BuildInfo.log.splitlines():
+        if "Function properties for " in line:
+            name = kernel_name(line.split("Function properties for ")[1])
         if "registers" in line or "spill" in line:
-            log(f"[1]   ptxas: {line.strip()}")
+            log(f"[1]   ptxas {name}: {line.strip()}")
 
     cam = mk.camera_vector(Camera.create(CAM))
     tris, mat = mk.pack_scene(cornell_box(device=dev))
@@ -552,15 +647,35 @@ def main(argv=None) -> int:
     cfg = RenderConfig(width=64, height=64, samples_per_pixel=4,
                        max_ray_bounces=10)
     n_slots = mk.n_slots_for(cfg.n_pixels, 128, 1)
-    for label, skew in (("initial table", 0.0), ("skewed table", 3.0)):
-        cdf_t = skewed_table(dev, skew).cdf.T.contiguous()
+    clutter_tables = mk.pack_scene(clutter_scene(dev))
+    clutter_pad = mk._t_pad(clutter_tables[0].shape[0])
+    for label, skew, scene_tables, t_pad in (
+            ("initial table", 0.0, (tris, mat), 40),
+            ("skewed table", 3.0, (tris, mat), 40),
+            ("cornell+250 tris (2 tiles), skewed table", 3.0, clutter_tables,
+             clutter_pad)):
+        cdf_t = skewed_table(dev, skew, t_pad).cdf.T.contiguous()
         before = gm.KERNEL.launches
-        k_out = gm.mega_guided_frame(777, cam, tris, mat, cdf_t, 11, 4, cfg,
-                                     n_slots, 1)
+        k_out = gm.mega_guided_frame(777, cam, *scene_tables, cdf_t, 11, 4,
+                                     cfg, n_slots, 1)
         check(gm.KERNEL.launches == before + 1, "B3 launch not counted")
-        p_out = gm.mega_guided_frame_plain(777, cam, tris, mat, cdf_t, 11, 4,
-                                           cfg, n_slots, 1)
+        p_out = gm.mega_guided_frame_plain(777, cam, *scene_tables, cdf_t, 11,
+                                           4, cfg, n_slots, 1)
         b3_err = max(b3_err, compare(label, k_out, p_out, cfg))
+    # the binary search needs non-decreasing columns: one that decreases
+    # must raise before any launch
+    bad = skewed_table(dev, 0.0).cdf.T.contiguous()
+    bad[17, 40] = bad[17, 39] - 0.125
+    before = gm.KERNEL.launches
+    try:
+        gm.mega_guided_frame(777, cam, tris, mat, bad, 11, 4, cfg, n_slots, 1)
+        raised = False
+    except ValueError as e:
+        raised = "decrease" in str(e)
+    check(raised and gm.KERNEL.launches == before,
+          "check_cdf let a decreasing CUDA table through")
+    log("[3] check_cdf raised ValueError on a CUDA table with one decreasing "
+        "column; nothing launched")
 
     # ---- kernel vs twin, output and time, at the main path's shapes -----
     # (r_tile R_TILE, pix_mux PIX_MUX as render_default_mega and
@@ -576,8 +691,12 @@ def main(argv=None) -> int:
     b1_err = max(b1_err, compare("B1 cornell 720x720 1spp 80 bounces",
                                  b1_main(), b1_plain_out, bench))
     b1_ms = kernel_ms(b1_main, 20)
+    n_tris = tris.shape[0]
+    b1_bound, b1_by = frame_bound("B1", b1_plain_out, n_tris)
     log(f"[4] B1 at 720x720 1spp 80 bounces: kernel {b1_ms:.4f} ms, "
-        f"torch twin {b1_plain_ms:.1f} ms")
+        f"torch twin {b1_plain_ms:.1f} ms; bound {b1_bound:.4f} ms "
+        f"({b1_by}; {float(b1_plain_out[1].double().sum()):.0f} segments), "
+        f"{b1_bound / b1_ms:.4f} of it reached")
     sarsa = RenderConfig(width=720, height=720, samples_per_pixel=32,
                          max_ray_bounces=80)
     cdf_t = skewed_table(dev, 0.0).cdf.T.contiguous()
@@ -588,8 +707,12 @@ def main(argv=None) -> int:
     b3_err = max(b3_err, compare("B3 initial table 720x720 32spp 80 bounces",
                                  b3_main(), b3_plain_out, sarsa))
     b3_ms = kernel_ms(b3_main, 5)
+    b3_bound, b3_by = frame_bound("B3", b3_plain_out, n_tris,
+                                  cdf_t.numel() * 2)
     log(f"[4] B3 at 720x720 32spp 80 bounces: kernel {b3_ms:.3f} ms, "
-        f"torch twin {b3_plain_ms:.1f} ms")
+        f"torch twin {b3_plain_ms:.1f} ms; bound {b3_bound:.4f} ms "
+        f"({b3_by}; {float(b3_plain_out[1].double().sum()):.0f} segments), "
+        f"{b3_bound / b3_ms:.4f} of it reached")
 
     # ---- 6: B2 vs its twin and vs B3 -----------------------------------
     log("[6] B2 mega_train vs its torch twin and B3 (frame bit-equal, "
@@ -634,16 +757,41 @@ def main(argv=None) -> int:
         "B2 initial table 720x720 32spp 80 bounces",
         gt.mega_train_frame(*args), b2_plain_out, b3_main(), q_in, v_in))
     b2_ms = kernel_ms(lambda: gt.mega_train_frame(*args), 5)
+    b2_iters = int(b2_plain_out[2].max())
+    b2_bound, b2_by = frame_bound(
+        "B2", b2_plain_out, n_tris, cdf_t.numel() * 2 + 4 * 4 * q_in.numel(),
+        extra_ops=b2_iters * 121 * lum.numel() * APPLY_OPS)
     log(f"[6] B2 at 720x720 32spp 80 bounces: {b2_ms:.3f} ms per learning "
-        f"frame (CUDA events around the wrapper: its 2 launches per "
-        f"iteration and the host reads of the alive flag), torch twin "
-        f"{b2_plain_ms:.1f} ms; B3 at the same point {b3_ms:.3f} ms")
+        f"frame (CUDA events around the wrapper: its one cooperative "
+        f"launch, the buffers' zero fills and the table check), torch twin "
+        f"{b2_plain_ms:.1f} ms; {b2_iters} iterations; bound "
+        f"{b2_bound:.4f} ms ({b2_by}), {b2_bound / b2_ms:.4f} of it "
+        f"reached; B3 at the same point {b3_ms:.3f} ms")
+    n_sync = 2000
+    grid_blocks = gt.barrier_probe(n_slots, 10, dev)
+    sync_us = kernel_ms(lambda: gt.barrier_probe(n_slots, n_sync, dev),
+                        3) * 1e3 / n_sync
+    log(f"[6] grid barrier on B2's grid ({grid_blocks} blocks of 128): "
+        f"{sync_us:.4f} us each (mean of {n_sync} in one launch, 3 "
+        f"launches); 2 per iteration: {2 * b2_iters * sync_us / 1e3:.4f} ms "
+        f"of the frame")
+    b2_kernels, sync_before, sync_after = profile_train_frame(
+        lambda: gt.mega_train_frame(*args))
+    log(f"[6] one 720x720 learning frame under torch.profiler: "
+        f"{sum(b2_kernels.values())} device kernels ("
+        + ", ".join(f"{n} x{c}" for n, c in sorted(b2_kernels.items()))
+        + f"); host syncs before the cooperative launch (set-up, check_cdf): "
+        f"{sync_before}; after it, inside the frame: {sync_after}")
+    n_train = sum(c for n, c in b2_kernels.items() if "train_kernel" in n)
+    check(n_train == 1 and not sync_after,
+          f"a learning frame launched the train kernel {n_train} times and "
+          f"synchronised {len(sync_after)} times after the launch")
 
     # ---- 7: B4a, B4b, B4c vs their twins --------------------------------
     log("[7] B4a/b/c closest_hit vs the torch twin (t, idx and mat rows "
         "bit-equal; active_count at half the batch)")
     b4_err = dict.fromkeys(("B4a", "B4b", "B4c"), 0.0)
-    b4_ms, b4_plain_ms = {}, {}
+    b4_ms, b4_plain_ms, b4_bound = {}, {}, {}
     gen = torch.Generator(device=dev).manual_seed(11)
     clutter = clutter_scene(dev)
     for scene_name, sc in (("cornell", cornell), ("clutter", clutter)):
@@ -673,11 +821,19 @@ def main(argv=None) -> int:
                 cam_o, cam_d, s_tris, cam_o.shape[0], *tables[1:]))
             if scene_name == "cornell":
                 b4_ms[name], b4_plain_ms[name] = ms, plain_ms
+                # rays read (o, d), t and index written, B4a's row too
+                n_rays = cam_o.shape[0]
+                b4_bound[name] = bound_ms(
+                    n_rays * sc.n_triangles * MT_OPS,
+                    n_rays * (24 + 8 + (64 if name == "B4a" else 0)))
             hits = float((k_out[0] < 1e38).float().mean())
             log(f"  {name} {scene_name} ({s_tris.shape[0]} triangles), "
                 f"{o.shape[0]} rays, count {int(half)}: bit-equal, "
                 f"{hits:.4f} hit; 518,400 camera rays: kernel {ms:.4f} ms, "
-                f"torch twin {plain_ms:.1f} ms")
+                f"torch twin {plain_ms:.1f} ms"
+                + (f"; bound {b4_bound[name][0]:.4f} ms "
+                   f"({b4_bound[name][1]})" if scene_name == "cornell"
+                   else ""))
 
     # ---- the paths, each counted from zero ------------------------------
     kernels = {"B1": mk.KERNEL, "B3": gm.KERNEL, "B2": gt.KERNEL,
@@ -776,9 +932,11 @@ def main(argv=None) -> int:
     for i, fr in enumerate(frames):
         log(f"[8] learning frame {i}: {fr['seconds']:.4f} s, td_scatters "
             f"{fr['td_scatters']}, avg path {fr['avg_path']:.4f}")
+    check(len(frames) == 10, f"learning path: {len(frames)} frames")
+    check_visits("sarsa-mega", frames)
     td_total = sum(fr["td_scatters"] for fr in frames)
     visits = float(aux["visits"].double().sum())
-    check(len(frames) == 10 and visits == td_total,
+    check(visits == td_total,
           f"learning path: visits {visits} != td scatters {td_total}")
     q = aux["q"][:121]
     moved = float((q != rl.initial_radiance).float().mean())
@@ -789,7 +947,8 @@ def main(argv=None) -> int:
     log(f"[8] {frame_s:.4f} s per learning frame (median of 10), guided "
         f"render {aux['guided_seconds']:.4f} s, {secs['sarsa-mega-10']:.4f} s "
         f"in all; {moved:.4f} of q entries moved, q std "
-        f"{float(q.std()):.4f}; visits == td scatters == {td_total}; "
+        f"{float(q.std()):.4f}; visits == td scatters == {td_total}, and "
+        f"in every frame; "
         f"guided mean after learning vs mega: {gap:+.4%}")
     # Learned tables are skewed, and a bf16 CDF never draws a sector whose
     # probability is below its spacing (ROADMAP C): the guided frame is
@@ -849,23 +1008,28 @@ def main(argv=None) -> int:
          "source": "rlrpt_tpu_torch/csrc/mega_default.cu",
          "replaces": "rlrpt_tpu/ops/megakernel.py:247",
          "launches": launches["B1"], "max_abs_err": b1_err,
-         "ms": b1_ms, "plain_ms": b1_plain_ms},
+         "ms": b1_ms, "plain_ms": b1_plain_ms, "bound_ms": b1_bound,
+         "bound_by": b1_by, "library_ms": None},
         {"name": "B3 mega_guided", "route": "cuda",
          "source": "rlrpt_tpu_torch/csrc/mega_guided.cu",
          "replaces": "rlrpt_tpu/ops/guided_mega.py:137",
          "launches": launches["B3"], "max_abs_err": b3_err,
-         "ms": b3_ms, "plain_ms": b3_plain_ms},
+         "ms": b3_ms, "plain_ms": b3_plain_ms, "bound_ms": b3_bound,
+         "bound_by": b3_by, "library_ms": None},
         {"name": "B2 mega_train", "route": "cuda",
          "source": "rlrpt_tpu_torch/csrc/mega_train.cu",
          "replaces": "rlrpt_tpu/ops/guided_mega_train.py:101",
          "launches": launches["B2"], "max_abs_err": b2_err,
-         "ms": b2_ms, "plain_ms": b2_plain_ms},
+         "ms": b2_ms, "plain_ms": b2_plain_ms, "bound_ms": b2_bound,
+         "bound_by": b2_by, "library_ms": None},
     ] + [
         {"name": f"{n} {fn}", "route": "cuda",
          "source": "rlrpt_tpu_torch/csrc/closest_hit.cu",
          "replaces": f"rlrpt_tpu/ops/intersect_pallas.py:{line}",
          "launches": launches[n], "max_abs_err": b4_err[n],
-         "ms": b4_ms[n], "plain_ms": b4_plain_ms[n]}
+         "ms": b4_ms[n], "plain_ms": b4_plain_ms[n],
+         "bound_ms": b4_bound[n][0], "bound_by": b4_bound[n][1],
+         "library_ms": None}
         for n, fn, line in (("B4a", "closest_hit_mat_mxu", 203),
                             ("B4b", "closest_hit_packed", 48),
                             ("B4c", "closest_hit_packed_mxu", 116))]}
@@ -873,6 +1037,8 @@ def main(argv=None) -> int:
         **results, "card": card, "rays_per_s": rays_per_s,
         "rays_per_s_trials": trials, "cli_seconds": secs, "mape": mape,
         "learning_frames": frames, "guided_gap_after_learning": gap,
+        "b2_iterations": b2_iters, "b2_grid_blocks": grid_blocks,
+        "grid_barrier_us": sync_us, "b2_frame_device_kernels": b2_kernels,
         **fine},
         indent=1))
     print(card)

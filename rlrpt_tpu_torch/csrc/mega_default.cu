@@ -7,21 +7,23 @@
 // RGB + path-length sums.
 //
 // What bounds it on this card: f32 issue rate in the closest-hit sweep.
-// Each bounce of each slot tests every triangle (~30 flops apiece, 38
+// Each bounce of each slot tests every triangle (50 f32 operations apiece, 38
 // triangles for the Cornell box) against at most a few hundred bytes of
 // memory traffic per path, so the kernel is compute- and latency-bound,
 // and divergence matters: a warp runs until its longest path ends.
 //
-// What the design does about it: one thread per slot, so the TPU's (8,128)
-// vector tiles and its (4T,16)@(16,R) MXU reformulation of Moller-Trumbore
-// give way to scalar exact-f32 Moller-Trumbore on each thread; triangles
-// sit in shared memory (one load for a scene of one tile, streamed tiles
-// of 256 otherwise); a hit pays one division and reads its 16-float
-// material row from global memory (L1-cached) once.  Slot regeneration
-// keeps threads busy across samples; pix_mux > 1 lengthens each slot's
-// work to shrink the tail.  It is built without FMA contraction, so it
-// matches its torch twin bit for bit, for about 16% more kernel time
-// (_cuda.py).  wgmma, TMA and warp-level tuning are later work.
+// What the design does about it: one thread per slot at a time, so the
+// TPU's (8,128) vector tiles and its (4T,16)@(16,R) MXU reformulation of
+// Moller-Trumbore give way to scalar exact-f32 Moller-Trumbore on each
+// thread; triangles sit in shared memory (one load for a scene of one
+// tile, streamed tiles of 256 otherwise); a hit pays one division and
+// reads its 16-float material row from global memory (L1-cached) once.
+// Slot regeneration keeps a thread busy across samples, and the persistent
+// grid of run_slots hands a thread whose slot has ended the next unstarted
+// slot, so lanes stay busy until the slot queue is empty.  It is built
+// without FMA contraction, so it matches its torch twin bit for bit, for
+// about 16% more kernel time (_cuda.py).  wgmma, TMA and warp-level tuning
+// are later work.
 #include "path_common.cuh"
 
 namespace {
@@ -40,8 +42,10 @@ struct UniformSampler {
 __global__ void __launch_bounds__(rlrpt::kBlock)
     mega_default_kernel(rlrpt::MegaParams p, const float4* __restrict__ tris,
                         const float* __restrict__ mat, float* __restrict__ rad,
-                        float* __restrict__ path_sum, int* __restrict__ iters) {
-  rlrpt::run_slots(p, tris, mat, UniformSampler{}, rad, path_sum, iters);
+                        float* __restrict__ path_sum, int* __restrict__ iters,
+                        int* __restrict__ next) {
+  rlrpt::run_slots(p, tris, mat, UniformSampler{}, rad, path_sum, iters,
+                   next);
 }
 
 }  // namespace
@@ -51,16 +55,20 @@ extern "C" const char* rlrpt_cuda_error_string(int err) {
 }
 
 // tris (n_tris, 12) f32, mat (n_tris, 16) f32; rad (pix_mux, n_slots, 3)
-// f32, path_sum (n_slots,) f32, iters (n_slots,) i32.  Returns
-// cudaGetLastError() after the launch.
+// f32, path_sum (n_slots,) f32, iters (n_slots,) i32; next (1,) i32 zero,
+// the slot counter of the persistent grid.  Returns the first CUDA error
+// of the grid query and the launch, or 0.
 extern "C" int rlrpt_mega_default(rlrpt::MegaParams p, const void* tris,
                                   const void* mat, void* rad, void* path_sum,
-                                  void* iters, void* stream) {
-  const int blocks = (p.n_slots + rlrpt::kBlock - 1) / rlrpt::kBlock;
+                                  void* iters, void* next, void* stream) {
+  int blocks = 0;
+  const int err = rlrpt::slot_grid(mega_default_kernel, p.n_slots,
+                                   rlrpt::kBlock, 0, blocks);
+  if (err != 0) return err;
   mega_default_kernel<<<blocks, rlrpt::kBlock, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       p, static_cast<const float4*>(tris), static_cast<const float*>(mat),
       static_cast<float*>(rad), static_cast<float*>(path_sum),
-      static_cast<int*>(iters));
+      static_cast<int*>(iters), static_cast<int*>(next));
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,19 +8,20 @@
 // maps the sector to a direction with the Chiu concentric map.  Unbiased
 // for any table.
 //
-// What bounds it on this card: as B1, the f32 closest-hit sweep, plus one
-// CDF column per bounce (S_pad bf16 values, 256 bytes at 128 sectors) read
-// from a table of t_pad * uv_bins^2 columns (160 KB for the Cornell box at
-// uv_bins 4), which stays resident in L2 and mostly in L1.
+// What bounds it on this card: as B1, the f32 closest-hit sweep, plus a
+// few entries of one CDF column per bounce, read from a table of
+// t_pad * uv_bins^2 columns of S_pad bf16 values (160 KB for the Cornell
+// box at uv_bins 4), which stays resident in L2 and mostly in L1.
 //
 // What the design does about it: the TPU fetched the column with a
 // one-hot (S_pad, C) @ (C, r) MXU matmul because gathers are slow there;
 // here the column is a plain load.  The wrapper hands the table over
-// transposed, (C, S_pad), so a column is contiguous and is read as
-// 16-byte vectors; the sector count is a compare per entry, exact for any
-// table (monotone or not), as the TPU kernel's comparison count is.  The
-// sampler (rlrpt::CdfSampler) lives in path_common.cuh: B2 draws the same
-// paths with it.
+// transposed, (C, S_pad), so a column is contiguous, and checks that every
+// column is non-decreasing; the TPU kernel's sector count #{entries < us}
+// is then the lower bound of us, found by a binary search of about 7
+// probes instead of 128 compares.  The slot loop is run_slots' persistent,
+// work-pulling grid.  The sampler (rlrpt::CdfSampler) lives in
+// path_common.cuh: B2 draws the same paths with it.
 #include "path_common.cuh"
 
 namespace {
@@ -30,23 +31,29 @@ __global__ void __launch_bounds__(rlrpt::kBlock)
                        const float* __restrict__ mat,
                        const __nv_bfloat16* __restrict__ cdf,
                        float* __restrict__ rad, float* __restrict__ path_sum,
-                       int* __restrict__ iters) {
+                       int* __restrict__ iters, int* __restrict__ next) {
   rlrpt::run_slots(p, tris, mat, rlrpt::CdfSampler{cdf, -1}, rad, path_sum,
-                   iters);
+                   iters, next);
 }
 
 }  // namespace
 
 // As rlrpt_mega_default, plus cdf (n_cols, s_pad) bf16: the TriBinCDF
-// table transposed so that each column is contiguous.
+// table transposed so that each column is contiguous, non-decreasing down
+// every column (ops/guided_mega.py:check_cdf).
 extern "C" int rlrpt_mega_guided(rlrpt::MegaParams p, const void* tris,
                                  const void* mat, const void* cdf, void* rad,
-                                 void* path_sum, void* iters, void* stream) {
-  const int blocks = (p.n_slots + rlrpt::kBlock - 1) / rlrpt::kBlock;
+                                 void* path_sum, void* iters, void* next,
+                                 void* stream) {
+  int blocks = 0;
+  const int err = rlrpt::slot_grid(mega_guided_kernel, p.n_slots,
+                                   rlrpt::kBlock, 0, blocks);
+  if (err != 0) return err;
   mega_guided_kernel<<<blocks, rlrpt::kBlock, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       p, static_cast<const float4*>(tris), static_cast<const float*>(mat),
       static_cast<const __nv_bfloat16*>(cdf), static_cast<float*>(rad),
-      static_cast<float*>(path_sum), static_cast<int*>(iters));
+      static_cast<float*>(path_sum), static_cast<int*>(iters),
+      static_cast<int*>(next));
   return static_cast<int>(cudaGetLastError());
 }

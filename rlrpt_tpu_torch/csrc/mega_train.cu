@@ -14,31 +14,40 @@
 //
 // The schedule: one batch per global iteration.  At iteration k every
 // active slot takes its k-th step and reads the irradiance of Q after
-// iteration k-1; the step kernel adds (target, 1) to global (sum_t, cnt)
-// with atomicAdd; the apply kernel (a lane per column) then updates Q,
-// V and the columns' irradiance and zeroes the accumulators.  The TPU
-// kernel runs its ray tiles in order, each on the Q the last one left, and
-// applies after every iteration of a tile; with one tile covering every
-// slot the two schedules are the same.  Counts are small integers in f32,
-// so sum(V_out - V_in) equals the number of pending steps exactly.
+// iteration k-1; the steps add (target, 1) to global (sum_t, cnt) with
+// atomicAdd; the apply then updates Q, V and the columns' irradiance and
+// zeroes the accumulators.  The TPU kernel runs its ray tiles in order,
+// each on the Q the last one left, and applies after every iteration of a
+// tile; with one tile covering every slot the two schedules are the same.
+// Counts are small integers in f32, so sum(V_out - V_in) equals the number
+// of pending steps exactly.
 //
-// What bounds it on this card: B3's closest-hit sweep and CDF scan, plus
-// the slot state, which lives in global memory between the two launches of
-// each iteration (about 100 bytes per slot read and written per step, 52 MB
-// at 720x720), and two launches per iteration, about 1,200 per 720x720,
-// 32-spp frame.  The atomics hit a (S_pad, C) table that stays in L2
-// (320 KB each at Cornell, uv_bins 4).
+// What bounds it on this card: B3's closest-hit sweep for the same paths,
+// plus the per-iteration schedule: about 600 iterations per 720x720,
+// 32-spp frame, each a step of the live slots, an apply over the
+// (S, C) cells (the tables stay in L2: 320 KB each at Cornell, uv_bins 4)
+// and two grid-wide barriers.
 //
-// What the design does about it: the simple schedule first, a host loop of
-// two launches per iteration; a block whose slots are all idle returns at
-// once, so the tail costs a launch and not a sweep.  The host reads a
-// device-side "any slot alive" flag every kCheckEvery iterations to stop;
-// the idle iterations past the end are no-ops.  A persistent cooperative
-// kernel with a grid barrier and CUDA graphs are later perf work.  The
+// What the design does about it: the whole frame is one cooperative,
+// persistent launch (grid = the blocks that fit on the card at once), and
+// the iteration loop runs on the device: step, grid barrier, apply spread
+// over every warp of the grid, grid barrier, the "any slot alive" test.
+// No host sync inside the frame and no idle iteration past its end.  Each
+// block owns a fixed set of slots (32-slot groups spread over the image)
+// and keeps the local ids of its live ones in shared memory, compacted
+// after every step (warp ballots and a block scan), so its threads step
+// only live slots.  The per-step state
+// (origin, direction, throughput, bounce, remaining samples, pixel index
+// k, pending sector and bin: 56 bytes a slot, 29 MB at 720x720) lives in
+// device memory and stays in L2; the pending brdf is re-read from the
+// pending bin's triangle, the pixel sums, path lengths, TD counts and
+// iteration counts are written only when a path or the slot ends.  The
 // paths do not depend on Q (the sector comes from the frame-start CDF with
 // B3's sampler and RNG streams), so image, path_sum and iters are B3's bit
 // for bit; the TPU's bf16 hi/lo splits of targets and irradiance are gone:
 // kernel and twin compute in plain f32.
+#include <cooperative_groups.h>
+
 #include "path_common.cuh"
 
 namespace rlrpt {
@@ -57,240 +66,369 @@ struct TrainParams {
 
 namespace {
 
+namespace cg = cooperative_groups;
 using rlrpt::kBlock;
 using rlrpt::TrainParams;
 
-constexpr int kCheckEvery = 16;
+constexpr int kSecChunk = 8;   // sectors per apply work item (one warp)
 
-// Rows of the slot-state tables fstate (kNumF, n_slots) f32 and istate
-// (kNumI, n_slots) i32.  The pixel sums live in rad, path lengths in
-// path_sum.
-enum FRow { kOx, kOy, kOz, kDx, kDy, kDz, kTr, kTg, kTb, kBrdf, kTd, kNumF };
-enum IRow { kBounce, kRemaining, kPix, kK, kAct, kBin, kSec, kNumI };
+// Rows of the per-step slot state fstate (kNumF, n_slots) f32 and istate
+// (kNumI, n_slots) i32.  A slot's pixel is slot + k * n_slots.
+enum FRow { kOx, kOy, kOz, kDx, kDy, kDz, kTr, kTg, kTb, kNumF };
+enum IRow { kBounce, kRemaining, kK, kSec, kBin, kNumI };
 
-__device__ __forceinline__ void store_slot(const rlrpt::Slot& s, float* fs,
-                                           int* is, float* rad,
-                                           float* path_sum,
-                                           const rlrpt::MegaParams& p,
-                                           int slot) {
-  const size_t n = p.n_slots;
-  fs[kOx * n + slot] = s.ox;
-  fs[kOy * n + slot] = s.oy;
-  fs[kOz * n + slot] = s.oz;
-  fs[kDx * n + slot] = s.dx;
-  fs[kDy * n + slot] = s.dy;
-  fs[kDz * n + slot] = s.dz;
-  fs[kTr * n + slot] = s.tr;
-  fs[kTg * n + slot] = s.tg;
-  fs[kTb * n + slot] = s.tb;
-  is[kBounce * n + slot] = s.bounce;
-  is[kRemaining * n + slot] = s.remaining;
-  is[kPix * n + slot] = s.pix;
-  is[kK * n + slot] = s.k;
-  is[kAct * n + slot] = s.act;
-  rlrpt::store_pixel(rad, p, s.k, slot, s.ar, s.ag, s.ab);
-  path_sum[slot] = s.psum;
+// The frame's buffers (rlrpt_mega_train documents each).
+struct TrainBufs {
+  const float4* tris;
+  const float* mat;
+  const __nv_bfloat16* cdf;
+  const float* lum;
+  const float* sec_cos;
+  float *q, *v, *sum_t, *cnt;
+  float* irr;   // (2, C) sum_s Q*cos; iteration it reads row it & 1
+  float* fs;
+  int* is;
+  float *rad, *path_sum;
+  int* iters;
+  float* td;
+  int* flags;   // (2,): some slot is alive after iteration it, at it & 1
+  int per_block;   // slot ids a block owns (a multiple of 32)
+};
+
+// Block b owns the 32-slot groups b, b + G, b + 2G, ... (G = gridDim.x):
+// its local id l is slot ((l / 32) * G + b) * 32 + l % 32.  Groups spread
+// over the image, so the blocks' live counts stay alike and the grid
+// barrier waits little on the slowest block; a warp's ids stay adjacent.
+__device__ __forceinline__ int owned_slot(int local) {
+  return ((local >> 5) * gridDim.x + blockIdx.x) * 32 + (local & 31);
 }
 
-__device__ __forceinline__ rlrpt::Slot load_slot(const float* fs,
-                                                 const int* is,
-                                                 const float* rad,
-                                                 const float* path_sum,
-                                                 const rlrpt::MegaParams& p,
-                                                 int slot) {
+__device__ __forceinline__ void store_state(const TrainBufs& b, size_t n,
+                                            int slot, const rlrpt::Slot& s,
+                                            int sec, int bin) {
+  b.fs[kOx * n + slot] = s.ox;
+  b.fs[kOy * n + slot] = s.oy;
+  b.fs[kOz * n + slot] = s.oz;
+  b.fs[kDx * n + slot] = s.dx;
+  b.fs[kDy * n + slot] = s.dy;
+  b.fs[kDz * n + slot] = s.dz;
+  b.fs[kTr * n + slot] = s.tr;
+  b.fs[kTg * n + slot] = s.tg;
+  b.fs[kTb * n + slot] = s.tb;
+  b.is[kBounce * n + slot] = s.bounce;
+  b.is[kRemaining * n + slot] = s.remaining;
+  b.is[kK * n + slot] = s.k;
+  b.is[kSec * n + slot] = sec;
+  b.is[kBin * n + slot] = bin;
+}
+
+__device__ __forceinline__ rlrpt::Slot load_state(const TrainBufs& b,
+                                                  const rlrpt::MegaParams& p,
+                                                  int slot, int& sec,
+                                                  int& bin) {
   const size_t n = p.n_slots;
   rlrpt::Slot s;
-  s.ox = fs[kOx * n + slot];
-  s.oy = fs[kOy * n + slot];
-  s.oz = fs[kOz * n + slot];
-  s.dx = fs[kDx * n + slot];
-  s.dy = fs[kDy * n + slot];
-  s.dz = fs[kDz * n + slot];
-  s.tr = fs[kTr * n + slot];
-  s.tg = fs[kTg * n + slot];
-  s.tb = fs[kTb * n + slot];
-  s.bounce = is[kBounce * n + slot];
-  s.remaining = is[kRemaining * n + slot];
-  s.pix = is[kPix * n + slot];
-  s.k = is[kK * n + slot];
-  s.act = is[kAct * n + slot] != 0;
-  const float* a = rad + 3 * (static_cast<size_t>(s.k) * n + slot);
-  s.ar = a[0];
-  s.ag = a[1];
-  s.ab = a[2];
-  s.psum = path_sum[slot];
+  s.ox = b.fs[kOx * n + slot];
+  s.oy = b.fs[kOy * n + slot];
+  s.oz = b.fs[kOz * n + slot];
+  s.dx = b.fs[kDx * n + slot];
+  s.dy = b.fs[kDy * n + slot];
+  s.dz = b.fs[kDz * n + slot];
+  s.tr = b.fs[kTr * n + slot];
+  s.tg = b.fs[kTg * n + slot];
+  s.tb = b.fs[kTb * n + slot];
+  s.bounce = b.is[kBounce * n + slot];
+  s.remaining = b.is[kRemaining * n + slot];
+  s.k = b.is[kK * n + slot];
+  s.pix = slot + s.k * p.n_slots;
+  s.act = true;
+  sec = b.is[kSec * n + slot];
+  bin = b.is[kBin * n + slot];
   return s;
 }
 
-// The state of guided_mega_train.py:199-222; rad must be zero.
-__global__ void train_init_kernel(rlrpt::MegaParams p, float* fs, int* is,
-                                  float* rad, float* path_sum, int* iters) {
-  const int slot = blockIdx.x * blockDim.x + threadIdx.x;
-  if (slot >= p.n_slots) return;
-  const size_t n = p.n_slots;
-  store_slot(rlrpt::start_slot(p, slot), fs, is, rad, path_sum, p, slot);
-  fs[kBrdf * n + slot] = 0.f;    // pending brdf (lum/pi)
-  fs[kTd * n + slot] = 0.f;      // TD scatter count
-  is[kBin * n + slot] = 0;       // pending bin
-  is[kSec * n + slot] = -1;      // pending sector; -1: none
-  iters[slot] = 0;
+// Exclusive prefix of `flag` over the block, and the block's total.  Every
+// thread of the block calls it; it may be called back to back.
+__device__ __forceinline__ int block_scan(bool flag, int& total,
+                                          int* s_warp) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const uint32_t bal = __ballot_sync(0xffffffffu, flag);
+  __syncthreads();   // the last call's readers are done with s_warp
+  if (lane == 0) s_warp[warp] = __popc(bal);
+  __syncthreads();
+  if (warp == 0) {
+    const int own = lane < n_warps ? s_warp[lane] : 0;
+    int incl = own;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += t;
+    }
+    if (lane < n_warps) s_warp[lane] = incl - own;
+    if (lane == n_warps - 1) s_warp[32] = incl;
+  }
+  __syncthreads();
+  total = s_warp[32];
+  return s_warp[warp] + __popc(bal & rlrpt::lanes_below());
 }
 
-// Iteration it1 of every slot: closest hit, the pending transition's TD
-// target into (sum_t, cnt), then B3's step; alive[it1] = 1 if a slot is
-// still active after it.
-__global__ void __launch_bounds__(kBlock) train_step_kernel(
-    rlrpt::MegaParams p, TrainParams tp, uint32_t it1,
-    const float4* __restrict__ tris, const float* __restrict__ mat,
-    const __nv_bfloat16* __restrict__ cdf, const float* __restrict__ irr,
-    float* __restrict__ sum_t, float* __restrict__ cnt,
-    float* __restrict__ fs, int* __restrict__ is, float* __restrict__ rad,
-    float* __restrict__ path_sum, int* __restrict__ iters,
-    int* __restrict__ alive) {
-  __shared__ float4 s_tri[3 * rlrpt::kTileTris];
-  const int slot = blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t n = p.n_slots;
-  const bool act = slot < p.n_slots && is[kAct * n + slot] != 0;
-  if (!__syncthreads_or(act)) return;   // the block's slots are all idle
-
-  rlrpt::Slot s{};
-  if (act) s = load_slot(fs, is, rad, path_sum, p, slot);
-  const rlrpt::Hit h = rlrpt::sweep(tris, s_tri, p.n_tris, false, act, s.ox,
-                                    s.oy, s.oz, s.dx, s.dy, s.dz);
-  if (act) {
-    int cur_sec = is[kSec * n + slot];
-    int cur_bin = is[kBin * n + slot];
-    float cur_brdf = fs[kBrdf * n + slot];
-    rlrpt::CdfSampler sample{cdf, -1};
-    const rlrpt::StepEvent ev =
-        rlrpt::advance(p, mat, sample, h, it1, s, rad, slot);
-    const int col = ev.missed ? 0 : rlrpt::bin_column(h, p.uv_bins);
-    if (cur_sec >= 0) {   // the pending transition completes here
-      const float target =
-          ev.missed      ? cur_brdf * p.env
-          : ev.hit_light ? cur_brdf * __ldg(ev.m + 10)
-                         : cur_brdf * irr[col];
-      const size_t cell = static_cast<size_t>(cur_sec) * tp.n_cols + cur_bin;
-      atomicAdd(sum_t + cell, target);
-      atomicAdd(cnt + cell, 1.f);
-      fs[kTd * n + slot] += 1.f;
-    }
-    if (ev.survive) {   // the transition just sampled is now pending
-      cur_bin = col;
-      cur_sec = sample.sector;
-      cur_brdf = __ldg(ev.m + 10) / static_cast<float>(rlrpt::kPiD);
-    } else {
-      cur_sec = -1;
-    }
-    store_slot(s, fs, is, rad, path_sum, p, slot);
-    is[kSec * n + slot] = cur_sec;
-    is[kBin * n + slot] = cur_bin;
-    fs[kBrdf * n + slot] = cur_brdf;
-    if (!s.act) iters[slot] = static_cast<int>(it1);
+// One step of a live slot at iteration it1: the pending transition's TD
+// target into (sum_t, cnt), then B3's step; the pixel, path-length and TD
+// sums when the path ends.  Returns whether the slot is still active.
+__device__ __forceinline__ bool step(const rlrpt::MegaParams& p,
+                                     const TrainParams& tp,
+                                     const TrainBufs& b, const float* irr,
+                                     const rlrpt::Hit& h, uint32_t it1,
+                                     int slot, rlrpt::Slot& s, int sec,
+                                     int bin) {
+  // cur_brdf = lum/pi of the surface the pending sector was drawn at:
+  // column bin = tri * uv^2 + iu * uv + iv, so tri = bin / uv^2.
+  const int uv2 = p.uv_bins * p.uv_bins;
+  const float cur_brdf =
+      sec >= 0 ? __ldg(b.mat + 16 * (bin / uv2) + 10)
+                     / static_cast<float>(rlrpt::kPiD)
+               : 0.f;
+  rlrpt::CdfSampler sample{b.cdf, -1};
+  const rlrpt::StepEvent ev = rlrpt::advance(p, b.mat, sample, h, it1, s);
+  const int col = ev.missed ? 0 : rlrpt::bin_column(h, p.uv_bins);
+  if (sec >= 0) {   // the pending transition completes here
+    const float target =
+        ev.missed      ? cur_brdf * p.env
+        : ev.hit_light ? cur_brdf * __ldg(ev.m + 10)
+                       : cur_brdf * (__ldcg(irr + col) * __ldg(b.lum + col)
+                                     * tp.irr_scale);
+    const size_t cell = static_cast<size_t>(sec) * tp.n_cols + bin;
+    atomicAdd(b.sum_t + cell, target);
+    atomicAdd(b.cnt + cell, 1.f);
   }
-  if (__any_sync(0xffffffffu, s.act) && (threadIdx.x & 31) == 0)
-    alive[it1] = 1;
+  if (ev.missed || ev.hit_light) {
+    float* o = b.rad + 3 * (static_cast<size_t>(ev.k_old) * p.n_slots + slot);
+    o[0] += ev.cr;
+    o[1] += ev.cg;
+    o[2] += ev.cb;
+  }
+  if (!ev.survive) {
+    b.path_sum[slot] += ev.plen;
+    // every step of the path after its first completed a transition
+    b.td[slot] += static_cast<float>(ev.bounce_old);
+  }
+  if (s.act) {
+    store_state(b, p.n_slots, slot, s, ev.survive ? sample.sector : -1,
+                ev.survive ? col : bin);
+  } else {
+    b.iters[slot] = static_cast<int>(it1);
+  }
+  return s.act;
 }
 
 // Apply the iteration's (sum_t, cnt) to Q and V (guided_mega_train.py:
-// 305-313), zero them, and refresh each column's irradiance
-// sum_s Q*cos * lum * irr_scale (guided_mega_train.py:274-275).  A block
-// takes 32 columns, one per lane, so every load is a 128-byte row
-// segment; its kApplyWarps warps split the sectors and add their partial
-// sums in shared memory.  (One thread per column walking all sectors took
-// 63 us a launch on 5 SMs, more than the step kernel.)
-constexpr int kApplyWarps = 16;
-
-__global__ void __launch_bounds__(32 * kApplyWarps) train_apply_kernel(
-    rlrpt::MegaParams p, TrainParams tp, const float* __restrict__ sec_cos,
-    const float* __restrict__ lum, float* __restrict__ q,
-    float* __restrict__ v, float* __restrict__ sum_t,
-    float* __restrict__ cnt, float* __restrict__ irr) {
-  __shared__ float part[kApplyWarps][32];
+// 305-313), zero them, and add each column's sum_s Q*cos into irr_out
+// (zero on entry; the step multiplies by lum * irr_scale,
+// guided_mega_train.py:274-275).  A work item is 32 columns (a lane each,
+// so every load is a 128-byte row segment) by kSecChunk sectors; the
+// items are spread over every warp of the grid.
+__device__ __forceinline__ void apply(const rlrpt::MegaParams& p,
+                                      const TrainParams& tp,
+                                      const TrainBufs& b, float* irr_out) {
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int c = blockIdx.x * 32 + lane;
-  float acc = 0.f;
-  if (c < tp.n_cols) {
-    for (int sec = warp; sec < p.n_sectors; sec += kApplyWarps) {
+  const int warps_per_block = blockDim.x >> 5;
+  const int n_warps = gridDim.x * warps_per_block;
+  const int n_groups = (tp.n_cols + 31) / 32;
+  const int n_items =
+      n_groups * ((p.n_sectors + kSecChunk - 1) / kSecChunk);
+  for (int item = blockIdx.x * warps_per_block + (threadIdx.x >> 5);
+       item < n_items; item += n_warps) {
+    const int c = (item % n_groups) * 32 + lane;
+    const int s0 = (item / n_groups) * kSecChunk;
+    if (c >= tp.n_cols) continue;
+    const int s1 = min(s0 + kSecChunk, p.n_sectors);
+    float acc = 0.f;
+    for (int sec = s0; sec < s1; ++sec) {
       const size_t i = static_cast<size_t>(sec) * tp.n_cols + c;
-      float qs = q[i];
-      const float nc = cnt[i];
+      float qs = b.q[i];
+      const float nc = __ldcg(b.cnt + i);
       if (nc > 0.f) {
-        const float vs = v[i];
-        qs = fmaxf((qs * (1.f + vs) + sum_t[i]) / (1.f + vs + nc),
+        const float vs = b.v[i];
+        qs = fmaxf((qs * (1.f + vs) + __ldcg(b.sum_t + i)) / (1.f + vs + nc),
                    tp.radiance_threshold);
-        q[i] = qs;
-        v[i] = vs + nc;
-        sum_t[i] = 0.f;
-        cnt[i] = 0.f;
+        b.q[i] = qs;
+        b.v[i] = vs + nc;
+        b.sum_t[i] = 0.f;
+        b.cnt[i] = 0.f;
       }
-      acc += qs * sec_cos[sec];
+      acc += qs * __ldg(b.sec_cos + sec);
     }
+    atomicAdd(irr_out + c, acc);
   }
-  part[warp][lane] = acc;
+}
+
+// The whole learning frame; launched cooperatively (grid.sync).  Block b
+// owns per_block slot ids (owned_slot); dynamic shared memory holds the
+// local ids of its live slots (per_block ints).  Eight blocks an SM (1,056
+// on the H100) cap it at 64 registers a thread (chip_smoke.py [1] prints
+// the registers and spills of every kernel).
+__global__ void __launch_bounds__(kBlock, 8)
+    train_kernel(rlrpt::MegaParams p, TrainParams tp, TrainBufs b) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ int s_live[];
+  __shared__ float4 s_tri[3 * rlrpt::kTileTris];
+  __shared__ int s_warp[33];
+  const bool resident = p.n_tris <= rlrpt::kTileTris;
+  if (resident) rlrpt::load_tile(s_tri, b.tris, 0, p.n_tris);
   __syncthreads();
-  if (warp == 0 && c < tp.n_cols) {
-    float sum = 0.f;
-#pragma unroll
-    for (int w = 0; w < kApplyWarps; ++w) sum += part[w][lane];
-    irr[c] = sum * lum[c] * tp.irr_scale;
+
+  // Start the block's slots; the live list takes the ones in the image.
+  int count = 0;   // the same in every thread of the block
+  for (int base = 0; base < b.per_block; base += blockDim.x) {
+    const int local = base + threadIdx.x;
+    const int slot = owned_slot(local);
+    bool live = false;
+    if (local < b.per_block && slot < p.n_slots) {
+      const rlrpt::Slot s = rlrpt::start_slot(p, slot);
+      live = s.act;
+      if (live) store_state(b, p.n_slots, slot, s, -1, 0);
+    }
+    int total;
+    const int pos = block_scan(live, total, s_warp);
+    if (live) s_live[count + pos] = local;
+    count += total;
   }
+  apply(p, tp, b, b.irr + tp.n_cols);   // cnt is zero: the input Q's sums
+  grid.sync();
+
+  for (int it1 = 1; it1 <= tp.max_iters; ++it1) {
+    const float* irr = b.irr + (it1 & 1) * tp.n_cols;
+    float* irr_next = b.irr + ((it1 + 1) & 1) * tp.n_cols;
+    // irr_next was last read by the step of iteration it1 - 1
+    for (int c = blockIdx.x * blockDim.x + threadIdx.x; c < tp.n_cols;
+         c += gridDim.x * blockDim.x)
+      irr_next[c] = 0.f;
+
+    // Step the live slots, blockDim at a time, and compact the list in
+    // place: a kept id moves to a position at or before its own, and the
+    // scan's barrier comes after every thread has read its chunk's ids.
+    int kept = 0;
+    for (int base = 0; base < count; base += blockDim.x) {
+      const int idx = base + threadIdx.x;
+      const bool have = idx < count;
+      const int local = have ? s_live[idx] : 0;
+      const int slot = owned_slot(local);
+      int sec = -1, bin = 0;
+      rlrpt::Slot s{};
+      if (have) s = load_state(b, p, slot, sec, bin);
+      const rlrpt::Hit h = rlrpt::sweep(b.tris, s_tri, p.n_tris, resident,
+                                        have, s.ox, s.oy, s.oz, s.dx, s.dy,
+                                        s.dz);
+      const bool alive =
+          have && step(p, tp, b, irr, h, it1, slot, s, sec, bin);
+      int total;
+      const int pos = block_scan(alive, total, s_warp);
+      if (alive) s_live[kept + pos] = local;
+      kept += total;
+    }
+    count = kept;
+    if (count > 0 && threadIdx.x == 0) b.flags[it1 & 1] = 1;
+    grid.sync();
+    // flags[(it1 + 1) & 1] was last read after iteration it1 - 1's apply
+    if (blockIdx.x == 0 && threadIdx.x == 0) b.flags[(it1 + 1) & 1] = 0;
+    apply(p, tp, b, irr_next);
+    grid.sync();
+    if (__ldcg(b.flags + (it1 & 1)) == 0) break;
+  }
+}
+
+// A kernel of grid barriers only, on train_kernel's grid: their cost.
+__global__ void __launch_bounds__(kBlock) barrier_probe_kernel(int n_syncs) {
+  cg::grid_group grid = cg::this_grid();
+  for (int i = 0; i < n_syncs; ++i) grid.sync();
+}
+
+// train_kernel's grid: the blocks that fit on the card at once with
+// per_block ints of dynamic shared memory each, and no more than the slots
+// need; per_block covers the block's 32-slot groups.  Returns a CUDA
+// error, or 0.
+int train_grid(int n_slots, int& blocks, int& per_block, size_t& smem) {
+  int dev = 0, sms = 0, per_sm = 0;
+  int err = static_cast<int>(cudaGetDevice(&dev));
+  if (err == 0)
+    err = static_cast<int>(cudaDeviceGetAttribute(
+        &sms, cudaDevAttrMultiProcessorCount, dev));
+  blocks = std::max(1, (n_slots + kBlock - 1) / kBlock);
+  for (int round = 0; err == 0 && round < 8; ++round) {
+    const int groups = (n_slots + 31) / 32;
+    per_block = 32 * ((groups + blocks - 1) / blocks);
+    smem = static_cast<size_t>(per_block) * sizeof(int);
+    if (smem > 48 * 1024)
+      err = static_cast<int>(cudaFuncSetAttribute(
+          train_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem)));
+    if (err == 0)
+      err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, train_kernel, kBlock, smem));
+    if (err == 0 && per_sm == 0)
+      err = static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+    if (err != 0 || blocks <= per_sm * sms) break;
+    blocks = per_sm * sms;
+  }
+  return err;
 }
 
 }  // namespace
 
-// One learning frame.  tris, mat, cdf as rlrpt_mega_guided; lum (C,) and
-// sec_cos (n_sectors,) f32; q, v (S_pad, C) f32, updated in place; sum_t, cnt
-// (S_pad, C) f32 zeros; irr (C,) f32; fstate (11, n_slots) f32, istate
-// (7, n_slots) i32; alive (max_iters + 1,) i32 zeros; rad (pix_mux,
-// n_slots, 3) f32 zeros; path_sum (n_slots,) f32, iters (n_slots,) i32.
-// Returns the first CUDA error, or 0.  Synchronises the stream every
-// kCheckEvery iterations to read the alive flag.
+// One learning frame, one cooperative launch.  tris, mat, cdf as
+// rlrpt_mega_guided; lum (C,) and sec_cos (n_sectors,) f32; q, v (S_pad, C)
+// f32, updated in place; sum_t, cnt (S_pad, C) f32 zeros; irr (2, C) f32
+// zeros; fstate (9, n_slots) f32, istate (5, n_slots) i32 (no values
+// needed); flags (2,) i32 zeros; rad (pix_mux, n_slots, 3), path_sum
+// (n_slots,), td (n_slots,) f32 zeros; iters (n_slots,) i32 zeros.
+// Returns the first CUDA error, or 0: cudaErrorCooperativeLaunchTooLarge
+// if the grid cannot be co-resident.  Does not synchronise.
 extern "C" int rlrpt_mega_train(rlrpt::MegaParams p, rlrpt::TrainParams tp,
                                 const void* tris, const void* mat,
                                 const void* cdf, const void* lum,
                                 const void* sec_cos, void* q, void* v,
                                 void* sum_t, void* cnt, void* irr,
-                                void* fstate, void* istate, void* alive,
+                                void* fstate, void* istate, void* flags,
                                 void* rad, void* path_sum, void* iters,
-                                void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int blocks = (p.n_slots + kBlock - 1) / kBlock;
-  const int col_blocks = (tp.n_cols + 31) / 32;
-  auto* fs = static_cast<float*>(fstate);
-  auto* is = static_cast<int*>(istate);
-  auto* alive_i = static_cast<int*>(alive);
-  auto apply = [&] {
-    train_apply_kernel<<<col_blocks, 32 * kApplyWarps, 0, st>>>(
-        p, tp, static_cast<const float*>(sec_cos),
-        static_cast<const float*>(lum),
-        static_cast<float*>(q), static_cast<float*>(v),
-        static_cast<float*>(sum_t), static_cast<float*>(cnt),
-        static_cast<float*>(irr));
-  };
-  train_init_kernel<<<blocks, kBlock, 0, st>>>(
-      p, fs, is, static_cast<float*>(rad), static_cast<float*>(path_sum),
-      static_cast<int*>(iters));
-  apply();   // cnt is zero: the irradiance of the input Q
-  int err = static_cast<int>(cudaGetLastError());
-  for (int it = 1; it <= tp.max_iters && err == 0; ++it) {
-    train_step_kernel<<<blocks, kBlock, 0, st>>>(
-        p, tp, static_cast<uint32_t>(it), static_cast<const float4*>(tris),
-        static_cast<const float*>(mat),
-        static_cast<const __nv_bfloat16*>(cdf),
-        static_cast<const float*>(irr), static_cast<float*>(sum_t),
-        static_cast<float*>(cnt), fs, is, static_cast<float*>(rad),
-        static_cast<float*>(path_sum), static_cast<int*>(iters), alive_i);
-    apply();
-    err = static_cast<int>(cudaGetLastError());
-    if (err == 0 && it % kCheckEvery == 0) {
-      int flag = 0;
-      err = static_cast<int>(cudaMemcpyAsync(&flag, alive_i + it, sizeof(int),
-                                             cudaMemcpyDeviceToHost, st));
-      if (err == 0) err = static_cast<int>(cudaStreamSynchronize(st));
-      if (err == 0 && flag == 0) break;
-    }
-  }
-  return err;
+                                void* td, void* stream) {
+  int blocks = 0, per_block = 0;
+  size_t smem = 0;
+  int err = train_grid(p.n_slots, blocks, per_block, smem);
+  if (err != 0) return err;
+  TrainBufs b{static_cast<const float4*>(tris),
+              static_cast<const float*>(mat),
+              static_cast<const __nv_bfloat16*>(cdf),
+              static_cast<const float*>(lum),
+              static_cast<const float*>(sec_cos),
+              static_cast<float*>(q), static_cast<float*>(v),
+              static_cast<float*>(sum_t), static_cast<float*>(cnt),
+              static_cast<float*>(irr), static_cast<float*>(fstate),
+              static_cast<int*>(istate), static_cast<float*>(rad),
+              static_cast<float*>(path_sum), static_cast<int*>(iters),
+              static_cast<float*>(td), static_cast<int*>(flags), per_block};
+  void* args[] = {&p, &tp, &b};
+  err = static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(train_kernel), dim3(blocks), dim3(kBlock),
+      args, smem, static_cast<cudaStream_t>(stream)));
+  const int last = static_cast<int>(cudaGetLastError());   // clears it
+  return err != 0 ? err : last;
+}
+
+// n_syncs grid barriers on the grid rlrpt_mega_train would launch for
+// n_slots slots; *blocks receives its size.  Returns a CUDA error, or 0.
+extern "C" int rlrpt_train_barrier_probe(int n_slots, int n_syncs,
+                                         int* blocks_out, void* stream) {
+  int blocks = 0, per_block = 0;
+  size_t smem = 0;
+  int err = train_grid(n_slots, blocks, per_block, smem);
+  if (err != 0) return err;
+  *blocks_out = blocks;
+  void* args[] = {&n_syncs};
+  err = static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(barrier_probe_kernel), dim3(blocks),
+      dim3(kBlock), args, 0, static_cast<cudaStream_t>(stream)));
+  const int last = static_cast<int>(cudaGetLastError());
+  return err != 0 ? err : last;
 }

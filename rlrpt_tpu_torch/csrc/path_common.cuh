@@ -2,7 +2,8 @@
 // mega_guided.cu, mega_train.cu, closest_hit.cu): the counter PRNG, the
 // camera-ray generator, one exact f32 Moller-Trumbore closest-hit routine
 // and its shared-memory sweep, the two hemisphere frames, the guided CDF
-// sampler, and the per-slot step of the regenerative slot loop.
+// sampler, the per-slot step of the regenerative slot loop, and that loop
+// on a persistent, work-pulling grid (B1, B3).
 //
 // Every formula keeps the operation order of the JAX reference
 // (rlrpt_tpu/ops/megakernel.py, rlrpt_tpu/ops/guided_mega.py) and of the
@@ -12,6 +13,7 @@
 // for bit; against the JAX kernels on the CPU they agree to f32 rounding.
 #pragma once
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -246,13 +248,20 @@ __device__ __forceinline__ int bin_column(const Hit& h, int ub) {
   return h.tri * ub * ub + iu * ub + iv;
 }
 
+// Entry i of a bf16 column as f32 (exact: a bf16 is the top half of an f32).
+__device__ __forceinline__ float bf16_at(const __nv_bfloat16* col, int i) {
+  const unsigned short bits =
+      __ldg(reinterpret_cast<const unsigned short*>(col) + i);
+  return __uint_as_float(static_cast<uint32_t>(bits) << 16);
+}
+
 // The guided bounce (B3, and B2's path): a sector drawn from the frozen
 // bf16 CDF column of the hit's bin, pdf = (hi - lo) * S / 2pi from the
 // same rounded values the draw compared, the Chiu concentric map of the
 // sector plus jitter.  `sector` keeps the last draw (B2's pending
 // transition reads it).
 struct CdfSampler {
-  const __nv_bfloat16* __restrict__ cdf;   // (n_cols, s_pad), s_pad % 8 == 0
+  const __nv_bfloat16* __restrict__ cdf;   // (n_cols, s_pad), non-decreasing
   mutable int sector;
 
   __device__ __forceinline__ void operator()(
@@ -263,24 +272,25 @@ struct CdfSampler {
     const __nv_bfloat16* col =
         cdf + static_cast<size_t>(bin_column(h, p.uv_bins)) * p.s_pad;
 
-    // sector = #{entries < us}, clipped to S-1; padding rows hold 2.0.
-    const uint4* col4 = reinterpret_cast<const uint4*>(col);
-    int cnt = 0;
-    for (int j = 0; j < p.s_pad / 8; ++j) {
-      const uint4 w = __ldg(col4 + j);
-      const __nv_bfloat162* pair = reinterpret_cast<const __nv_bfloat162*>(&w);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(pair[e]);
-        cnt += (f.x < us) + (f.y < us);
+    // sector = #{entries < us}, clipped to S-1 (the twin's count).  In a
+    // non-decreasing column (check_cdf) that is the lower bound of us
+    // among entries [0, S-1), ties and flat runs included: a binary
+    // search of about log2(S) probes.
+    int lo_i = 0;
+    for (int n = p.n_sectors - 1; n > 0;) {
+      const int half = n >> 1;
+      if (bf16_at(col, lo_i + half) < us) {
+        lo_i += half + 1;
+        n -= half + 1;
+      } else {
+        n = half;
       }
     }
-    sector = min(cnt, p.n_sectors - 1);
+    sector = lo_i;
     // The last sector absorbs every draw >= cdf[S-2]: its probability is
     // 1 - lo (guided_mega.py:372-376).
-    const float hi = sector == p.n_sectors - 1 ? 1.f
-                                               : __bfloat162float(col[sector]);
-    const float lo = sector > 0 ? __bfloat162float(col[sector - 1]) : 0.f;
+    const float hi = sector == p.n_sectors - 1 ? 1.f : bf16_at(col, sector);
+    const float lo = sector > 0 ? bf16_at(col, sector - 1) : 0.f;
     const float pdf = fmaxf(hi - lo, 0.f) * p.pdf_scale;
     const float pdf_safe = fmaxf(pdf, 1e-12f);
 
@@ -296,12 +306,11 @@ struct CdfSampler {
 
 // One ray slot between steps.  Slot s owns pixels s + k*n_slots
 // (k < pix_mux) and regenerates into the next sample, then the next pixel,
-// the moment a path ends.
+// the moment a path ends.  Its pixel and path-length sums are kept by the
+// caller (run_slots in registers, B2 in device memory).
 struct Slot {
   float ox, oy, oz, dx, dy, dz;
   float tr, tg, tb;      // throughput of the current path
-  float ar, ag, ab;      // current pixel's radiance sum
-  float psum;            // sum of the slot's finished path lengths
   int bounce, remaining, pix, k;
   bool act;
 };
@@ -315,8 +324,6 @@ __device__ __forceinline__ Slot start_slot(const MegaParams& p, int slot) {
   primary_dir(p, slot, uniform01(p.seed, slot, 0, 2),
               uniform01(p.seed, slot, 0, 3), s.dx, s.dy, s.dz);
   s.tr = s.tg = s.tb = 1.f;
-  s.ar = s.ag = s.ab = 0.f;
-  s.psum = 0.f;
   s.bounce = 0;
   s.remaining = in_image ? p.spp - 1 : 0;
   s.pix = slot;
@@ -325,28 +332,36 @@ __device__ __forceinline__ Slot start_slot(const MegaParams& p, int slot) {
   return s;
 }
 
-// What one step did, for B2's TD update.
+// What one step did: for the caller's pixel and path-length sums, and for
+// B2's TD update.  A step that ends a path on a miss or a light adds
+// (cr, cg, cb) to the pixel the slot held at the step's start (k_old);
+// a step that ends a path adds plen to the slot's path-length sum.
 struct StepEvent {
   bool missed, hit_light;
   bool survive;          // the path goes on (after the bounce cap and RR)
+  bool new_pixel;        // the slot moved on to its next multiplexed pixel
+  int k_old;             // the slot's pixel index k at the step's start
+  int bounce_old;        // the path's bounce at the step's start
+  float cr, cg, cb;      // terminal contribution (0 on a surface hit)
+  float plen;            // the ended path's length
   const float* m;        // the hit's material row (row 0 on a miss)
 };
 
 // One step of an active slot at iteration it1 (megakernel.py:_mega_kernel's
 // loop body): terminal contribution, bounce cap, the bounce `sample` draws
 // (next direction and throughput factor brdf*cos/pdf), optional Russian
-// roulette on RNG stream 4, and regeneration.  A thread's iteration
-// counter rises by one every step from 1 while the slot is active, which
-// is the TPU tile's counter, so the RNG keys (seed, pix, it, stream) draw
-// the TPU's samples.  `sample` has the signature
+// roulette on RNG stream 4, and regeneration.  A slot's iteration counter
+// rises by one every step from 1 while the slot is active, which is the
+// TPU tile's counter, so the RNG keys (seed, pix, it, stream) draw the
+// TPU's samples, whichever thread steps the slot and in whatever order.
+// The pixel sums are the caller's (StepEvent).  `sample` has the signature
 //   void sample(p, pix, it1, u1, u2, h, nx, ny, nz, dx, dy, dz, scale)
 template <class Sampler>
 __device__ __forceinline__ StepEvent advance(const MegaParams& p,
                                              const float* __restrict__ mat,
                                              const Sampler& sample,
                                              const Hit& h, uint32_t it1,
-                                             Slot& s, float* __restrict__ rad,
-                                             int slot) {
+                                             Slot& s) {
   const float u1 = uniform01(p.seed, s.pix, it1, 0);
   const float u2 = uniform01(p.seed, s.pix, it1, 1);
   const float u3 = uniform01(p.seed, s.pix, it1, 2);
@@ -356,14 +371,18 @@ __device__ __forceinline__ StepEvent advance(const MegaParams& p,
   const float* m = mat + 16 * (missed ? 0 : h.tri);
   const bool hit_light = !missed && __ldg(m + 9) > 0.5f;
   const bool hit_surface = !missed && !hit_light;
+  StepEvent ev;
+  ev.k_old = s.k;
+  ev.bounce_old = s.bounce;
+  ev.cr = ev.cg = ev.cb = 0.f;
   if (missed) {
-    s.ar += s.tr * p.env;
-    s.ag += s.tg * p.env;
-    s.ab += s.tb * p.env;
+    ev.cr = s.tr * p.env;
+    ev.cg = s.tg * p.env;
+    ev.cb = s.tb * p.env;
   } else if (hit_light) {
-    s.ar += s.tr * __ldg(m + 6);
-    s.ag += s.tg * __ldg(m + 7);
-    s.ab += s.tb * __ldg(m + 8);
+    ev.cr = s.tr * __ldg(m + 6);
+    ev.cg = s.tg * __ldg(m + 7);
+    ev.cb = s.tb * __ldg(m + 8);
   }
 
   const bool exhausted = hit_surface && s.bounce + 1 >= p.max_bounces;
@@ -400,9 +419,13 @@ __device__ __forceinline__ StepEvent advance(const MegaParams& p,
     s.dy = sdy;
     s.dz = sdz;
   }
-  if (missed || hit_light || rr_killed)
-    s.psum += static_cast<float>(s.bounce + 1);
-  if (exhausted) s.psum += static_cast<float>(p.max_bounces);
+  ev.missed = missed;
+  ev.hit_light = hit_light;
+  ev.survive = survive;
+  ev.plen = exhausted ? static_cast<float>(p.max_bounces)
+                      : static_cast<float>(s.bounce + 1);
+  ev.new_pixel = false;
+  ev.m = m;
 
   if (survive) {
     s.bounce += 1;
@@ -411,8 +434,7 @@ __device__ __forceinline__ StepEvent advance(const MegaParams& p,
     // multiplexed pixel, else the slot goes idle.
     if (s.remaining <= 0 && s.k + 1 < p.pix_mux &&
         s.pix + p.n_slots < p.n_pix) {
-      store_pixel(rad, p, s.k, slot, s.ar, s.ag, s.ab);
-      s.ar = s.ag = s.ab = 0.f;
+      ev.new_pixel = true;
       s.pix += p.n_slots;
       s.k += 1;
       s.remaining = p.spp;
@@ -429,16 +451,30 @@ __device__ __forceinline__ StepEvent advance(const MegaParams& p,
       s.act = false;
     }
   }
-  return StepEvent{missed, hit_light, survive, m};
+  return ev;
 }
 
-// The whole-frame regenerative slot loop of megakernel.py:_mega_kernel,
-// one thread per ray slot, `advance` once per iteration.  A scene of one
-// triangle tile is loaded once.  The loop is block-synchronous (a block
-// runs until its last slot drains) so that every thread reaches the tile
-// barriers.  Outputs: rad (pix_mux, n_slots, 3) per-pixel RGB sums,
-// path_sum (n_slots,) and iters (n_slots,), the slot's last active
-// iteration.
+// Lanes of this warp below the calling lane.
+__device__ __forceinline__ uint32_t lanes_below() {
+  uint32_t m;
+  asm("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
+  return m;
+}
+
+// The whole-frame regenerative slot loop of megakernel.py:_mega_kernel on
+// a persistent grid (slot_grid): a thread runs one slot at a time from
+// start_slot to its end, `advance` once per iteration on the slot's own
+// iteration counter, and then pulls the next unstarted slot.  The first
+// slot of a thread is its global index; later ones come from the device
+// counter `next` (zero at launch), one atomicAdd per warp per refill, each
+// lane taking base + its rank among the lanes that asked.  Every output
+// belongs to one slot and every RNG key to (slot's pixel, slot's
+// iteration), so the order in which slots run changes no bit of the frame.
+// A scene of one triangle tile is loaded once; the loop's condition is
+// block-wide so that idle threads still reach the tile barriers of a
+// larger scene.  Outputs: rad (pix_mux, n_slots, 3) per-pixel RGB sums,
+// path_sum (n_slots,) and iters (n_slots,), the slot's count of active
+// iterations.
 template <class Sampler>
 __device__ __forceinline__ void run_slots(const MegaParams& p,
                                           const float4* __restrict__ tris,
@@ -446,31 +482,91 @@ __device__ __forceinline__ void run_slots(const MegaParams& p,
                                           const Sampler& sample,
                                           float* __restrict__ rad,
                                           float* __restrict__ path_sum,
-                                          int* __restrict__ iters) {
+                                          int* __restrict__ iters,
+                                          int* __restrict__ next) {
   __shared__ float4 s_tri[3 * kTileTris];
-  const int slot = blockIdx.x * blockDim.x + threadIdx.x;
   const bool resident = p.n_tris <= kTileTris;
   if (resident) {
     load_tile(s_tri, tris, 0, p.n_tris);
     __syncthreads();
   }
 
-  Slot s = start_slot(p, slot);
+  const int first_pulled = gridDim.x * blockDim.x;
+  int slot = blockIdx.x * blockDim.x + threadIdx.x;
+  bool have = slot < p.n_slots;
+  bool drained = !have;   // the counter has run past n_slots for this lane
+  Slot s{};
+  if (have) s = start_slot(p, slot);
+  float ar = 0.f, ag = 0.f, ab = 0.f, psum = 0.f;
   uint32_t it = 0;
-  while (__syncthreads_or(s.act)) {
-    const Hit h = sweep(tris, s_tri, p.n_tris, resident, s.act, s.ox, s.oy,
-                        s.oz, s.dx, s.dy, s.dz);
-    if (!s.act) continue;
-    advance(p, mat, sample, h, it + 1, s, rad, slot);
-    it += 1;
+  while (__syncthreads_or(have)) {
+    const Hit h = sweep(tris, s_tri, p.n_tris, resident, have && s.act, s.ox,
+                        s.oy, s.oz, s.dx, s.dy, s.dz);
+    if (have) {
+      if (s.act) {
+        it += 1;
+        const StepEvent ev = advance(p, mat, sample, h, it, s);
+        if (ev.missed || ev.hit_light) {
+          ar += ev.cr;
+          ag += ev.cg;
+          ab += ev.cb;
+        }
+        if (!ev.survive) psum += ev.plen;
+        if (ev.new_pixel) {
+          store_pixel(rad, p, ev.k_old, slot, ar, ag, ab);
+          ar = ag = ab = 0.f;
+        }
+      }
+      if (!s.act) {   // the slot is done (or was never in the image)
+        store_pixel(rad, p, s.k, slot, ar, ag, ab);
+        for (int kk = s.k + 1; kk < p.pix_mux; ++kk)
+          store_pixel(rad, p, kk, slot, 0.f, 0.f, 0.f);
+        path_sum[slot] = psum;
+        iters[slot] = static_cast<int>(it);
+        have = false;
+      }
+    }
+    // Refill: one atomic per warp for the lanes that need a slot.
+    const bool need = !have && !drained;
+    const uint32_t want = __ballot_sync(0xffffffffu, need);
+    if (want) {
+      const int leader = __ffs(want) - 1;
+      int base = 0;
+      if ((threadIdx.x & 31) == leader) base = atomicAdd(next, __popc(want));
+      base = __shfl_sync(0xffffffffu, base, leader);
+      if (need) {
+        slot = first_pulled + base + __popc(want & lanes_below());
+        if (slot < p.n_slots) {
+          s = start_slot(p, slot);
+          ar = ag = ab = psum = 0.f;
+          it = 0;
+          have = true;
+        } else {
+          drained = true;
+        }
+      }
+    }
   }
+}
 
-  if (slot >= p.n_slots) return;
-  store_pixel(rad, p, s.k, slot, s.ar, s.ag, s.ab);
-  for (int kk = s.k + 1; kk < p.pix_mux; ++kk)
-    store_pixel(rad, p, kk, slot, 0.f, 0.f, 0.f);
-  path_sum[slot] = s.psum;
-  iters[slot] = static_cast<int>(it);
+// The grid of run_slots: as many blocks of `block` threads as fit on the
+// card at once (occupancy x SMs), and no more than the slots need.
+// Returns a CUDA error, or 0.
+template <class Kernel>
+inline int slot_grid(Kernel kernel, int n_slots, int block, size_t smem,
+                     int& blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  int err = static_cast<int>(cudaGetDevice(&dev));
+  if (err == 0)
+    err = static_cast<int>(cudaDeviceGetAttribute(
+        &sms, cudaDevAttrMultiProcessorCount, dev));
+  if (err == 0)
+    err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, block, smem));
+  if (err != 0) return err;
+  if (per_sm == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  blocks = std::min(per_sm * sms, std::max(1, (n_slots + block - 1) / block));
+  return 0;
 }
 
 }  // namespace rlrpt

@@ -131,7 +131,14 @@ def mega_guided_frame_plain(seed: int, cam: tuple, tris: torch.Tensor,
 
 def check_cdf(cdf_t: torch.Tensor, tris: torch.Tensor, sector_grid: int,
               uv_bins: int) -> None:
-    """What the guided kernels take of a transposed (C, S_pad) table."""
+    """What the guided kernels take of a transposed (C, S_pad) table:
+    among it, every column non-decreasing (padding rows included), since
+    the kernels find the sector #{entries < u} by a binary search.  Every
+    table the package builds is (``rebuild_bin_cdf``, ``bake_tri_bin_cdf``:
+    cumulative sums, padded with 2.0, rounded to bf16 monotonically).
+    That test costs one reduction over the table and one host sync per
+    frame, on the CPU and the card alike; a decreasing column raises
+    ValueError."""
     n_cols = tris.shape[0] * uv_bins * uv_bins
     if (cdf_t.dim() != 2 or cdf_t.shape[0] < n_cols
             or cdf_t.dtype != torch.bfloat16 or not cdf_t.is_contiguous()):
@@ -143,13 +150,15 @@ def check_cdf(cdf_t: torch.Tensor, tris: torch.Tensor, sector_grid: int,
                          f"{sector_grid}x{sector_grid} sectors")
     if cdf_t.device != tris.device:
         raise ValueError("cdf_t must be on the tables' device")
-    if tris.device.type == "cuda" and cdf_t.shape[1] % 8:
-        raise ValueError(f"the kernels read 8 sectors per load; S_pad "
-                         f"{cdf_t.shape[1]} is not a multiple of 8")
+    bad = int(torch.count_nonzero(
+        (cdf_t[:, 1:] < cdf_t[:, :-1]).any(dim=1)))
+    if bad:
+        raise ValueError(f"{bad} CDF column(s) decrease: the guided kernels "
+                         "need every column non-decreasing")
 
 
 KERNEL = _cuda.Kernel("rlrpt_mega_guided",
-                      [_cuda.MegaParams] + [ctypes.c_void_p] * 7)
+                      [_cuda.MegaParams] + [ctypes.c_void_p] * 8)
 
 
 def mega_guided_frame(seed: int, cam: tuple, tris: torch.Tensor,
@@ -174,12 +183,12 @@ def mega_guided_frame(seed: int, cam: tuple, tris: torch.Tensor,
         n_sectors=n_sectors, sector_grid=sector_grid, uv_bins=uv_bins,
         s_pad=s_pad, pdf_scale=n_sectors / (2.0 * PI),
         inv_gdir=1.0 / sector_grid)
-    rad, path_sum, iters = frame_outputs(n_slots, pix_mux, tris.device)
+    rad, path_sum, iters, nxt = frame_outputs(n_slots, pix_mux, tris.device)
     with torch.cuda.device(tris.device):
         stream = torch.cuda.current_stream().cuda_stream
         KERNEL.launch(params, tris.data_ptr(), mat.data_ptr(),
                       cdf_t.data_ptr(), rad.data_ptr(), path_sum.data_ptr(),
-                      iters.data_ptr(), stream)
+                      iters.data_ptr(), nxt.data_ptr(), stream)
     return rad, path_sum, iters
 
 

@@ -176,7 +176,7 @@ def mega_train_frame_plain(seed: int, cam: tuple, tris: torch.Tensor,
 
 KERNEL = _cuda.Kernel("rlrpt_mega_train",
                       [_cuda.MegaParams, _cuda.TrainParams]
-                      + [ctypes.c_void_p] * 17)
+                      + [ctypes.c_void_p] * 18)
 
 
 def mega_train_frame(seed: int, cam: tuple, tris: torch.Tensor,
@@ -192,9 +192,11 @@ def mega_train_frame(seed: int, cam: tuple, tris: torch.Tensor,
     iters, q, visits, td) as mega_train_frame_plain does.  CPU tensors take
     the twin.
 
-    On the card the frame is a host loop of two launches per iteration
-    (step, apply) that synchronises the stream every 16 iterations to read
-    whether any slot is still active."""
+    On the card the frame is one cooperative launch of a persistent
+    kernel that runs the iterations on the device (step, grid barrier,
+    apply, grid barrier) and stops when no slot is active; the host does
+    not synchronise inside it.  A grid that cannot be co-resident raises
+    RuntimeError."""
     check_tables(tris, mat)
     check_cdf(cdf_t, tris, sector_grid, uv_bins)
     n_cols = cdf_t.shape[0]
@@ -237,22 +239,45 @@ def mega_train_frame(seed: int, cam: tuple, tris: torch.Tensor,
     q_out, v_out = q.clone(), visits.clone()
     sum_t = torch.zeros(q.shape, **f32)
     cnt = torch.zeros(q.shape, **f32)
-    irr = torch.empty((n_cols,), **f32)
-    fstate = torch.empty((11, n_slots), **f32)   # csrc/mega_train.cu:FRow
-    istate = torch.empty((7, n_slots), **i32)    # csrc/mega_train.cu:IRow
-    alive = torch.zeros((max_iters + 1,), **i32)
+    irr = torch.zeros((2, n_cols), **f32)
+    fstate = torch.empty((9, n_slots), **f32)   # csrc/mega_train.cu:FRow
+    istate = torch.empty((5, n_slots), **i32)   # csrc/mega_train.cu:IRow
+    flags = torch.zeros((2,), **i32)
     rad = torch.zeros((pix_mux, n_slots, 3), **f32)
-    path_sum = torch.empty((n_slots,), **f32)
-    iters = torch.empty((n_slots,), **i32)
+    path_sum = torch.zeros((n_slots,), **f32)
+    iters = torch.zeros((n_slots,), **i32)
+    td = torch.zeros((n_slots,), **f32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         KERNEL.launch(params, train, tris.data_ptr(), mat.data_ptr(),
                       cdf_t.data_ptr(), lum.data_ptr(), sec_cos.data_ptr(),
                       q_out.data_ptr(), v_out.data_ptr(), sum_t.data_ptr(),
                       cnt.data_ptr(), irr.data_ptr(), fstate.data_ptr(),
-                      istate.data_ptr(), alive.data_ptr(), rad.data_ptr(),
-                      path_sum.data_ptr(), iters.data_ptr(), stream)
-    return rad, path_sum, iters, q_out, v_out, fstate[10]
+                      istate.data_ptr(), flags.data_ptr(), rad.data_ptr(),
+                      path_sum.data_ptr(), iters.data_ptr(), td.data_ptr(),
+                      stream)
+    return rad, path_sum, iters, q_out, v_out, td
+
+
+def barrier_probe(n_slots: int, n_syncs: int, device) -> int:
+    """Launch ``n_syncs`` grid barriers alone on the cooperative grid that
+    kernel B2 takes for ``n_slots`` slots (to time the barrier); returns
+    the grid's block count.  Not a kernel of any path: it is not
+    counted."""
+    lib = _cuda.library()
+    fn = lib.rlrpt_train_barrier_probe
+    fn.argtypes = [ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = fn(n_slots, n_syncs, ctypes.byref(blocks),
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        msg = lib.rlrpt_cuda_error_string(err).decode()
+        raise RuntimeError(f"rlrpt_train_barrier_probe: CUDA error {err}: "
+                           f"{msg}")
+    return blocks.value
 
 
 def render_sarsa_mega_train(seed: int, scene: Scene, camera: Camera,

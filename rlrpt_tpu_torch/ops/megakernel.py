@@ -339,7 +339,7 @@ def mega_default_frame_plain(seed: int, cam: tuple, tris: torch.Tensor,
 # ---- the CUDA wrapper -----------------------------------------------------
 
 KERNEL = _cuda.Kernel("rlrpt_mega_default",
-                      [_cuda.MegaParams] + [ctypes.c_void_p] * 6)
+                      [_cuda.MegaParams] + [ctypes.c_void_p] * 7)
 
 
 def check_tables(tris: torch.Tensor, mat: torch.Tensor) -> None:
@@ -372,10 +372,14 @@ def mega_params(seed: int, cam: tuple, n_tris: int, cfg: RenderConfig,
 
 
 def frame_outputs(n_slots: int, pix_mux: int, device):
+    """(rad, path_sum, iters) to be filled by a kernel, and the zeroed
+    int32 slot counter of its persistent grid (csrc/path_common.cuh:
+    run_slots)."""
     return (torch.empty((pix_mux, n_slots, 3), dtype=torch.float32,
                         device=device),
             torch.empty((n_slots,), dtype=torch.float32, device=device),
-            torch.empty((n_slots,), dtype=torch.int32, device=device))
+            torch.empty((n_slots,), dtype=torch.int32, device=device),
+            torch.zeros((1,), dtype=torch.int32, device=device))
 
 
 def mega_default_frame(seed: int, cam: tuple, tris: torch.Tensor,
@@ -390,13 +394,14 @@ def mega_default_frame(seed: int, cam: tuple, tris: torch.Tensor,
                                         pix_mux)
     if tris.device.type != "cuda":
         raise ValueError(f"no kernel for device {tris.device}")
-    rad, path_sum, iters = frame_outputs(n_slots, pix_mux, tris.device)
+    rad, path_sum, iters, nxt = frame_outputs(n_slots, pix_mux, tris.device)
     with torch.cuda.device(tris.device):
         stream = torch.cuda.current_stream().cuda_stream
         KERNEL.launch(mega_params(seed, cam, tris.shape[0], cfg, n_slots,
                                   pix_mux),
                       tris.data_ptr(), mat.data_ptr(), rad.data_ptr(),
-                      path_sum.data_ptr(), iters.data_ptr(), stream)
+                      path_sum.data_ptr(), iters.data_ptr(), nxt.data_ptr(),
+                      stream)
     return rad, path_sum, iters
 
 

@@ -1,4 +1,4 @@
-"""Sweep and profile probe of kernels B1 and B3 on one CUDA card
+"""Sweep and profile probe of kernels B1, B3 and B2 on one CUDA card
 (counterpart of ``rlrpt_tpu/tools/mega_sweep.py``, whose precision and
 unroll axes tune the TPU kernel only).
 
@@ -6,9 +6,16 @@ unroll axes tune the TPU kernel only).
 
 At the Cornell box, 720x720, 80-bounce cap, prints one line per point
 (kernel, spp, pix_mux, r_tile): the kernel's mean time over --reps
-launches (CUDA events), rays/s (avg path length x pixels x spp over that
+launches (CUDA events; for B2 one learning frame from the initial Q, its
+wrapper's set-up included), rays/s (avg path length x pixels x spp over that
 time), the avg path length, the longest slot's iteration count, and the
-lane efficiency per warp and per block (``lane_efficiency``).  Then it
+lane efficiency per warp and per block (``lane_efficiency``) that the old
+fixed slot-to-thread schedule would have had: the kernels now pull slots
+from a queue (csrc/path_common.cuh:run_slots), so these figures measure
+the frame's path-length tail, not the kernels' lanes.  It uses only the
+frame wrappers' public signatures, so the same file times another
+checkout of the package put first on ``PYTHONPATH`` (run it by path), and
+two trees can be compared in turns in one call.  Then it
 times ``render_default_mega`` end to end at the bench point (1 spp,
 r_tile R_TILE, pix_mux PIX_MUX) and profiles 20 such frames with
 torch.profiler, printing the wall time and the device time of the top
@@ -25,10 +32,11 @@ import time
 import torch
 
 from rlrpt_tpu_torch.camera import Camera
-from rlrpt_tpu_torch.config import RenderConfig
+from rlrpt_tpu_torch.config import RadianceVolumeConfig, RenderConfig
 from rlrpt_tpu_torch.ops import guided_mega as gm
+from rlrpt_tpu_torch.ops import guided_mega_train as gt
 from rlrpt_tpu_torch.ops import megakernel as mk
-from rlrpt_tpu_torch.ops.guided_mega_train import init_bin_q, rebuild_bin_cdf
+from rlrpt_tpu_torch.ops.hemisphere import sector_cos_thetas
 from rlrpt_tpu_torch.scene import cornell_box
 
 BLOCK = 128        # csrc/path_common.cuh kBlock: slots per CUDA block
@@ -37,14 +45,17 @@ WARP = 32
 B1_POINTS = [(spp, pm, 128) for spp in (1, 32) for pm in (1, 2, 4, 8)]
 B1_POINTS += [(1, 32, 1024), (32, 32, 1024)]
 B3_POINTS = [(1, 1, 128), (32, 1, 128)]
+B2_POINTS = [(32, 1, 128)]   # the EVAL protocol's learning frame
 
 
 def lane_efficiency(iters: torch.Tensor, group: int) -> float:
     """Share of the lane-iterations a group of ``group`` consecutive slots
-    spends that do work.  ``iters[s]`` is the iteration at which slot s
-    went idle, i.e. its count of active iterations; a group (a warp, or a
-    block, whose loop is block-synchronous) runs as long as its longest
-    slot: sum(iters) / (group * sum over groups of max(iters))."""
+    would spend doing work under a fixed slot-to-thread schedule (one
+    thread per slot, a block-synchronous loop: the schedule of the kernels
+    before their work-pulling loop).  ``iters[s]`` is slot s's count of
+    active iterations; a group (a warp, or a block) then runs as long as
+    its longest slot: sum(iters) / (group * sum over groups of
+    max(iters))."""
     it = iters.to(torch.int64).reshape(-1, group)
     return float(it.sum()) / float(group * it.max(dim=1).values.sum())
 
@@ -124,8 +135,8 @@ def main(argv=None) -> int:
     scene = cornell_box(device=dev)
     tris, mat = mk.pack_scene(scene)
     t_pad = mk._t_pad(scene.n_triangles)   # the initial 11x11 / uv 4 table
-    q, _ = init_bin_q(t_pad, 4, 11, 100.0 / 121, device=dev)
-    cdf_t = rebuild_bin_cdf(q, 11, 4, t_pad).cdf.T.contiguous()
+    q, _ = gt.init_bin_q(t_pad, 4, 11, 100.0 / 121, device=dev)
+    cdf_t = gt.rebuild_bin_cdf(q, 11, 4, t_pad).cdf.T.contiguous()
 
     def cfg_for(spp):
         return RenderConfig(width=720, height=720, samples_per_pixel=spp,
@@ -142,6 +153,16 @@ def main(argv=None) -> int:
                     lambda: gm.mega_guided_frame(6, cam, tris, mat, cdf_t, 11,
                                                  4, cfg, ns, pm),
                     cfg, args.reps)
+    lum = gt.bin_luminance(scene, t_pad, 4)[0].contiguous()
+    sec_cos = sector_cos_thetas(11, dev).contiguous()
+    thr = RadianceVolumeConfig(grid_resolution=11).radiance_threshold
+    visits = torch.zeros_like(q)
+    for spp, pm, rt in B2_POINTS:
+        cfg, ns = cfg_for(spp), mk.n_slots_for(720 * 720, rt, pm)
+        sweep_point(f"B2 spp {spp} pix_mux {pm} r_tile {rt} slots {ns}",
+                    lambda: gt.mega_train_frame(
+                        7, cam, tris, mat, cdf_t, lum, sec_cos, q, visits, 11,
+                        4, thr, cfg, ns, pm)[:3], cfg, args.reps)
     print(card_state(), flush=True)
     if not args.no_profile:
         profile_bench(scene, camera, cfg_for(1), dev)

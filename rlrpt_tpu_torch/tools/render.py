@@ -89,8 +89,9 @@ def build_parser() -> argparse.ArgumentParser:
 def render(args: argparse.Namespace):
     """Render as ``args`` say; returns (image (H, W, 3) float32 tensor,
     aux dict).  For sarsa-mega, aux also holds "frames" (per learning
-    frame: avg_path, td_scatters, seconds), "guided_seconds" and the
-    learned "q" and "visits"."""
+    frame: avg_path, td_scatters, seconds, visits: the total after the
+    frame, read after its seconds), "guided_seconds" and the learned "q"
+    and "visits"."""
     device = torch.device(args.device)
     cfg = RenderConfig(width=args.width, height=args.height,
                        samples_per_pixel=args.spp,
@@ -144,6 +145,7 @@ def render(args: argparse.Namespace):
         row = {"avg_path": float(aux["avg_path_length"]),
                "td_scatters": int(aux["td_scatter_count"])}
         row["seconds"] = time.perf_counter() - t0   # the reads waited
+        row["visits"] = int(vis.double().sum())
         frames.append(row)
         print(f"frame {fr}: avg_path {row['avg_path']:.2f}  td_scatters "
               f"{row['td_scatters']}")
