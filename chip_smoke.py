@@ -28,7 +28,21 @@ set to 0 just before it and read just after:
   live; B4a held against its twin on the path's own rays; the visit
   invariant in every frame; a 32-spp test render within 2% of
   ``--mode mega``), the other fine-map modes at 128x128 (B4b), and the
-  learned map baked into B3's table and rendered at 720x720 (B3).
+  learned map baked into B3's table and rendered at 720x720 (B3);
+* the deep-Q family, kernel B4a under cuBLAS f32 matmuls (TF32 off):
+  ``--mode neural-q --impl wavefront`` at 720x720, 3 frames of 1 spp,
+  pix_mux 8, the full 342-200-300-200-144 net (epsilon exact, weights
+  finite and moved, zclp not rising, B4a bit-equal to its twin on the
+  path's rays, no host sync inside a minibatch loop in a profiled window
+  of iterations, which also gives kernels per iteration and the device's
+  idle share), one ``train_batching="fused"`` frame, the MLP's forward
+  against its f32 bound; ``--mode pretrained`` from the saved model at
+  32 spp in f32 and bf16 (bf16 within 3x the f32 seed-to-seed noise per
+  pixel, and its frame and block means within the standard errors that
+  seed pairs give); the lockstep ``neural-q`` and ``pretrained`` at
+  256x256 (the wavefront held to the lockstep in the same ways);
+  ``--mode distill`` of the phase-11 map (test MSE falls) and
+  ``--mode q-probe`` (rows sum to 1).
 
 Fails if a kernel of a path was never launched in it.  Prints one line per
 phase; then the card line, one JSON line describing the kernels, and as
@@ -411,6 +425,17 @@ def fine_map_phases(dev, out_dir: Path, drive, mega_mean: float,
         int(vols.visits.sum()))
     t_gap = (float(t_img.mean()) - mega_mean) / mega_mean
     write_png(str(out_dir / "sarsa-fast.png"), t_img.cpu())
+    # phase 17 distills the learned map, and probes 16 of the volumes
+    # whose largest Q is above the median (those that gathered light)
+    map_io.save_q_vals_to_file(t_vols, str(out_dir / "q_fine_map.txt"))
+    q_max = t_vols.q.max(dim=1).values
+    lit = torch.nonzero(q_max > q_max.median())[:, 0].cpu().numpy()
+    pick = np.random.default_rng(17).choice(lit, 16, replace=False)
+    p_pos, p_nrm = (t_vols.position[pick].cpu().numpy(),
+                    t_vols.normal[pick].cpu().numpy())
+    (out_dir / "probes.txt").write_text("".join(
+        " ".join(f"{float(x):.6g}" for x in (*p, *n)) + "\n"
+        for p, n in zip(p_pos, p_nrm)))
     log(f"[11] test render 32 spp: {t_sec:.4f} s, "
         f"{int(t_aux['wavefront_iterations'])} iterations, avg path "
         f"{float(t_aux['avg_path_length']):.4f}, zclp "
@@ -572,6 +597,451 @@ def fine_map_phases(dev, out_dir: Path, drive, mega_mean: float,
         f"mean {float(g_img.mean()):.6f} vs mega: {g_gap:+.4%}")
     res["bake"] = {"seconds": bake_s, "zero_bf16_sectors": zero,
                    "guided_seconds": g_sec, "guided_mean_vs_mega": g_gap}
+    return res
+
+
+class IterationHook:
+    """Stands in for deep_wavefront's closest_hit_mat_mxu, which each
+    wavefront iteration calls once: records a CUDA event before every
+    call (the iterations' spans on the device timeline) and steps a
+    profiler if it is given one."""
+
+    def __init__(self, fn, prof=None, sync_at=None):
+        self.fn, self.prof, self.sync_at, self.events = fn, prof, sync_at, []
+
+    def __call__(self, *args):
+        if len(self.events) == self.sync_at:
+            # the device finishes the window's kernels before the profiler
+            # closes it
+            torch.cuda.synchronize()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events.append(ev)
+        if self.prof is not None:
+            self.prof.step()
+        return self.fn(*args)
+
+    def spans_ms(self, first: int, n: int) -> list:
+        torch.cuda.synchronize()
+        ev = self.events[first:first + n + 1]
+        return [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
+
+
+def profile_deep_window(dw, frame, first: int, n: int) -> dict:
+    """frame() (one training frame of deep_wavefront, returning what
+    render_frame_neural_q_wavefront returns) under torch.profiler,
+    recording only iterations first..first+n-1 (the closest-hit call that
+    opens each iteration steps the profiler), with every
+    train_on_batches call marked "minibatch_loop".  Returns the frame's
+    iterations, the device kernels (memsets and copies included) of those
+    iterations, their busy time (union of intervals), the cuBLAS kernels'
+    time, and the host synchronisations and device-to-host copies issued
+    inside a minibatch loop."""
+    from torch.profiler import (ProfilerActivity, profile, record_function,
+                                schedule)
+    from rlrpt_tpu_torch.tools.sarsa_fast_profile import (busy_us,
+                                                          device_events,
+                                                          trace_events)
+    hit, train = dw.closest_hit_mat_mxu, dw.train_on_batches
+
+    def minibatch_loop(*a, **k):
+        with record_function("minibatch_loop"):
+            return train(*a, **k)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=first, warmup=1, active=n,
+                                   repeat=1)) as prof:
+        dw.closest_hit_mat_mxu = IterationHook(hit, prof, first + n)
+        dw.train_on_batches = minibatch_loop
+        try:
+            aux = frame()[4]
+            torch.cuda.synchronize()
+        finally:
+            dw.closest_hit_mat_mxu, dw.train_on_batches = hit, train
+    events = trace_events(prof)
+    dev = device_events(events)
+    loops = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation"
+             and e.get("name") == "minibatch_loop"]
+    inside = lambda ts: any(s <= ts <= t for s, t in loops)  # noqa: E731
+    host_ts = {e["args"]["correlation"]: e["ts"] for e in events
+               if e.get("cat") in ("cuda_runtime", "cuda_driver")
+               and "correlation" in e.get("args", {})}
+    syncs = [e["name"] for e in events
+             if ((e.get("cat") in ("cuda_runtime", "cuda_driver")
+                  and "Synchronize" in e["name"])
+                 or (e.get("cat") == "cpu_op" and e["name"] in (
+                     "aten::item", "aten::_local_scalar_dense")))
+             and inside(e["ts"])]
+    d2h = [e for e in dev if "DtoH" in e["name"]]
+    d2h_in = [e for e in d2h if inside(host_ts.get(
+        e.get("args", {}).get("correlation"), -1.0))]
+    gemm = [e for e in dev if re.search("gemm|gemv", e["name"], re.I)]
+    return {"iterations": int(aux["wavefront_iterations"]),
+            "kernels": len(dev), "loops": len(loops),
+            "busy_us": busy_us((e["ts"], e["ts"] + e["dur"]) for e in dev),
+            "gemm_us": sum(e["dur"] for e in gemm), "gemm_kernels": len(gemm),
+            "syncs_in_loop": syncs, "d2h": len(d2h), "d2h_in_loop": len(d2h_in)}
+
+
+def deep_phases(dev, out_dir: Path, drive, mega_mean: float,
+                size: int = 720, small: int = 256) -> dict:
+    """Phases 14-17, the deep-Q family; returns their figures.  ``drive``
+    runs a path with every launch count at 0 and fails it if an expected
+    kernel never launched; ``mega_mean`` is the mean of a ``--mode mega``
+    frame at size x size, 32 spp.  Phase 11 left the learned fine map and
+    16 probe points in ``out_dir``."""
+    from rlrpt_tpu_torch.camera import Camera
+    from rlrpt_tpu_torch.config import (DeepLearningConfig,
+                                        RadianceVolumeConfig, RenderConfig)
+    from rlrpt_tpu_torch.deep import deep_wavefront as dw
+    from rlrpt_tpu_torch.nn.dynet_io import load_dynet_model
+    from rlrpt_tpu_torch.ops import intersect_pallas as ip
+    from rlrpt_tpu_torch.scene import cornell_box
+    from rlrpt_tpu_torch.scene.scene import save_vertices_to_file
+    from rlrpt_tpu_torch.tools import render
+    from rlrpt_tpu_torch.tools.mega_sweep import kernel_ms
+    from rlrpt_tpu_torch.utils.image import write_png
+
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "float32 matmuls would run in TF32")
+    scene = cornell_box(device=dev)
+    camera = Camera.create(CAM)
+    rl, dl = RadianceVolumeConfig(), DeepLearningConfig()
+    res = {}
+
+    def run_cli(argv):
+        sync(dev)
+        t0 = time.perf_counter()
+        img, aux = render.render(render.build_parser().parse_args(
+            [str(a) for a in argv] + ["--device", dev.type]))
+        sync(dev)
+        return img, aux, time.perf_counter() - t0
+
+    def noise_gap(a, b, c) -> tuple:
+        """(mean |a - b|, mean |c - a|): a frame's seed-to-seed noise and
+        another estimator's distance from it."""
+        return (float((a - b).abs().mean()), float((c - a).abs().mean()))
+
+    def hold_means(label: str, img, ref, pairs, grid: int) -> dict:
+        """Holds img's frame mean and its grid x grid block means to ref's,
+        each in standard errors of the difference.  Pixels are independent,
+        so the variance of a mean over pixels is the sum of the pixels'
+        variances over the count squared; a pixel's variance in one frame
+        is (a - b)^2 / 2 for a seed pair (a, b) of one estimator.  pairs:
+        ref's estimator's pair (img's variance taken as the same), or
+        ref's and then img's.  Fails if the frame mean lies 4 or more
+        standard errors off, or the blocks' mean squared z is 2 or more
+        (about 1 for frames of one estimator)."""
+        lum = lambda x: x.double().mean(-1)  # noqa: E731
+        var = [(lum(a) - lum(b)) ** 2 / 2 for a, b in pairs]
+        var = 2 * var[0] if len(var) == 1 else var[0] + var[1]
+        d = lum(img) - lum(ref)
+        h = d.shape[0] // grid
+        blocks = lambda x: x.reshape(grid, h, grid, h).sum((1, 3))  # noqa: E731
+        z = float(d.sum() / var.sum().sqrt())
+        zb = blocks(d) / blocks(var).sqrt()
+        # a block that no seed changes (inside the light) must not change
+        zb = torch.where(zb.isnan(), 0.0, zb)
+        chi2, zmax = float((zb ** 2).mean()), float(zb.abs().max())
+        rel = float(lum(img).mean() / lum(ref).mean() - 1.0)
+        log(f"{label}: frame mean {rel:+.4%} off, z {z:+.3f} (limit 4); "
+            f"{grid}x{grid} block means: mean squared z {chi2:.4f} (limit "
+            f"2), largest |z| {zmax:.3f}")
+        check(abs(z) < 4.0 and chi2 < 2.0,
+              f"{label}: frame or block means apart (z {z}, chi2 {chi2})")
+        return {"rel": rel, "z": z, "block_chi2": chi2, "block_zmax": zmax}
+
+    # ---- 14: neural-q on the wavefront at full width --------------------
+    model = out_dir / "neural_q.model"
+    log(f"[14] neural-q wavefront: Cornell {size}x{size}, 80 bounces, pix_mux "
+        f"8, 3 learning frames x 1 spp, the 342-200-300-200-144 net trained "
+        f"online (Adam per 4096-ray minibatch), then --save-model; TF32 off "
+        f"(allow_tf32 {torch.backends.cuda.matmul.allow_tf32})")
+    img, aux, sec = drive("14", ("B4a",), lambda: run_cli([
+        "--mode", "neural-q", "--impl", "wavefront", "--frames", 3,
+        "--spp", 1, "--width", size, "--height", size, "--bounces", 80,
+        "--pix-mux", 8, "--seed", 1984, "--save-model", model]))
+    b4a_learn = ip.KERNEL_MAT.launches
+    frames, net, opt_state = aux["frames"], aux["net"], aux["opt_state"]
+    trained = [p.detach().clone() for p in net.parameters()]
+    check_image("neural-q frame", img, size)
+    for i, fr in enumerate(frames):
+        log(f"[14] learning frame {i}: {fr['seconds']:.4f} s, "
+            f"{fr['iterations']} iterations, phases "
+            + " ".join(f"{n}@{w}" for w, n in zip(fr["phase_widths"],
+                                                 fr["phase_iterations"]))
+            + f", avg path {fr['avg_path']:.4f}, zclp {fr['zclp']}, loss "
+            f"{fr['loss']:.6g}, loss_rel {fr['loss_rel']:.6g}, epsilon "
+            f"{fr['epsilon']!r}, largest weight change {fr['moved']:.4g}")
+    eps = np.float32(dl.epsilon_start)
+    for _ in frames:
+        eps = max(eps - np.float32(dl.epsilon_decay * 1),
+                  np.float32(dl.epsilon_min))
+    check(frames[-1]["epsilon"] == float(eps),
+          f"epsilon {frames[-1]['epsilon']!r} != closed form {float(eps)!r}")
+    check(all(fr["moved"] > 0 for fr in frames), "the net did not move")
+    check(all(bool(torch.isfinite(p).all()) for p in net.parameters()),
+          "non-finite weights")
+    check(all(np.isfinite(fr["loss_rel"]) for fr in frames),
+          "loss_rel not finite")
+    check(frames[-1]["zclp"] <= frames[0]["zclp"],
+          f"zclp rose: {frames[0]['zclp']} -> {frames[-1]['zclp']}")
+    check(model.exists(), "--save-model wrote nothing")
+    learn_s = [fr["seconds"] for fr in frames]
+    iters = [fr["iterations"] for fr in frames]
+    log(f"[14] {b4a_learn} B4a launches in 3 frames; "
+        f"{statistics.median(learn_s):.4f} s per learning frame (median), "
+        f"{sum(learn_s) / sum(iters) * 1e3:.4f} ms per iteration; epsilon "
+        f"{frames[-1]['epsilon']!r} == the closed form; CLI {sec:.4f} s")
+
+    cfg = RenderConfig(width=size, height=size, samples_per_pixel=1,
+                       max_ray_bounces=80)
+    eps = frames[-1]["epsilon"]
+
+    def train_frame(seed, **kw):
+        return dw.render_frame_neural_q_wavefront(
+            torch.Generator(device=dev).manual_seed(seed), scene, camera, net,
+            opt_state, eps, cfg, rl, dl, pix_mux=8, **kw)
+
+    # B4a on the path's own rays (an extra, untimed frame keeps the inputs
+    # of call 12 and the last two)
+    first, n_win = 10, 5
+    rec = HitRecorder(dw.closest_hit_mat_mxu, at=(12,))
+    dw.closest_hit_mat_mxu = rec
+    try:
+        train_frame(2001)
+    finally:
+        dw.closest_hit_mat_mxu = rec.fn
+    for key, (o, d, tris, mat, m) in rec.calls.items():
+        k_out = ip.closest_hit_mat_mxu(o, d, tris, mat, m)
+        sync(dev)
+        p_out = ip.closest_hit_plain(o, d, tris, int(m), mat)
+        for a, b in zip(k_out, p_out):
+            check(torch.equal(a, b), f"B4a deep call {key}: kernel and twin "
+                                     "differ on the path's rays")
+        log(f"[14] B4a call {key} ({o.shape[0]} slots, active_count "
+            f"{int(m)}): t, index and material rows bit-equal to the twin, "
+            f"{float((k_out[0] < 1e38).float().mean()):.4f} hit")
+
+    # the idle share of iterations 10-14 (full width) of one frame, seed
+    # 2002 from the same weights and Adam state, run twice: with a CUDA
+    # event before each iteration (the spans on the device timeline), then
+    # under torch.profiler (the device busy time)
+    state = list(net.parameters()) + [opt_state.count, *opt_state.mu,
+                                       *opt_state.nu]
+    saved = [t.detach().clone() for t in state]
+    clock = IterationHook(dw.closest_hit_mat_mxu)
+    dw.closest_hit_mat_mxu = clock
+    try:
+        clean_aux = train_frame(2002)[4]
+    finally:
+        dw.closest_hit_mat_mxu = clock.fn
+    spans = clock.spans_ms(first, n_win)
+    with torch.no_grad():
+        for t, s in zip(state, saved):
+            t.copy_(s)
+    prof = profile_deep_window(dw, lambda: train_frame(2002), first, n_win)
+    busy_it = prof["busy_us"] / n_win
+    span_it = statistics.mean(spans) * 1e3
+    idle = 1.0 - busy_it / span_it
+    width = cfg.n_pixels // 8
+    log(f"[14] iterations {first}-{first + n_win - 1} of a learning frame "
+        f"(width {width}, {-(-width // dl.batch_size)} minibatches each), "
+        f"seed 2002 run twice from the same state "
+        f"({int(clean_aux['wavefront_iterations'])} and "
+        f"{prof['iterations']} iterations): "
+        f"{prof['kernels'] / n_win:.1f} device kernels per iteration, "
+        f"device busy {busy_it:.2f} us per iteration under the profiler "
+        f"against {span_it:.2f} us per iteration on the device timeline of "
+        f"the unprofiled run ({', '.join(f'{s:.3f}' for s in spans)} ms): "
+        f"idle share {idle:.4f}; cuBLAS kernels {prof['gemm_kernels']} "
+        f"({prof['gemm_us'] / n_win:.2f} us per iteration); "
+        f"{prof['loops']} minibatch loops profiled, host syncs inside them "
+        f"{prof['syncs_in_loop']}, device-to-host copies {prof['d2h']} "
+        f"({prof['d2h_in_loop']} issued inside them)")
+    check(prof["loops"] >= n_win and prof["kernels"] > 0,
+          "the profiled window holds no minibatch loop or kernel")
+    check(not prof["syncs_in_loop"] and not prof["d2h_in_loop"],
+          f"the minibatch loop synchronised: {prof['syncs_in_loop']}")
+
+    # the MLP at full width: one forward over 64,800 positions, its f32
+    # bound, and the training iteration's (forward, then forward and
+    # backward over the same rows: 4 forwards' work)
+    rows = cfg.n_pixels // 8
+    pos = torch.as_tensor(np.random.default_rng(14).uniform(
+        -0.9, 0.9, (rows, 3)).astype(np.float32), device=dev)
+    verts = scene.vertices_flat
+    with torch.no_grad():
+        fwd_ms = kernel_ms(lambda: net.forward_relative(verts, pos), 20)
+    sizes = [3, 200, 300, 200, 144]
+    macs = sum(a * b for a, b in zip(sizes[:-1], sizes[1:]))
+    fwd_bound, fwd_by = bound_ms(2.0 * rows * macs, 4 * (
+        rows * (3 + 144) + sum(a * b + b for a, b in zip(
+            [342] + sizes[1:-1], sizes[1:]))))
+    log(f"[14] MLP forward over {rows} positions ({macs} MACs a row, "
+        f"{2 * rows * macs / 1e9:.4f} GFLOP): {fwd_ms:.4f} ms, f32 bound "
+        f"{fwd_bound:.4f} ms ({fwd_by}); a training iteration at that "
+        f"width: bound {4 * fwd_bound:.4f} ms, cuBLAS device time "
+        f"{prof['gemm_us'] / n_win / 1e3:.4f} ms")
+
+    def fused():
+        sync(dev)
+        t0 = time.perf_counter()
+        before = [p.detach().clone() for p in net.parameters()]
+        out = train_frame(2003, train_batching="fused")
+        sync(dev)
+        return out, before, time.perf_counter() - t0
+
+    (f_img, _, _, f_eps, f_aux), before, f_sec = drive("14", ("B4a",), fused)
+    check_image("neural-q fused frame", f_img, size)
+    f_moved = max(float((p.detach() - b).abs().max())
+                  for p, b in zip(net.parameters(), before))
+    check(np.isfinite(float(f_aux["loss"])) and f_moved > 0,
+          "the fused frame did not train")
+    log(f"[14] train_batching fused: {f_sec:.4f} s, "
+        f"{int(f_aux['wavefront_iterations'])} iterations, zclp "
+        f"{int(f_aux['zero_contribution_light_paths'])}, loss_rel "
+        f"{float(f_aux['loss_rel']):.6g}, largest weight change "
+        f"{f_moved:.4g}")
+    res["neural_q"] = {
+        "frames": frames, "b4a_launches": b4a_learn, "cli_seconds": sec,
+        "window_iterations": [first, first + n_win - 1],
+        "kernels_per_iteration": prof["kernels"] / n_win,
+        "busy_us_per_iteration": busy_it, "span_us_per_iteration": span_it,
+        "idle_share": idle, "gemm_us_per_iteration": prof["gemm_us"] / n_win,
+        "forward_ms": fwd_ms, "forward_bound_ms": fwd_bound,
+        "fused_seconds": f_sec,
+        "fused_iterations": int(f_aux["wavefront_iterations"])}
+
+    # ---- 15: pretrained on the wavefront from the saved file ------------
+    loaded = load_dynet_model(str(model), device=dev)
+    check(all(torch.equal(a, b) for a, b in zip(loaded.parameters(),
+                                                 trained)),
+          "the DyNet file does not give back the trained weights")
+    log(f"[15] pretrained wavefront from {model.name} (load_dynet_model on "
+        f"the card gives back the trained weights bit for bit): {size}x"
+        f"{size}, 32 spp, pix_mux 8")
+    pre, secs_p = {}, {}
+    for label, argv in (("f32", ["--mlp-dtype", "f32", "--seed", 1984]),
+                        ("f32-seed2", ["--mlp-dtype", "f32", "--seed", 1985]),
+                        ("bf16", ["--mlp-dtype", "bf16", "--seed", 1986])):
+        img, p_aux, sec = drive("15", ("B4a",), lambda: run_cli([
+            "--mode", "pretrained", "--impl", "wavefront", "--model", model,
+            "--width", size, "--height", size, "--spp", 32, "--bounces", 80,
+            "--pix-mux", 8] + argv))
+        check_image(f"pretrained {label}", img, size)
+        apl = float(p_aux["avg_path_length"])
+        rays = apl * size * size * 32 / sec
+        pre[label], secs_p[label] = img, sec
+        write_png(str(out_dir / f"pretrained-{label}.png"), img.cpu())
+        log(f"[15] {label}: {sec:.4f} s, "
+            f"{int(p_aux['wavefront_iterations'])} iterations, avg path "
+            f"{apl:.4f}, {rays:.6g} rays/s, mean {float(img.mean()):.6f} "
+            f"vs mega {mega_mean:.6f} ({(float(img.mean()) - mega_mean) / mega_mean:+.4%})")
+        res.setdefault("pretrained", {})[label] = {
+            "seconds": sec, "rays_per_s": rays, "avg_path": apl,
+            "iterations": int(p_aux["wavefront_iterations"]),
+            "mean": float(img.mean())}
+    noise, err = noise_gap(pre["f32"], pre["f32-seed2"], pre["bf16"])
+    log(f"[15] bf16 vs f32: mean |diff| {err:.6f}, f32 seed-to-seed "
+        f"{noise:.6f} (limit 3x + 1e-3)")
+    res["pretrained"]["bf16_vs_f32"] = hold_means(
+        "[15] bf16 vs f32", pre["bf16"], pre["f32"],
+        [(pre["f32"], pre["f32-seed2"])], 8)
+    # a sector whose Q the output ReLU zeroes is never sampled, so its
+    # light is never gathered: the share of such entries at 20,000 random
+    # surface points (area-weighted, numpy seed 15)
+    from rlrpt_tpu_torch.scene.geometry import sample_points_on_triangles
+    from rlrpt_tpu_torch.scene.scene import surface_areas
+    ns = scene.n_surfaces
+    rng = np.random.default_rng(15)
+    s_area = surface_areas(scene)
+    host = lambda a: a[:ns].cpu().numpy().astype(np.float64)  # noqa: E731
+    pts, _ = sample_points_on_triangles(
+        rng, host(scene.v0), host(scene.v1), host(scene.v2),
+        rng.multinomial(20_000, s_area / s_area.sum()))
+    with torch.no_grad():
+        q = loaded.forward_relative(scene.vertices_flat, torch.as_tensor(
+            pts, dtype=torch.float32, device=dev))
+    zero_q = float((q == 0).float().mean())
+    log(f"[15] the trained net's Q at 20,000 surface points: {zero_q:.4f} "
+        f"of the entries are 0 (never sampled), "
+        f"{float((q.sum(-1) == 0).float().mean()):.4f} of the rows")
+    res["pretrained"]["zero_q_share"] = zero_q
+    check(err < 3.0 * noise + 1e-3, f"bf16 frame off by {err} (noise "
+                                    f"{noise})")
+
+    # ---- 16: the lockstep tracers at a smaller size ---------------------
+    sm = ["--width", small, "--height", small, "--spp", 1, "--bounces", 80]
+    img, l_aux, l_sec = drive("16", ("B4a",), lambda: run_cli(
+        ["--mode", "neural-q", "--impl", "lockstep", "--frames", 1,
+         "--seed", 7] + sm))
+    check_image("lockstep neural-q", img, small)
+    l_fr = l_aux["frames"][0]
+    check(np.isfinite(l_fr["loss"]) and l_fr["moved"] > 0,
+          "the lockstep frame did not train")
+    log(f"[16] lockstep neural-q {small}x{small} 1 spp: {l_sec:.4f} s, loss "
+        f"{l_fr['loss']:.6g}, avg path {l_fr['avg_path']:.4f}, zclp "
+        f"{l_fr['zclp']}")
+    lock = {}
+    for label, argv in (("lockstep", ["--impl", "lockstep", "--seed", 1984]),
+                        ("lockstep-seed2", ["--impl", "lockstep", "--seed",
+                                            1985]),
+                        ("wavefront", ["--impl", "wavefront", "--pix-mux", 8,
+                                       "--seed", 1984]),
+                        ("wavefront-seed2", ["--impl", "wavefront",
+                                             "--pix-mux", 8, "--seed",
+                                             1985])):
+        img, _, sec = drive("16", ("B4a",), lambda: run_cli(
+            ["--mode", "pretrained", "--model", model] + argv + sm))
+        check_image(f"pretrained {label} {small}", img, small)
+        lock[label] = img
+        log(f"[16] pretrained {label} {small}x{small} 1 spp: {sec:.4f} s, "
+            f"mean {float(img.mean()):.6f}")
+    noise, err = noise_gap(lock["lockstep"], lock["lockstep-seed2"],
+                           lock["wavefront"])
+    log(f"[16] wavefront vs lockstep: mean |diff| {err:.6f}, lockstep "
+        f"seed-to-seed {noise:.6f} (limit 3x + 1e-3)")
+    check(err < 3.0 * noise + 1e-3, f"lockstep and wavefront differ by "
+                                    f"{err} (noise {noise})")
+    gap = hold_means("[16] wavefront vs lockstep", lock["wavefront"],
+                     lock["lockstep"],
+                     [(lock["lockstep"], lock["lockstep-seed2"]),
+                      (lock["wavefront"], lock["wavefront-seed2"])], 4)
+    res["lockstep"] = {"neural_q_seconds": l_sec, "err": err, "noise": noise,
+                       "wavefront_vs_lockstep": gap}
+
+    # ---- 17: the offline pipeline: distill, then probe ------------------
+    verts_path, distilled = out_dir / "vertices.txt", out_dir / "distilled.model"
+    save_vertices_to_file(scene, str(verts_path))
+    _, d_aux, d_sec = drive("17", (), lambda: run_cli([
+        "--mode", "distill", "--load-q", out_dir / "q_fine_map.txt",
+        "--vertices", verts_path, "--epochs", 10, "--save-model",
+        distilled]))
+    hist = d_aux["history"]
+    n_rows = len((out_dir / "q_fine_map.txt").read_text().splitlines()) - 1
+    log(f"[17] distill of phase 11's map ({n_rows} volume rows, 80/20 split, "
+        f"batch 128): "
+        f"{d_sec:.4f} s for 10 epochs; test MSE "
+        + " ".join(f"{h[2]:.6g}" for h in hist))
+    check(hist[-1][2] < hist[0][2], "distillation test MSE did not fall")
+    sel = out_dir / "selected_deep.txt"
+    drive("17", (), lambda: run_cli([
+        "--mode", "q-probe", "--model", distilled, "--probe",
+        out_dir / "probes.txt", "--out-probe", sel]))
+    rows = np.loadtxt(sel)
+    sums = rows[:, 6:].sum(-1)
+    # a row the output ReLU zeroes in every sector stays zero (the JAX
+    # writer's choice; the reference divides by zero there)
+    norm = np.abs(sums - 1.0) <= 1e-4
+    log(f"[17] q-probe at 16 lit volumes of the map: rows {rows.shape}, "
+        f"{int(norm.sum())} sum to 1 within 1e-4, {int((sums == 0).sum())} "
+        f"all zero; sums {' '.join(f'{x:.6f}' for x in sums)}")
+    check(rows.shape == (16, 150) and np.all(norm | (sums == 0))
+          and norm.sum() >= 12, "q-probe rows do not sum to 1")
+    res["distill"] = {"seconds": d_sec, "history": hist}
     return res
 
 
@@ -1002,6 +1472,8 @@ def main(argv=None) -> int:
 
     # 11-13: the fine-map expected-SARSA stack
     fine = fine_map_phases(dev, out_dir, drive, mm)
+    # 14-17: the deep-Q family
+    deep = deep_phases(dev, out_dir, drive, mm)
 
     results = {"kernels": [
         {"name": "B1 mega_default", "route": "cuda",
@@ -1039,7 +1511,7 @@ def main(argv=None) -> int:
         "learning_frames": frames, "guided_gap_after_learning": gap,
         "b2_iterations": b2_iters, "b2_grid_blocks": grid_blocks,
         "grid_barrier_us": sync_us, "b2_frame_device_kernels": b2_kernels,
-        **fine},
+        **fine, **deep},
         indent=1))
     print(card)
     print(json.dumps(results))

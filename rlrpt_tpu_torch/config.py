@@ -80,3 +80,36 @@ class RadianceVolumeConfig:
     @property
     def radiance_threshold(self) -> float:
         return (1.0 / float(self.n_sectors)) * 0.8
+
+
+@dataclasses.dataclass(frozen=True)
+class DeepLearningConfig:
+    """Neural-Q settings (ref: deep_learning_settings.h:5-20, main.cu:
+    116-124, dq_network.cu:14-17): epsilon-greedy start/min/decay, the
+    4096-ray training batch, hidden layers 200/300/200 with ReLU on every
+    layer, DyNet's Adam defaults, and the x200 light reward (ref:
+    neural_q_pathtracer.cu:697)."""
+
+    epsilon_start: float = 0.05
+    epsilon_min: float = 0.05
+    epsilon_decay: float = 0.01
+    train_on_position: bool = False
+    batch_size: int = 4096
+    hidden_sizes: tuple = (200, 300, 200)
+    learning_rate: float = 0.001
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    adam_eps: float = 1e-8
+    light_reward_scale: float = 200.0
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainerConfig:
+    """Offline distillation settings (ref: NN_Q_Value_Trainer/Source/
+    settings.cuh:4-5, main.cu:140-157): batch 128, 100 epochs, an 80/20
+    train/test split."""
+
+    batch_size: int = 128
+    epochs: int = 100
+    train_fraction: float = 0.8
+    learning_rate: float = 0.001

@@ -1,0 +1,364 @@
+"""Regenerative-wavefront neural-Q tracers, the fast deep paths
+(counterpart of ``rlrpt_tpu/deep/deep_wavefront.py``).
+
+The estimator and learning rule of deep.pretrained / deep.neural_q on the
+slot wavefront of integrators.sarsa_wavefront:
+
+* a slot owns pix_mux pixels and starts the next sample, then the next
+  pixel, the moment a sample ends, so the closest hit (kernel B4a) and
+  the MLP forward are spent on live rays;
+* cascaded drain: once the live count fits a DRAIN_FACTOR-times narrower
+  wavefront, the live slots are compacted to a prefix, the dead tail's
+  banked radiance is flushed, and a narrower loop goes on;
+* between phase boundaries the hit traces up to the last live slot, a
+  high-water mark ``m`` that stays a device int32 tensor;
+* ONE forward per iteration serves both the sampling distribution at the
+  new vertex and the TD bootstrap of the transition into it (the
+  lockstep forwards twice per bounce);
+* training: the pending transitions (prev_loc, action, td) train the net
+  through deep.neural_q.train_on_batches, weighted by the pending mask;
+  a minibatch with nothing pending does not advance Adam.
+
+Deliberate deviations from the lockstep (the JAX module's, kept):
+regeneration replaces the learning-only respawn; epsilon decays per
+sample ordinal of each pixel (a per-lane epsilon), and the frame returns
+epsilon advanced by spp decays; a transition's update lands one iteration
+later relative to the sampling at its new vertex; the bounce cap
+contributes tp * brdf (no direction factor), the lockstep's throughput at
+loop exit.
+
+The loop reads the live count on the host once every SYNC_EVERY
+iterations; the count never rises, so a late read only delays a phase
+exit, and an iteration with no live slot changes nothing and is not
+counted.  Nothing inside an iteration waits for the host.  Randomness
+comes from one ``torch.Generator``.  The network and the Adam state are
+updated in place.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import math
+from typing import NamedTuple
+
+import torch
+
+from rlrpt_tpu_torch.camera import Camera
+from rlrpt_tpu_torch.config import (DeepLearningConfig, RadianceVolumeConfig,
+                                    RenderConfig)
+from rlrpt_tpu_torch.deep.neural_q import (_generator, _q_forward,
+                                           bootstrap_max, decay_epsilon,
+                                           f32, sample_q_directions_u,
+                                           train_on_batches)
+from rlrpt_tpu_torch.integrators.sarsa_wavefront import (DRAIN_FACTOR,
+                                                         INF_CUT,
+                                                         MIN_DRAIN_W,
+                                                         _compact, _flush,
+                                                         _phase_widths)
+from rlrpt_tpu_torch.integrators.wavefront import _primary_dirs
+from rlrpt_tpu_torch.nn.adam import AdamState
+from rlrpt_tpu_torch.nn.dq_network import DQNetwork
+from rlrpt_tpu_torch.ops.hemisphere import sector_cos_thetas
+from rlrpt_tpu_torch.ops.intersect_pallas import (closest_hit_mat_mxu,
+                                                  pack_scene_mxu)
+from rlrpt_tpu_torch.scene.scene import Scene
+
+SYNC_EVERY = 2
+
+
+class _State(NamedTuple):
+    # per slot, sliced at each drain step
+    o: torch.Tensor           # (W, 3)
+    d: torch.Tensor           # (W, 3)
+    tp: torch.Tensor          # (W, 3)
+    pixel: torch.Tensor       # (W,) int64 current pixel id
+    kmx: torch.Tensor         # (W,) int64 pixel-multiplex index
+    bounce: torch.Tensor      # (W,) int32
+    remaining: torch.Tensor   # (W,) int32 samples left after the current
+    sord: torch.Tensor        # (W,) int32 sample ordinal (epsilon decay)
+    active: torch.Tensor      # (W,) bool
+    sample_rad: torch.Tensor  # (W, 3)
+    slot_rad: torch.Tensor    # (W, pix_mux, 3)
+    prev_loc: torch.Tensor    # (W, 3) position of the pending action
+    action: torch.Tensor      # (W,) int64, -1 = no pending transition
+
+
+def trace_frame_deep_wavefront(generator_or_seed, scene: Scene,
+                               camera: Camera, net: DQNetwork,
+                               cfg: RenderConfig, rl: RadianceVolumeConfig,
+                               dl: DeepLearningConfig, *,
+                               opt_state: AdamState | None = None,
+                               epsilon: float = 0.0, train: bool = False,
+                               pix_mux: int = 1, mlp_dtype: str = "f32",
+                               train_batching: str = "minibatch"):
+    """One regenerative deep frame; returns (image_sum (n_pix, 3), stats).
+
+    ``train=False`` freezes the net (pretrained; the caller passes
+    epsilon 0); ``train=True`` runs the online TD updates with
+    ``opt_state``.  mlp_dtype "bf16" (inference only) runs the forward in
+    bfloat16, every operand cast: the sampler's pdf comes from the same
+    rounded Q distribution the sector is drawn from, so the estimator
+    stays unbiased.  train_batching "minibatch" takes the reference's
+    sequential per-batch_size Adam steps each iteration
+    (neural_q_pathtracer.cu:421-513); "fused" takes one step over all of
+    the iteration's pending transitions.
+
+    stats: path_sum, zclp, loss_sum, td_sq_sum, light_hits,
+    light_path_sum (device tensors), phase_iterations (a device tensor),
+    phase_widths (ints).
+    """
+    if mlp_dtype not in ("f32", "bf16"):
+        raise ValueError(f"mlp_dtype must be 'f32' or 'bf16', got "
+                         f"{mlp_dtype!r}")
+    if train_batching not in ("minibatch", "fused"):
+        raise ValueError(f"train_batching must be 'minibatch' or 'fused', "
+                         f"got {train_batching!r}")
+    if train and mlp_dtype != "f32":
+        raise ValueError("the bf16 forward is inference only (training "
+                         "keeps the reference's f32 numerics)")
+    if train and opt_state is None:
+        raise ValueError("training needs opt_state")
+    device = next(net.parameters()).device
+    gen = _generator(generator_or_seed, device)
+    scene = scene.to(device)
+    tris, mat = pack_scene_mxu(scene)
+    ns = scene.n_surfaces
+    n_pix, spp = cfg.n_pixels, cfg.samples_per_pixel
+    gr = rl.grid_resolution
+    w0 = -(-n_pix // pix_mux)          # slots; slot i owns i + k*w0, k<mux
+    f32d = dict(dtype=torch.float32, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    i64 = dict(dtype=torch.int64, device=device)
+    cos_tbl = sector_cos_thetas(gr, device)
+    eps0 = f32(epsilon)
+    if mlp_dtype == "bf16":
+        fwd_net = copy.deepcopy(net).to(torch.bfloat16)
+        verts = scene.vertices_flat.to(torch.bfloat16)
+    cam_o = torch.tensor(camera.position, **f32d)
+    lane = torch.arange(1, w0 + 1, **i32)
+    ksel_base = torch.arange(pix_mux, **i64)
+
+    pix0 = torch.arange(w0, **i64)
+    in_image = pix0 < n_pix
+    st = _State(
+        o=cam_o.expand(w0, 3).clone(),
+        d=_primary_dirs(gen, pix0, camera, cfg),
+        tp=torch.ones((w0, 3), **f32d), pixel=pix0,
+        kmx=torch.zeros((w0,), **i64), bounce=torch.zeros((w0,), **i32),
+        remaining=torch.where(in_image, spp - 1, 0).to(torch.int32),
+        sord=torch.zeros((w0,), **i32), active=in_image,
+        sample_rad=torch.zeros((w0, 3), **f32d),
+        slot_rad=torch.zeros((w0, pix_mux, 3), **f32d),
+        prev_loc=torch.zeros((w0, 3), **f32d),
+        action=torch.full((w0,), -1, **i64))
+    image = torch.zeros((n_pix, 3), **f32d)
+    zero = lambda dt: torch.zeros((), dtype=dt, device=device)  # noqa: E731
+    stats = {"path_sum": zero(torch.float64), "zclp": zero(torch.int64),
+             "loss_sum": zero(torch.float32),
+             "td_sq_sum": zero(torch.float32),
+             "light_hits": zero(torch.int64),
+             "light_path_sum": zero(torch.float64)}
+
+    def step(c: _State, wp: int) -> _State:
+        act = c.active
+        # last live lane + 1 (0 when none is live), on the device
+        m = torch.max(torch.where(act, lane[:wp], 0)).reshape(1)
+        t, tri, mrow = closest_hit_mat_mxu(c.o, c.d, tris, mat, m)
+        normal, diffuse3 = mrow[:, 0:3], mrow[:, 3:6]
+        emission3, lum = mrow[:, 6:9], mrow[:, 10]
+        missed = act & (t >= INF_CUT)
+        hit_light = act & ~missed & (tri >= ns)
+        hit_surface = act & ~missed & (tri < ns)
+        # dead and missed lanes would feed inf into the MLP: clamp them
+        qpos = torch.where(hit_surface[:, None], c.o + t[:, None] * c.d, 0.0)
+
+        # ONE forward: the sampling distribution and the TD bootstrap
+        with torch.no_grad():
+            if mlp_dtype == "bf16":
+                if dl.train_on_position:
+                    qs = fwd_net(qpos.to(torch.bfloat16))
+                else:
+                    qs = fwd_net.forward_relative(verts,
+                                                  qpos.to(torch.bfloat16))
+                qs = qs.float()
+            else:
+                qs = _q_forward(net, scene, qpos, dl)
+
+        if train:
+            # rewards and discounts per hit type (neural_q_pathtracer.cu:
+            # 646-752): light r = lum * 200, miss 0, surface gamma = lum
+            td = torch.where(hit_light, lum * dl.light_reward_scale,
+                             torch.where(hit_surface,
+                                         lum * bootstrap_max(qs, cos_tbl),
+                                         0.0))
+            pending = act & (c.action >= 0)
+            dl_t = (dataclasses.replace(dl, batch_size=wp)
+                    if train_batching == "fused" else dl)
+            stats["loss_sum"] += train_on_batches(
+                net, opt_state, scene, c.prev_loc,
+                torch.clamp(c.action, min=0), td, dl_t,
+                weights=pending.float())
+            # the loss's scale: squared error grows with Q's magnitude
+            # (x200 light reward) even while the relative error falls
+            stats["td_sq_sum"] += torch.where(pending, td * td, 0.0).sum()
+
+        contrib = (torch.where(missed[:, None],
+                               c.tp * cfg.environment_light, 0.0)
+                   + torch.where(hit_light[:, None], c.tp * emission3, 0.0))
+
+        # the next direction from Q * cos
+        if train:
+            eps_lane = torch.clamp(
+                eps0 - dl.epsilon_decay * c.sord.float(), min=dl.epsilon_min)
+        else:
+            eps_lane = 0.0
+        u = torch.rand((wp, 5), generator=gen, device=device)
+        new_d, sector, pdf = sample_q_directions_u(u, qs, normal, eps_lane,
+                                                   gr, rl.grid_rho, cos_tbl)
+        cos_theta = torch.sum(normal * new_d, dim=-1)
+        brdf3 = diffuse3 / math.pi
+        pdf_safe = torch.clamp(pdf, min=1e-12)
+        exhausted = hit_surface & (c.bounce + 1 >= cfg.max_ray_bounces)
+        survive = hit_surface & ~exhausted
+        # the bounce cap contributes tp * brdf, no direction factor
+        sample_rad = (c.sample_rad + contrib
+                      + torch.where(exhausted[:, None], c.tp * brdf3, 0.0))
+        tp = torch.where(survive[:, None],
+                         c.tp * brdf3 * (cos_theta / pdf_safe)[:, None], c.tp)
+        rr_killed = torch.zeros_like(survive)
+        if cfg.russian_roulette:
+            p = torch.clamp(tp.max(dim=-1).values, cfg.rr_min_prob, 1.0)
+            do_rr = survive & (c.bounce + 1 >= cfg.rr_start_bounce)
+            rr_killed = do_rr & (torch.rand((wp,), generator=gen,
+                                            device=device) >= p)
+            tp = torch.where((do_rr & ~rr_killed)[:, None], tp / p[:, None],
+                             tp)
+            survive = survive & ~rr_killed
+
+        o = torch.where(survive[:, None], qpos + cfg.eps * new_d, c.o)
+        d = torch.where(survive[:, None], new_d, c.d)
+        bounce = torch.where(survive, c.bounce + 1, c.bounce)
+        prev_loc = torch.where(survive[:, None], qpos, c.prev_loc)
+        action = torch.where(survive, sector, -1)
+
+        # stats of finished samples
+        done = missed | hit_light
+        fin = (bounce + 1).double()
+        stats["path_sum"] += (torch.where(done | rr_killed, fin, 0.0).sum()
+                              + exhausted.sum().double()
+                              * cfg.max_ray_bounces)
+        finished = act & ~survive
+        stats["zclp"] += (finished & (sample_rad.mean(-1)
+                                      < cfg.throughput_threshold)).sum()
+        # guidance shows on the light-terminated subset: the Cornell box
+        # is open at the camera side, so better guidance turns short
+        # escaping paths into longer light-finding ones
+        stats["light_hits"] += hit_light.sum()
+        stats["light_path_sum"] += torch.where(hit_light, fin, 0.0).sum()
+
+        # bank finished samples into the slot's k-th row
+        slot_rad = c.slot_rad + ((ksel_base == c.kmx[:, None])[:, :, None]
+                                 * torch.where(finished[:, None], sample_rad,
+                                               0.0)[:, None, :])
+
+        # regeneration: the next sample, else the next multiplexed pixel
+        next_pix = c.pixel + w0
+        step_k = (finished & (c.remaining <= 0) & (c.kmx + 1 < pix_mux)
+                  & (next_pix < n_pix))
+        pixel = torch.where(step_k, next_pix, c.pixel)
+        kmx = torch.where(step_k, c.kmx + 1, c.kmx)
+        remaining = torch.where(step_k, spp, c.remaining)
+        regen = finished & (remaining > 0)
+        rd = _primary_dirs(gen, pixel, camera, cfg)
+        # a pixel's next sample advances its ordinal, a new pixel resets it
+        sord = torch.where(regen, torch.where(step_k, 0, c.sord + 1), c.sord)
+        return _State(
+            o=torch.where(regen[:, None], cam_o, o),
+            d=torch.where(regen[:, None], rd, d),
+            tp=torch.where(regen[:, None], 1.0, tp), pixel=pixel, kmx=kmx,
+            bounce=torch.where(regen, 0, bounce),
+            remaining=torch.where(regen, remaining - 1, remaining),
+            sord=sord, active=survive | regen,
+            sample_rad=torch.where(regen[:, None], 0.0, sample_rad),
+            slot_rad=slot_rad, prev_loc=prev_loc,
+            action=torch.where(regen, -1, action))
+
+    widths = _phase_widths(w0, DRAIN_FACTOR, MIN_DRAIN_W)
+    phase_iters = []
+    for i, wp in enumerate(widths):
+        w_next = widths[i + 1] if i + 1 < len(widths) else 0
+        iters = torch.zeros((), **i64)
+        n = 0
+        while n % SYNC_EVERY or int(st.active.sum()) > w_next:
+            iters = iters + st.active.any()
+            st = step(st, wp)
+            n += 1
+        phase_iters.append(iters)
+        if w_next:
+            st = _compact(st, wp)
+            # the tail [w_next:] is dead: flush its banked radiance before
+            # slicing it away
+            _flush(image, st.pixel[w_next:], st.kmx[w_next:],
+                   st.slot_rad[w_next:], w0)
+            st = _State(*(a[:w_next] for a in st))
+    _flush(image, st.pixel, st.kmx, st.slot_rad, w0)
+    stats.update(phase_iterations=torch.stack(phase_iters),
+                 phase_widths=tuple(widths))
+    return image, stats
+
+
+def _aux(stats: dict, cfg: RenderConfig) -> dict:
+    total = cfg.n_pixels * cfg.samples_per_pixel
+    hits = stats["light_hits"]
+    return {"avg_path_length": stats["path_sum"] / total,
+            "zero_contribution_light_paths": stats["zclp"],
+            "wavefront_iterations": stats["phase_iterations"].sum(),
+            "phase_iterations": stats["phase_iterations"],
+            "phase_widths": stats["phase_widths"],
+            "light_hit_fraction": hits / total,
+            "avg_light_path_length": stats["light_path_sum"]
+            / torch.clamp(hits, min=1)}
+
+
+def render_frame_pretrained_wavefront(generator_or_seed, scene: Scene,
+                                      camera: Camera, net: DQNetwork,
+                                      cfg: RenderConfig,
+                                      rl: RadianceVolumeConfig,
+                                      dl: DeepLearningConfig,
+                                      pix_mux: int = 8,
+                                      mlp_dtype: str = "f32"):
+    """Inference with a frozen net, epsilon 0 (ref: pre_trained_
+    pathtracer.cu:286); returns (image (H, W, 3), aux)."""
+    image_sum, stats = trace_frame_deep_wavefront(
+        generator_or_seed, scene, camera, net, cfg, rl, dl, train=False,
+        pix_mux=pix_mux, mlp_dtype=mlp_dtype)
+    img = (image_sum / cfg.samples_per_pixel).reshape(cfg.height, cfg.width,
+                                                      3)
+    return img, _aux(stats, cfg)
+
+
+def render_frame_neural_q_wavefront(generator_or_seed, scene: Scene,
+                                    camera: Camera, net: DQNetwork,
+                                    opt_state: AdamState, epsilon: float,
+                                    cfg: RenderConfig,
+                                    rl: RadianceVolumeConfig,
+                                    dl: DeepLearningConfig, pix_mux: int = 8,
+                                    train_batching: str = "minibatch"):
+    """Online training frame; returns (image, net, opt_state, epsilon
+    advanced by spp decays, aux).  aux holds frame totals (the lockstep
+    reports per-spp arrays): loss, loss_rel = loss / sum(td^2) (the
+    scale-free training error), td_sq, and the pretrained frame's keys."""
+    image_sum, stats = trace_frame_deep_wavefront(
+        generator_or_seed, scene, camera, net, cfg, rl, dl,
+        opt_state=opt_state, epsilon=epsilon, train=True, pix_mux=pix_mux,
+        train_batching=train_batching)
+    img = (image_sum / cfg.samples_per_pixel).reshape(cfg.height, cfg.width,
+                                                      3)
+    aux = _aux(stats, cfg)
+    aux.update(loss=stats["loss_sum"],
+               loss_rel=stats["loss_sum"]
+               / torch.clamp(stats["td_sq_sum"], min=1e-12),
+               td_sq=stats["td_sq_sum"])
+    eps_next = decay_epsilon(epsilon, cfg.samples_per_pixel, dl)
+    return img, net, opt_state, eps_next, aux

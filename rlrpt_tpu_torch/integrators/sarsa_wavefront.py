@@ -100,16 +100,17 @@ class _State(NamedTuple):
 _SLOT_FIELDS = _State._fields
 
 
-def _compact(s: _State, wp: int) -> _State:
-    """Permute the slot fields so live slots form a prefix, each part in
-    its old order."""
+def _compact(s, wp: int):
+    """Permute the fields of a slot state (a NamedTuple of per-slot
+    tensors with an ``active`` field) so live slots form a prefix, each
+    part in its old order."""
     act = s.active
     m = act.sum()
     arange = torch.arange(wp, device=act.device)
     slot_pos = torch.where(act, torch.cumsum(act, 0) - 1,
                            m + torch.cumsum(~act, 0) - 1)
     perm_src = torch.empty_like(arange).scatter_(0, slot_pos, arange)
-    return _State(*(getattr(s, f)[perm_src] for f in _SLOT_FIELDS))
+    return type(s)(*(a[perm_src] for a in s))
 
 
 def _flush(image: torch.Tensor, pixel: torch.Tensor, kmx: torch.Tensor,

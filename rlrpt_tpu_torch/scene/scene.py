@@ -43,6 +43,18 @@ class Scene:
     def device(self) -> torch.device:
         return self.v0.device
 
+    @property
+    def vertices_flat(self) -> torch.Tensor:
+        """Flat (T*9,) vertex list in the reference's order (v0 v1 v2 per
+        triangle, surfaces then lights): the DQN input encoding and the
+        vertices.txt contract (ref: scene.cu:63-88)."""
+        return torch.cat([self.v0, self.v1, self.v2], dim=-1).reshape(-1)
+
+    @property
+    def vertices_count(self) -> int:
+        """Floats in the flat vertex list, the DQN's input width."""
+        return self.n_triangles * 9
+
     def to(self, device) -> "Scene":
         return dataclasses.replace(
             self, v0=self.v0.to(device), v1=self.v1.to(device),
@@ -84,3 +96,27 @@ def surface_areas(scene: Scene) -> np.ndarray:
     v0, v1, v2 = (a[:ns].cpu().numpy() for a in (scene.v0, scene.v1,
                                                   scene.v2))
     return triangle_areas(v0, v1, v2)
+
+
+def save_vertices_to_file(scene: Scene, path: str) -> None:
+    """Write vertices.txt, one `v0 v1 v2` row of 9 floats per triangle, the
+    renderer <-> offline-trainer contract (ref: scene.cu:63-88)."""
+    rows = torch.cat([scene.v0, scene.v1, scene.v2], dim=-1).cpu().numpy()
+    with open(path, "w") as f:
+        for row in rows:
+            f.write(" ".join(_fmt(x) for x in row) + "\n")
+
+
+def load_vertices_from_file(path: str) -> np.ndarray:
+    """Read vertices.txt -> flat float32 array (ref: NN_Q_Value_Trainer/
+    Source/main.cu:39-70)."""
+    vals: list[float] = []
+    with open(path) as f:
+        for line in f:
+            vals.extend(float(t) for t in line.split())
+    return np.asarray(vals, np.float32)
+
+
+def _fmt(x: float) -> str:
+    # C++ default ostream float formatting (6 significant digits)
+    return f"{float(x):.6g}"

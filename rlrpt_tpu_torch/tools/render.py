@@ -23,11 +23,26 @@ Modes ported so far:
   importance  a path trace guided by a frozen map: --load-q, else one
               precomputed with --precompute-spp paths per sector
   precomputed the interpolated irradiance of such a map at primary hits
+  neural-q    the deep-Q tracer training its MLP online (Adam, cuBLAS
+              matmuls) for --frames frames; --impl wavefront (the
+              regenerative slot wavefront, deep.deep_wavefront, --pix-mux
+              pixels per slot) or lockstep (deep.neural_q); kernel B4a
+  pretrained  the deep-Q tracer with a frozen net (--model, a DyNet text
+              file; else a random one): --impl wavefront (--mlp-dtype
+              f32|bf16) or lockstep (deep.pretrained); kernel B4a
+  q-probe     the normalised Q rows of --model at the --probe points,
+              written to --out-probe (deep.q_probe)
+  distill     the offline trainer: a Q table (--load-q) and the scene's
+              vertices (--vertices) distilled into a net for --epochs
+              epochs (deep.distill), saved with --save-model
 
 The radiance volumes are placed one per --area-per-sample of surface
 (V = 24,526 on the Cornell box at the default 0.001).  --save-q writes the
 learned Q table as radiance_map_data.txt text, --load-q starts from one,
---stats appends `avg_path loss zclp` per learning frame (loss 0).
+--stats appends `avg_path loss zclp` per learning frame (loss 0), and for
+neural-q one line per frame (wavefront) or per spp (lockstep).  The deep
+modes' --save-model writes the net as DyNet text, which the JAX package
+reads.
 
 Kernel seeds and generators come from a torch.Generator seeded with
 --seed: learning frame f takes the f-th draw and a final render the next
@@ -50,7 +65,9 @@ from rlrpt_tpu_torch.utils.image import write_bmp, write_png
 from rlrpt_tpu_torch.utils.stats import StatsLogger
 
 MODES = ("default", "wavefront", "mega", "sarsa", "sarsa-fast", "sarsa-mega",
-         "voronoi", "importance", "precomputed")
+         "voronoi", "importance", "precomputed", "neural-q", "pretrained",
+         "q-probe", "distill")
+DEEP_MODES = ("neural-q", "pretrained", "q-probe", "distill")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -65,17 +82,35 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--spp", type=int, default=32)
     p.add_argument("--bounces", type=int, default=80)
     p.add_argument("--frames", type=int, default=1,
-                   help="learning frames of sarsa, sarsa-fast, sarsa-mega")
+                   help="learning frames of sarsa, sarsa-fast, sarsa-mega, "
+                        "neural-q")
     p.add_argument("--seed", type=int, default=1984)
     p.add_argument("--out", default="render.png", help=".png or .bmp")
     p.add_argument("--grid-resolution", type=int, default=12)
     p.add_argument("--area-per-sample", type=float, default=0.001)
     p.add_argument("--pix-mux", type=int, default=4,
-                   help="pixels per wavefront slot (sarsa-fast)")
+                   help="pixels per wavefront slot (sarsa-fast, the deep "
+                        "wavefront)")
     p.add_argument("--stats", default=None,
-                   help="training stats file (sarsa, sarsa-fast, sarsa-mega)")
+                   help="training stats file (sarsa, sarsa-fast, sarsa-mega, "
+                        "neural-q)")
     p.add_argument("--save-q", default=None, help="save Q-table text file")
-    p.add_argument("--load-q", default=None, help="load Q-table text file")
+    p.add_argument("--load-q", default=None,
+                   help="load Q-table text file (distill: its input)")
+    p.add_argument("--model", default=None, help="DyNet-format model path")
+    p.add_argument("--save-model", default=None,
+                   help="write the net as a DyNet-format model")
+    p.add_argument("--probe", default=None, help="to_select.txt (q-probe)")
+    p.add_argument("--out-probe", default="selected_deep.txt")
+    p.add_argument("--vertices", default=None,
+                   help="vertices.txt (distill)")
+    p.add_argument("--epochs", type=int, default=100)
+    p.add_argument("--impl", choices=("wavefront", "lockstep"),
+                   default="wavefront",
+                   help="neural-q / pretrained schedule: the regenerative "
+                        "slot wavefront or the reference-shaped lockstep")
+    p.add_argument("--mlp-dtype", choices=("f32", "bf16"), default="f32",
+                   help="Q-forward precision of the pretrained wavefront")
     p.add_argument("--precompute-spp", type=int, default=16)
     p.add_argument("--russian-roulette", action="store_true")
     p.add_argument("--rr-start-bounce", type=int, default=3)
@@ -88,10 +123,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def render(args: argparse.Namespace):
     """Render as ``args`` say; returns (image (H, W, 3) float32 tensor,
-    aux dict).  For sarsa-mega, aux also holds "frames" (per learning
-    frame: avg_path, td_scatters, seconds, visits: the total after the
-    frame, read after its seconds), "guided_seconds" and the learned "q"
-    and "visits"."""
+    aux dict); q-probe and distill return no image (None).  For
+    sarsa-mega, aux also holds "frames" (per learning frame: avg_path,
+    td_scatters, seconds, visits: the total after the frame, read after
+    its seconds), "guided_seconds" and the learned "q" and "visits"."""
     device = torch.device(args.device)
     cfg = RenderConfig(width=args.width, height=args.height,
                        samples_per_pixel=args.spp,
@@ -117,6 +152,9 @@ def render(args: argparse.Namespace):
         from rlrpt_tpu_torch.ops.megakernel import render_default_mega
         return render_default_mega(next_seed(), scene, camera, cfg, device)
     stats = StatsLogger(args.stats) if args.stats else None
+    if args.mode in DEEP_MODES:
+        return _render_deep(args, scene, camera, cfg, device, next_seed,
+                            stats)
     if args.mode != "sarsa-mega":
         return _render_volumes(args, scene, camera, cfg, device, next_seed,
                                stats)
@@ -253,6 +291,124 @@ def _render_volumes(args, scene, camera, cfg, device, next_seed, stats):
     return img, dict(aux, frames=frames, vols=vols, **aux_out)
 
 
+def _render_deep(args, scene, camera, cfg, device, next_seed, stats):
+    """The deep-Q modes (rlrpt_tpu/tools/render.py:123-134, 265-331).
+
+    aux of neural-q: "frames" (per frame: seconds, loss, avg_path, zclp,
+    epsilon after it, moved: the largest change of any weight in it, and
+    for the wavefront loss_rel, iterations, phase widths and iterations),
+    and the trained "net" and "opt_state"; of pretrained the frame's aux
+    and "seconds"; of distill "history" (epoch, train loss, test MSE)."""
+    from rlrpt_tpu_torch.config import DeepLearningConfig, TrainerConfig
+    from rlrpt_tpu_torch.deep.neural_q import init_neural_q
+    from rlrpt_tpu_torch.nn.adam import adam_init
+    from rlrpt_tpu_torch.nn.dynet_io import load_dynet_model, save_dynet_model
+    rl = RadianceVolumeConfig(grid_resolution=args.grid_resolution,
+                              area_per_sample=args.area_per_sample)
+    dl = DeepLearningConfig()
+    gen = lambda: torch.Generator(device=device).manual_seed(  # noqa: E731
+        next_seed())
+
+    def save_model(net):
+        if args.save_model:
+            save_dynet_model(net, args.save_model)
+            print(f"saved {args.save_model}")
+
+    if args.mode == "distill":
+        from rlrpt_tpu_torch.deep.distill import distill
+        if not (args.load_q and args.vertices):
+            raise ValueError("distill needs --load-q and --vertices")
+        net, history = distill(args.load_q, args.vertices,
+                               TrainerConfig(epochs=args.epochs),
+                               seed=next_seed(), verbose=True, device=device)
+        save_model(net)
+        return None, {"history": history, "net": net}
+
+    if args.model:
+        net, opt_state = load_dynet_model(args.model, device=device), None
+    else:
+        net, opt_state = init_neural_q(next_seed(), scene, dl,
+                                       rl.grid_resolution, device)
+
+    if args.mode == "q-probe":
+        from rlrpt_tpu_torch.deep.q_probe import save_selected_q_values_nn
+        if not args.probe:
+            raise ValueError("q-probe needs --probe to_select.txt")
+        save_selected_q_values_nn(net, scene, args.probe, args.out_probe)
+        print(f"saved {args.out_probe}")
+        return None, {"net": net}
+
+    if args.mode == "pretrained":
+        t0 = time.perf_counter()
+        if args.impl == "wavefront":
+            from rlrpt_tpu_torch.deep.deep_wavefront import \
+                render_frame_pretrained_wavefront
+            img, aux = render_frame_pretrained_wavefront(
+                gen(), scene, camera, net, cfg, rl, dl, pix_mux=args.pix_mux,
+                mlp_dtype=args.mlp_dtype)
+        else:
+            from rlrpt_tpu_torch.deep.pretrained import \
+                render_frame_pretrained
+            if args.mlp_dtype != "f32":
+                raise ValueError("--mlp-dtype bf16 needs --impl wavefront")
+            img, aux = render_frame_pretrained(gen(), scene, camera, net, cfg,
+                                               rl, dl)
+        float(aux["avg_path_length"])   # wait for the device
+        return img, dict(aux, seconds=time.perf_counter() - t0)
+
+    # neural-q: online training
+    if opt_state is None:
+        opt_state = adam_init(net.parameters())
+    if args.impl == "wavefront":
+        from rlrpt_tpu_torch.deep.deep_wavefront import \
+            render_frame_neural_q_wavefront
+
+        def frame(g, eps):
+            return render_frame_neural_q_wavefront(
+                g, scene, camera, net, opt_state, eps, cfg, rl, dl,
+                pix_mux=args.pix_mux)
+    else:
+        from rlrpt_tpu_torch.deep.neural_q import render_frame_neural_q
+
+        def frame(g, eps):
+            return render_frame_neural_q(g, scene, camera, net, opt_state,
+                                         eps, cfg, rl, dl)
+    eps = dl.epsilon_start
+    frames = []
+    for fr in range(args.frames):
+        before = [p.detach().clone() for p in net.parameters()]
+        t0 = time.perf_counter()
+        img, _, _, eps, aux = frame(gen(), eps)
+        moved = max(float((p.detach() - b).abs().max())
+                    for p, b in zip(net.parameters(), before))
+        row = {"loss": float(aux["loss"].sum()),
+               "avg_path": float(aux["avg_path_length"].reshape(-1)[-1]),
+               "zclp": int(aux["zero_contribution_light_paths"].sum()),
+               "epsilon": eps, "moved": moved}
+        if "phase_widths" in aux:
+            row.update(loss_rel=float(aux["loss_rel"]),
+                       iterations=int(aux["wavefront_iterations"]),
+                       phase_widths=list(aux["phase_widths"]),
+                       phase_iterations=aux["phase_iterations"].tolist())
+        row["seconds"] = time.perf_counter() - t0   # the reads waited
+        frames.append(row)
+        extra = (f"  loss_rel {row['loss_rel']:.4g}  iterations "
+                 f"{row['iterations']}" if "iterations" in row else "")
+        print(f"frame {fr}: loss {row['loss']:.1f}  avg_path "
+              f"{row['avg_path']:.2f}  zclp {row['zclp']}  epsilon "
+              f"{eps:.3f}{extra}  moved {moved:.3g}  {row['seconds']:.3f}s")
+        if stats:
+            # one line per spp for the lockstep (the reference protocol),
+            # one per frame for the wavefront (frame totals)
+            for a, lo, z in zip(aux["avg_path_length"].reshape(-1).tolist(),
+                                aux["loss"].reshape(-1).tolist(),
+                                aux["zero_contribution_light_paths"]
+                                .reshape(-1).tolist()):
+                stats.append(a, lo, z)
+        save_model(net)
+    return img, dict(aux, frames=frames, net=net, opt_state=opt_state)
+
+
 def save(img, path: str) -> None:
     if path.lower().endswith(".bmp"):
         write_bmp(path, img)
@@ -265,8 +421,12 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     t0 = time.perf_counter()
     img, aux = render(args)
+    if img is None:   # q-probe, distill
+        return 0
     img = img.cpu()   # waits for the device
-    path = (f"  avg_path_length {float(aux['avg_path_length']):.4f}"
+    # the lockstep neural-q gives one value per spp: print the last
+    path = (f"  avg_path_length "
+            f"{float(torch.as_tensor(aux['avg_path_length']).reshape(-1)[-1]):.4f}"
             if "avg_path_length" in aux else "")
     print(f"render time {time.perf_counter() - t0:.3f}s{path}")
     save(img, args.out)

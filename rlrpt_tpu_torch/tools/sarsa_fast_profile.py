@@ -69,13 +69,17 @@ def busy_us(intervals) -> float:
     return busy
 
 
-def device_events(prof) -> list:
-    """The kernel, memcpy and memset events of a finished profile."""
+def trace_events(prof) -> list:
+    """Every event of a finished profile, from its chrome trace."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
-            events = json.load(f)["traceEvents"]
+            return json.load(f)["traceEvents"]
+
+
+def device_events(events: list) -> list:
+    """The kernel, memcpy and memset events among a trace's events."""
     return [e for e in events if e.get("cat") in DEVICE_CATS]
 
 
@@ -141,7 +145,7 @@ def main(argv=None) -> int:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             _, psec, pit = frame(20, vols)
-        evs = device_events(prof)
+        evs = device_events(trace_events(prof))
         busy = busy_us((e["ts"], e["ts"] + e["dur"]) for e in evs)
         wall_it = statistics.median(per_iter[-3:]) * 1e6
         print(f"profiled frame: {psec:.4f} s, {pit} iterations, {len(evs)} "

@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from rlrpt_tpu_torch.nn.adam import AdamState
+from rlrpt_tpu_torch.nn.dq_network import DQNetwork
 from rlrpt_tpu_torch.radiance.bake import TriBinCDF
 from rlrpt_tpu_torch.radiance.grid_bucket import VolumeClassTable, VolumeGrid
 from rlrpt_tpu_torch.radiance.volumes import RadianceVolumes
@@ -64,6 +66,30 @@ def volume_grid_from_numpy(payload, origin, inv_cell, dims, k_max: int,
                       origin=_t(origin, np.float32, device),
                       inv_cell=_t(inv_cell, np.float32, device),
                       dims=tuple(int(n) for n in dims), k_max=int(k_max))
+
+
+def dq_network_from_numpy(layers, device="cpu") -> DQNetwork:
+    """A DQNetwork from the JAX DQNetworkParams' layers, as a list of
+    (w (out, in), b (out,)) arrays."""
+    return DQNetwork.from_layers(
+        [(np.array(w, np.float32), np.array(b, np.float32))
+         for w, b in layers], device=device)
+
+
+def dq_network_to_numpy(net: DQNetwork) -> list:
+    """The network's layers as (w (out, in), b (out,)) float32 arrays."""
+    return [(layer.weight.detach().cpu().numpy(),
+             layer.bias.detach().cpu().numpy()) for layer in net.layers]
+
+
+def adam_state_from_numpy(count, mu, nu, device="cpu") -> AdamState:
+    """An AdamState from optax's ScaleByAdamState: the step count and the
+    first and second moments, flattened in the network's parameter order
+    (w1, b1, w2, b2, ...)."""
+    f = lambda a: _t(a, np.float32, device)  # noqa: E731
+    return AdamState(count=torch.tensor(int(count), dtype=torch.int32,
+                                        device=device),
+                     mu=tuple(f(a) for a in mu), nu=tuple(f(a) for a in nu))
 
 
 def volume_class_table_from_numpy(table, tri_class, origin, inv_cell, dims,
