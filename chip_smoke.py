@@ -42,11 +42,21 @@ set to 0 just before it and read just after:
   seed pairs give); the lockstep ``neural-q`` and ``pretrained`` at
   256x256 (the wavefront held to the lockstep in the same ways);
   ``--mode distill`` of the phase-11 map (test MSE falls) and
-  ``--mode q-probe`` (rows sum to 1).
+  ``--mode q-probe`` (rows sum to 1);
+* the new scenes (phase 18): the test room (B1, B3, B2, B4a/b bit-equal
+  to their twins; ``--mode mega`` and ``--mode sarsa-mega --frames 10``
+  at 720x720, 32 spp, the learned Q as an f32 table within 2%) and a
+  generated OBJ at bunny.obj's size, 4,980 triangles (native parse equal
+  to the Python one; B1, B3 with a baked per-triangle table and B4a/b
+  bit-equal to their twins; B1, B3 and B4a-c timed against their bounds
+  at 720x720; ``--mode mega``, ``--mode wavefront`` and ``--mode
+  sarsa-fast`` through the CLI, means within 2%), and scene_bench rows
+  for Cornell, the test room and the OBJ, Morton-sorted and not.
 
 Fails if a kernel of a path was never launched in it.  Prints one line per
-phase; then the card line, one JSON line describing the kernels, and as
-the last line {"ok": true, "device": {...}}.  Any failure raises, exits
+phase and, after the last, each phase's seconds; then the card line, one
+JSON line describing the kernels, and as the last line {"ok": true,
+"device": {...}}.  Any failure raises, exits
 non-zero and prints no result.  Images and a results.json go to --out
 (default build/smoke/).  Imports nothing of JAX.
 """
@@ -66,52 +76,32 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from rlrpt_tpu_torch.tools.mega_sweep import (APPLY_OPS, MT_OPS, bound_ms,
+                                              frame_bound, kernel_ms)
+
 ROOT = Path(__file__).resolve().parent
 CAM = (0.0, 0.0, -3.0)
 TOL = "99% of pixels within atol 1e-4 rtol 1e-3; mean 0.5%; avg path 1%"
 
-# The least time the card could take for a kernel's work (bound_ms): the
-# larger of its f32 operations over the H100 SXM's 67 TFLOP/s (no tensor
-# cores; an FMA counts as two) and its bytes (each input read once, each
-# output written once) over 3.35 TB/s.  Counted from the sources, per
-# segment traced (a closest hit and the bounce after it):
-PEAK_F32 = 67e12
-PEAK_BYTES = 3.35e12
-MT_OPS = 50   # f32 operations of one ray-triangle test: 46 adds and
-#             # multiplies, 4 compares (csrc/path_common.cuh:hit_tris; the
-#             # division of a hit aside)
-SEGMENT_OPS = {   # f32 operations of a step besides the hit test
-    "B1": 75,     # uniforms, hemisphere frame and direction, throughput,
-    #             # next origin (advance + UniformSampler)
-    "B3": 125,    # the same with CdfSampler: bin column, ~7 probes, pdf,
-    #             # concentric map
-    "B2": 131,    # B3's plus the TD target and the pending brdf
-}
-APPLY_OPS = 10    # f32 operations per (sector, column) cell per iteration
-
-
-def bound_ms(ops: float, nbytes: float) -> tuple[float, str]:
-    """(least time in ms, what sets it) for ops f32 operations and nbytes
-    of device memory traffic."""
-    t_ops, t_bytes = ops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
-def frame_bound(kernel: str, out, n_tris: int, table_bytes: int = 0,
-                extra_ops: float = 0.0) -> tuple[float, str]:
-    """bound_ms of a megakernel frame from its own outputs: segments =
-    the sum of path_sum (every step of every path); bytes = the tables
-    read and rad, path_sum, iters written."""
-    rad, path_sum, iters = out[:3]
-    segments = float(path_sum.double().sum())
-    ops = segments * (MT_OPS * n_tris + SEGMENT_OPS[kernel]) + extra_ops
-    nbytes = (n_tris * (48 + 64) + table_bytes + rad.numel() * 4
-              + path_sum.numel() * 4 + iters.numel() * 4)
-    return bound_ms(ops, nbytes)
+PHASE_START: dict = {}   # phase tag -> perf_counter at its first line
 
 
 def log(msg: str) -> None:
+    """Print a line; a line that opens with a "[n]" tag starts phase n's
+    clock (phase_seconds)."""
+    m = re.match(r"\[(\w+)\]", msg)
+    if m:
+        PHASE_START.setdefault(m.group(1), time.perf_counter())
     print(msg, flush=True)
+
+
+def phase_seconds(end: float) -> dict:
+    """Seconds from each phase's first line to the next phase's, in order
+    of their first lines (a phase whose lines interleave with another's,
+    as the paths' launch lines do, counts from its first line)."""
+    tags = sorted(PHASE_START, key=PHASE_START.get)
+    ends = [PHASE_START[t] for t in tags[1:]] + [end]
+    return {t: e - PHASE_START[t] for t, e in zip(tags, ends)}
 
 
 def kernel_name(symbol: str) -> str:
@@ -231,15 +221,21 @@ def compare_train(name: str, k_out, p_out, b3_out, q_in, v_in) -> float:
     return err
 
 
-def hit_rays(device, tris, mat, gen):
-    """518,400 jittered camera rays (720x720, Cornell camera) and one
-    bounce ray from each camera ray's hit (uniform about the normal)."""
+def camera_rays(device, gen, size: int = 720):
+    """size x size jittered camera rays (518,400 at 720), the camera at
+    CAM: (origins, directions), contiguous."""
     from rlrpt_tpu_torch.camera import Camera, pixel_rays
+    jitter = torch.rand((size, size, 2), generator=gen, device=device)
+    o, d = pixel_rays(jitter, Camera.create(CAM), size, size, float(size))
+    return o.contiguous(), d.contiguous()
+
+
+def hit_rays(device, tris, mat, gen, size: int = 720):
+    """camera_rays and one bounce ray from each camera ray's hit (uniform
+    about the normal): (camera o, d, camera + bounce o, d)."""
     from rlrpt_tpu_torch.ops import intersect_pallas as ip
     from rlrpt_tpu_torch.ops.hemisphere import sample_uniform_direction
-    jitter = torch.rand((720, 720, 2), generator=gen, device=device)
-    o, d = pixel_rays(jitter, Camera.create(CAM), 720, 720, 720.0)
-    o, d = o.contiguous(), d.contiguous()
+    o, d = camera_rays(device, gen, size)
     t, _, rows = ip.closest_hit_plain(o, d, tris, o.shape[0], mat)
     hit = t < 1e38
     nd, _ = sample_uniform_direction(gen, rows[:, 0:3])
@@ -700,7 +696,6 @@ def deep_phases(dev, out_dir: Path, drive, mega_mean: float,
     from rlrpt_tpu_torch.scene import cornell_box
     from rlrpt_tpu_torch.scene.scene import save_vertices_to_file
     from rlrpt_tpu_torch.tools import render
-    from rlrpt_tpu_torch.tools.mega_sweep import kernel_ms
     from rlrpt_tpu_torch.utils.image import write_png
 
     check(not torch.backends.cuda.matmul.allow_tf32
@@ -1045,6 +1040,406 @@ def deep_phases(dev, out_dir: Path, drive, mega_mean: float,
     return res
 
 
+def event_ms(fn):
+    """(device time of one fn() call in ms by CUDA events, its result)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def equal_frames(name: str, k_out, p_out, cfg) -> float:
+    """compare(), and then the kernel's rad, path_sum and iters must be
+    the twin's bit for bit."""
+    err = compare(name, k_out, p_out, cfg)
+    for n, a, b in zip(("rad", "path_sum", "iters"), k_out, p_out):
+        check(torch.equal(a, b), f"{name}: {n} not bit-equal to the twin's")
+    return err
+
+
+def equal_hits(name: str, fn, o, d, tables, count) -> float:
+    """A closest-hit launcher against the twin on the same rays: t, index
+    (and rows) bit-equal, rays past ``count`` missed.  Returns the largest
+    absolute difference (0)."""
+    from rlrpt_tpu_torch.ops import intersect_pallas as ip
+    live = torch.tensor([count], dtype=torch.int32, device=o.device)
+    k_out = fn(o, d, *tables, live)
+    torch.cuda.synchronize()
+    p_out = ip.closest_hit_plain(o, d, tables[0], count, *tables[1:])
+    err = 0.0
+    for a, b in zip(k_out, p_out):
+        check(torch.equal(a, b), f"{name}: kernel and twin differ")
+        err = max(err, float((a.double() - b.double()).abs().max()))
+    check(bool((k_out[0][count:] >= 1e38).all()),
+          f"{name}: a ray past active_count was traced")
+    log(f"  {name}: {o.shape[0]} rays, count {count}: bit-equal, "
+        f"{float((k_out[0][:count] < 1e38).float().mean()):.4f} hit")
+    return err
+
+
+def scene_phases(dev, out_dir: Path, drive, size: int = 720,
+                 torus: tuple = (46, 54)) -> dict:
+    """Phase 18: the test room and a generated OBJ at bunny.obj's size
+    (46 x 54 torus quads, 4,968 triangles, in a room: 4,980 with the
+    light) through every kernel, each against its twin, then their paths
+    at size x size with an 80-bounce cap, and scene_bench rows.  ``drive``
+    runs a path with every launch count at 0 and fails it if an expected
+    kernel never launched.  Returns the phase's figures."""
+    from rlrpt_tpu_torch.camera import Camera
+    from rlrpt_tpu_torch.config import RadianceVolumeConfig, RenderConfig
+    from rlrpt_tpu_torch.integrators import sarsa_wavefront as sw
+    from rlrpt_tpu_torch.ops import guided_mega as gm
+    from rlrpt_tpu_torch.ops import guided_mega_train as gt
+    from rlrpt_tpu_torch.ops import intersect_pallas as ip
+    from rlrpt_tpu_torch.ops import megakernel as mk
+    from rlrpt_tpu_torch.ops.hemisphere import sector_cos_thetas
+    from rlrpt_tpu_torch.radiance.bake import bake_tri_bin_cdf
+    from rlrpt_tpu_torch.scene import generated, presets
+    from rlrpt_tpu_torch.scene.obj_importer import (normalise_vertices,
+                                                    parse_obj)
+    from rlrpt_tpu_torch.scene.scene import morton_sort_surfaces
+    from rlrpt_tpu_torch.tools import render
+    from rlrpt_tpu_torch.tools.mega_sweep import lane_efficiency
+    from rlrpt_tpu_torch.tools.scene_bench import bench_scene
+    from rlrpt_tpu_torch.utils import native
+    from rlrpt_tpu_torch.utils.image import write_png
+
+    res, secs = {}, {}
+    errs = dict.fromkeys(("B1", "B3", "B2", "B4a", "B4b"), 0.0)
+    cam = mk.camera_vector(Camera.create(CAM))
+    camera = Camera.create(CAM)
+    full = lambda spp: RenderConfig(  # noqa: E731
+        width=size, height=size, samples_per_pixel=spp, max_ray_bounces=80)
+    n_full = mk.n_slots_for(size * size, mk.R_TILE, mk.PIX_MUX)
+
+    def run_cli(argv):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, aux = render.render(render.build_parser().parse_args(
+            argv + ["--device", dev.type, "--width", str(size),
+                    "--height", str(size), "--bounces", "80"]))
+        torch.cuda.synchronize()
+        return img, aux, time.perf_counter() - t0
+
+    # ---- 18a: the test room's kernels against their twins ---------------
+    t_part = time.perf_counter()
+    room = presets.load_scene("test_room", device=dev)
+    r_tris, r_mat = mk.pack_scene(room)
+    r_pad = mk._t_pad(room.n_triangles)
+    log(f"[18] test_room: {room.n_surfaces} surfaces + "
+        f"{room.n_triangles - room.n_surfaces} light triangles (t_pad "
+        f"{r_pad}); kernels vs twins at 64x64, 4 spp, 80 bounces, bit-equal")
+    small = RenderConfig(width=64, height=64, samples_per_pixel=4,
+                         max_ray_bounces=80)
+    n_small = mk.n_slots_for(small.n_pixels, 128, 1)
+    errs["B1"] = equal_frames(
+        "B1 test_room", mk.mega_default_frame(31, cam, r_tris, r_mat, small,
+                                              n_small, 1),
+        mk.mega_default_frame_plain(31, cam, r_tris, r_mat, small, n_small,
+                                    1), small)
+    cdf_t = skewed_table(dev, 3.0, r_pad).cdf.T.contiguous()
+    errs["B3"] = equal_frames(
+        "B3 test_room, skewed table",
+        gm.mega_guided_frame(32, cam, r_tris, r_mat, cdf_t, 11, 4, small,
+                             n_small, 1),
+        gm.mega_guided_frame_plain(32, cam, r_tris, r_mat, cdf_t, 11, 4,
+                                   small, n_small, 1), small)
+    rl11 = RadianceVolumeConfig(grid_resolution=11)
+    q_in = skewed_q(dev, 3.0, r_pad)
+    v_in = torch.from_numpy(np.random.default_rng(18).integers(
+        0, 3, q_in.shape).astype(np.float32)).to(dev)
+    b2_cdf = gt.rebuild_bin_cdf(q_in, 11, 4, r_pad).cdf.T.contiguous()
+    args = (33, cam, r_tris, r_mat, b2_cdf,
+            gt.bin_luminance(room, r_pad, 4)[0].contiguous(),
+            sector_cos_thetas(11, dev).contiguous(), q_in, v_in, 11, 4,
+            rl11.radiance_threshold, small, n_small, 1)
+    errs["B2"] = compare_train(
+        "B2 test_room, skewed table", gt.mega_train_frame(*args),
+        gt.mega_train_frame_plain(*args),
+        gm.mega_guided_frame(33, cam, r_tris, r_mat, b2_cdf, 11, 4, small,
+                             n_small, 1), q_in, v_in)
+    gen = torch.Generator(device=dev).manual_seed(18)
+    h_tris, h_mat = ip.pack_scene_mxu(room)
+    _, _, o, d = hit_rays(dev, h_tris, h_mat, gen)
+    for name, fn, tables in (("B4a", ip.closest_hit_mat_mxu, (h_tris, h_mat)),
+                             ("B4b", ip.closest_hit_packed, (h_tris,))):
+        errs[name] = equal_hits(f"{name} test_room", fn, o, d, tables,
+                                o.shape[0] // 2)
+    secs["test_room twins"] = time.perf_counter() - t_part
+
+    # ---- 18b: the test room's learning path at full width ---------------
+    t_part = time.perf_counter()
+    log(f"[18] test_room at {size}x{size}, 32 spp: --mode mega, then "
+        f"--mode sarsa-mega --frames 10 (the EVAL protocol)")
+    m_img, m_aux, m_sec = drive("18", ("B1",), lambda: run_cli(
+        ["--mode", "mega", "--scene", "test_room", "--spp", "32", "--seed",
+         "1984"]))
+    check_image("test_room mega", m_img, size)
+    room_mean = float(m_img.mean())
+    g_img, g_aux, g_sec = drive("18", ("B2", "B3"), lambda: run_cli(
+        ["--mode", "sarsa-mega", "--scene", "test_room", "--frames", "10",
+         "--spp", "32", "--seed", "1984"]))
+    check_image("test_room sarsa-mega", g_img, size)
+    check_visits("test_room sarsa-mega", g_aux["frames"])
+    q = g_aux["q"]
+    lt32 = gt.rebuild_bin_cdf(q, 11, 4, r_pad, dtype=torch.float32)
+    img32 = mk.assemble(*gm.mega_guided_frame_plain(
+        7, cam, r_tris, r_mat, lt32.cdf.T.contiguous(), 11, 4, full(32),
+        n_full, mk.PIX_MUX), full(32))[0]
+    gap = (float(g_img.mean()) - room_mean) / room_mean
+    gap32 = (float(img32.mean()) - room_mean) / room_mean
+    # the surfaces' columns (uv_bins 4: 16 a triangle); pads and lights
+    # are never learned
+    moved = float((q[:121, :room.n_surfaces * 16]
+                   != rl11.initial_radiance).float().mean())
+    write_png(str(out_dir / "test_room-mega.png"), m_img.cpu())
+    write_png(str(out_dir / "test_room-sarsa-mega.png"), g_img.cpu())
+    log(f"[18] test_room: mega {m_sec:.4f} s, mean {room_mean:.6f}, avg "
+        f"path {float(m_aux['avg_path_length']):.4f}; sarsa-mega "
+        f"{g_sec:.4f} s, learning frames "
+        + " ".join(f"{fr['seconds']:.4f}" for fr in g_aux["frames"])
+        + f" s, {moved:.4f} of q moved, visit invariant exact per frame; "
+        f"guided mean (bf16 table) vs mega {gap:+.4%}, the learned Q as an "
+        f"f32 table (B3's twin) {gap32:+.4%}")
+    check(moved > 0.5, "test_room: q did not move")
+    check(abs(gap32) <= 0.02, f"test_room f32 learned table off by "
+                              f"{gap32:+.2%}")
+    res["test_room"] = {"mega_mean": room_mean, "mega_seconds": m_sec,
+                        "sarsa_mega_seconds": g_sec,
+                        "learning_frames": g_aux["frames"],
+                        "guided_bf16_vs_mega": gap,
+                        "learned_f32_vs_mega": gap32}
+    secs["test_room paths"] = time.perf_counter() - t_part
+
+    # ---- 18c: the generated OBJ: importer and twins ----------------------
+    t_part = time.perf_counter()
+    preset = generated.torus_room(out_dir / "torus_room.obj", *torus)
+    presets.PRESETS[preset.name] = preset   # --scene takes it from here
+    check(native.have_native(), f"native IO library not live: "
+                                f"{native.build_error()}")
+    t0 = time.perf_counter()
+    v_n, f_n = native.parse_obj_native(preset.obj)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    v_p, f_p = parse_obj(preset.obj)
+    v_p = normalise_vertices(v_p).astype(np.float32)
+    python_s = time.perf_counter() - t0
+    check(np.array_equal(v_n, v_p) and np.array_equal(f_n, f_p),
+          "native and Python OBJ parses differ")
+    obj = preset.load(device=dev)
+    obj_sorted = morton_sort_surfaces(obj)
+    n_tris = obj.n_triangles
+    o_pad = mk._t_pad(n_tris)
+    log(f"[18] generated OBJ {Path(preset.obj).name}: {len(f_n)} faces "
+        f"({len(f_n) - 10} torus + 10 room) + 2 light = {n_tris} triangles, "
+        f"t_pad {o_pad} ({-(-n_tris // 256)} tiles of 256); parse native "
+        f"{native_s:.4f} s (native IO library live: "
+        f"{native.have_native()}), Python {python_s:.4f} s: equal arrays")
+    check(n_tris == 2 * torus[0] * torus[1] + 12
+          and len(f_n) == n_tris - 2, "generated OBJ size")
+    small2 = dataclasses.replace(small, samples_per_pixel=2)
+    tables = {}
+    for label, sc in (("unsorted", obj), ("Morton-sorted", obj_sorted)):
+        tables[label] = mk.pack_scene(sc)
+        errs["B1"] = max(errs["B1"], equal_frames(
+            f"B1 torus room {label} 64x64 2spp",
+            mk.mega_default_frame(41, cam, *tables[label], small2, n_small,
+                                  1),
+            mk.mega_default_frame_plain(41, cam, *tables[label], small2,
+                                        n_small, 1), small2))
+    o_tris, o_mat = ip.pack_scene_mxu(obj)
+    cam_o, cam_d, o, d = hit_rays(dev, o_tris, o_mat, gen, size=256)
+    for name, fn, tabs in (("B4a", ip.closest_hit_mat_mxu, (o_tris, o_mat)),
+                           ("B4b", ip.closest_hit_packed, (o_tris,))):
+        errs[name] = max(errs[name], equal_hits(
+            f"{name} torus room camera rays", fn, cam_o, cam_d, tabs,
+            cam_o.shape[0]))
+        errs[name] = max(errs[name], equal_hits(
+            f"{name} torus room camera + bounce rays", fn, o, d, tabs,
+            o.shape[0] // 2))
+    secs["OBJ import and twins"] = time.perf_counter() - t_part
+
+    # ---- 18d: the generated OBJ at full width -----------------------------
+    t_part = time.perf_counter()
+    tris, mat = tables["unsorted"]
+    kern = {}
+
+    def b1_frame(spp):
+        ms, out = event_ms(lambda: mk.mega_default_frame(
+            51, cam, tris, mat, full(spp), n_full, mk.PIX_MUX))
+        bound, by = frame_bound("B1", out, n_tris)
+        _, aux = mk.assemble(*out, full(spp))
+        iters = out[2]
+        kern[f"B1 {spp} spp"] = {
+            "ms": ms, "bound_ms": bound, "bound_by": by,
+            "share": bound / ms, "avg_path": float(aux["avg_path_length"]),
+            "max_iterations": int(iters.max()),
+            "warp_efficiency": lane_efficiency(iters, 32),
+            "block_efficiency": lane_efficiency(iters, 128)}
+        k = kern[f"B1 {spp} spp"]
+        log(f"[18] B1 torus room {size}x{size} {spp} spp: {ms:.4f} ms (one "
+            f"launch, CUDA events), bound {bound:.4f} ms ({by}; "
+            f"{float(out[1].double().sum()):.0f} segments), share "
+            f"{k['share']:.4f}; avg path {k['avg_path']:.4f}, longest slot "
+            f"{k['max_iterations']} iterations, lane efficiency warp "
+            f"{k['warp_efficiency']:.3f} block {k['block_efficiency']:.3f}")
+
+    drive("18", ("B1",), lambda: (b1_frame(1), b1_frame(32)))
+    img, aux, mega_s = drive("18", ("B1",), lambda: run_cli(
+        ["--mode", "mega", "--scene", preset.name, "--spp", "32", "--seed",
+         "1984"]))
+    check_image("torus room mega", img, size)
+    check(float(aux["avg_path_length"]) > 2.0, "torus room: paths too short")
+    obj_mean = float(img.mean())
+    write_png(str(out_dir / "torus_room-mega.png"), img.cpu())
+    log(f"[18] --mode mega --scene {preset.name} 32 spp: {mega_s:.4f} s, "
+        f"mean {obj_mean:.6f}, avg path {float(aux['avg_path_length']):.4f}")
+
+    # B4a/b/c per 518,400 camera rays at this T
+    cam_o, cam_d = camera_rays(dev, gen, size)
+    n_rays = cam_o.shape[0]
+    live = torch.tensor([n_rays], dtype=torch.int32, device=dev)
+    for name, fn, tabs in (
+            ("B4a", ip.closest_hit_mat_mxu, (o_tris, o_mat)),
+            ("B4b", ip.closest_hit_packed, (o_tris,)),
+            ("B4c", ip.closest_hit_packed_mxu, (o_tris,))):
+        ms = kernel_ms(lambda: fn(cam_o, cam_d, *tabs, live), 10)
+        bound, by = bound_ms(n_rays * n_tris * MT_OPS, n_rays * (
+            24 + 8 + (64 if name == "B4a" else 0)))
+        kern[name] = {"ms": ms, "bound_ms": bound, "bound_by": by,
+                      "share": bound / ms}
+        log(f"[18] {name} torus room, {n_rays} camera rays x {n_tris} "
+            f"triangles: {ms:.4f} ms (mean of 10), bound {bound:.4f} ms "
+            f"({by}), share {bound / ms:.4f}")
+
+    w_img, w_aux, w_sec = drive("18", ("B4a",), lambda: run_cli(
+        ["--mode", "wavefront", "--scene", preset.name, "--spp", "8",
+         "--seed", "1985"]))
+    check_image("torus room wavefront", w_img, size)
+    w_gap = (float(w_img.mean()) - obj_mean) / obj_mean
+    log(f"[18] --mode wavefront 8 spp: {w_sec:.4f} s, "
+        f"{int(w_aux['wavefront_iterations'])} iterations, mean "
+        f"{float(w_img.mean()):.6f} vs mega 32 spp {w_gap:+.4%}")
+    check(abs(w_gap) <= 0.02, f"torus room wavefront off by {w_gap:+.2%}")
+    secs["OBJ mega, B4, wavefront"] = time.perf_counter() - t_part
+
+    # ---- 18e: the fine map on the generated OBJ ---------------------------
+    t_part = time.perf_counter()
+    area = 0.001
+    f_img, f_aux, f_sec = drive("18", ("B4a",), lambda: run_cli(
+        ["--mode", "sarsa-fast", "--scene", preset.name, "--frames", "4",
+         "--spp", "8", "--area-per-sample", str(area), "--pix-mux", "4",
+         "--seed", "1984"]))
+    check_image("torus room sarsa-fast", f_img, size)
+    vols, table, frames = f_aux["vols"], f_aux["table"], f_aux["frames"]
+    check_visits("torus room sarsa-fast", frames)
+    n_cls = len(torch.unique(table.tri_class))
+    slots = table.table[:, 0:8:2]
+    filled = (slots >= 0).sum(dim=1)
+    near = table.table[:, 9] > 0
+    log(f"[18] sarsa-fast on the torus room, area {area}: V = "
+        f"{vols.n_volumes}; class table {table.dims}, {n_cls} classes, host "
+        f"build {f_aux['table_seconds']:.4f} s; near-surface cells "
+        f"{int(near.sum())}, of them with all 4 class slots filled "
+        f"{float((filled[near] == 4).float().mean()):.4f}; learning frames "
+        + " ".join(f"{fr['seconds']:.4f}" for fr in frames)
+        + " s; zclp " + " ".join(str(fr["zclp"]) for fr in frames))
+    rl = RadianceVolumeConfig(area_per_sample=area)
+
+    def test_render():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sw.render_frame_sarsa_wavefront(
+            torch.Generator(device=dev).manual_seed(2018), obj, camera,
+            vols, table, full(32), rl, pix_mux=4)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (t_img, t_vols, t_aux), t_sec = drive("18", ("B4a",), test_render)
+    check_image("torus room sarsa-fast test render", t_img, size)
+    check_visits("torus room sarsa-fast test render", [{
+        "visits": int(t_vols.visits.sum()),
+        "td_scatters": int(t_aux["td_scatter_count"])}],
+        int(vols.visits.sum()))
+    t_gap = (float(t_img.mean()) - obj_mean) / obj_mean
+    write_png(str(out_dir / "torus_room-sarsa-fast.png"), t_img.cpu())
+    log(f"[18] sarsa-fast 32-spp test render (f32 CDF): {t_sec:.4f} s, "
+        f"mean {float(t_img.mean()):.6f} vs mega {t_gap:+.4%}")
+    check(abs(t_gap) <= 0.02, f"torus room sarsa-fast off by {t_gap:+.2%}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    baked = bake_tri_bin_cdf(obj, t_vols, rl, o_pad, uv_bins=1,
+                             sector_grid=11)
+    torch.cuda.synchronize()
+    bake_s = time.perf_counter() - t0
+    cdf_t = baked.cdf.T.contiguous()
+    errs["B3"] = max(errs["B3"], equal_frames(
+        "B3 torus room, baked per-triangle table, 64x64 2spp",
+        gm.mega_guided_frame(42, cam, tris, mat, cdf_t, 11, 1, small2,
+                             n_small, 1),
+        gm.mega_guided_frame_plain(42, cam, tris, mat, cdf_t, 11, 1, small2,
+                                   n_small, 1), small2))
+
+    def guided():
+        ms, out = event_ms(lambda: gm.mega_guided_frame(
+            4018, cam, tris, mat, cdf_t, 11, 1, full(32), n_full,
+            mk.PIX_MUX))
+        return ms, out
+
+    b3_ms, b3_out = drive("18", ("B3",), guided)
+    b3_img, b3_aux = mk.assemble(*b3_out, full(32))
+    check(torch.isfinite(b3_img).all(), "baked torus room render: not finite")
+    b3_bound, b3_by = frame_bound("B3", b3_out, n_tris, cdf_t.numel() * 2)
+    kern["B3 32 spp"] = {"ms": b3_ms, "bound_ms": b3_bound, "bound_by": b3_by,
+                         "share": b3_bound / b3_ms}
+    b3_gap = (float(b3_img.mean()) - obj_mean) / obj_mean
+    write_png(str(out_dir / "torus_room-baked-guided.png"), b3_img.cpu())
+    log(f"[18] bake at uv_bins 1 ({tuple(baked.cdf.shape)} bf16, t_pad "
+        f"{o_pad}): {bake_s:.4f} s; B3 {size}x{size} 32 spp: {b3_ms:.4f} ms "
+        f"(one launch), bound {b3_bound:.4f} ms ({b3_by}), share "
+        f"{b3_bound / b3_ms:.4f}; avg path "
+        f"{float(b3_aux['avg_path_length']):.4f}, mean vs mega {b3_gap:+.4%}"
+        f" (bf16 table, reported)")
+    res["torus_room"] = {
+        "triangles": n_tris, "t_pad": o_pad, "parse_native_s": native_s,
+        "parse_python_s": python_s, "mega_mean": obj_mean,
+        "mega_seconds": mega_s, "kernels": kern,
+        "wavefront_seconds": w_sec, "wavefront_vs_mega": w_gap,
+        "n_volumes": vols.n_volumes, "classes": n_cls,
+        "table_seconds": f_aux["table_seconds"], "learning_frames": frames,
+        "test_seconds": t_sec, "test_vs_mega": t_gap, "bake_seconds": bake_s,
+        "baked_b3_vs_mega": b3_gap}
+    secs["OBJ fine map"] = time.perf_counter() - t_part
+
+    # ---- 18f: scene_bench rows ----------------------------------------------
+    t_part = time.perf_counter()
+    log(f"[18] scene_bench rows ({size}x{size}, 1 spp, 80 bounces, 5 "
+        f"frames)")
+    rows = []
+
+    def bench_rows():
+        for name, sc, morton in (
+                ("cornell", presets.load_scene("cornell", dev), True),
+                ("test_room", room, True),
+                (preset.name, obj, False), (preset.name, obj, True)):
+            rows.append(bench_scene(name, sc, camera, full(1), dev,
+                                    frames=5, morton=morton))
+            log("[18] " + json.dumps(rows[-1]))
+
+    drive("18", ("B1",), bench_rows)
+    res["scene_bench"] = rows
+    secs["scene_bench"] = time.perf_counter() - t_part
+    res["seconds"] = secs
+    res["max_abs_err"] = errs
+    log("[18] seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()))
+    return res
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", type=Path, default=ROOT / "build" / "smoke",
@@ -1064,7 +1459,6 @@ def main(argv=None) -> int:
     from rlrpt_tpu_torch.ops.hemisphere import sector_cos_thetas
     from rlrpt_tpu_torch.scene import cornell_box
     from rlrpt_tpu_torch.tools import render
-    from rlrpt_tpu_torch.tools.mega_sweep import kernel_ms
     from rlrpt_tpu_torch.utils.image import mape_score, tonemap, write_png
 
     dev = torch.device("cuda")
@@ -1474,6 +1868,16 @@ def main(argv=None) -> int:
     fine = fine_map_phases(dev, out_dir, drive, mm)
     # 14-17: the deep-Q family
     deep = deep_phases(dev, out_dir, drive, mm)
+    # 18: the test room and a generated OBJ at bunny size
+    scenes = scene_phases(dev, out_dir, drive)
+    b1_err = max(b1_err, scenes["max_abs_err"]["B1"])
+    b3_err = max(b3_err, scenes["max_abs_err"]["B3"])
+    b2_err = max(b2_err, scenes["max_abs_err"]["B2"])
+    for n in ("B4a", "B4b"):
+        b4_err[n] = max(b4_err[n], scenes["max_abs_err"][n])
+    seconds = phase_seconds(time.perf_counter())
+    log("[timing] seconds per phase: " + ", ".join(
+        f"[{t}] {s:.1f}" for t, s in seconds.items()))
 
     results = {"kernels": [
         {"name": "B1 mega_default", "route": "cuda",
@@ -1511,7 +1915,7 @@ def main(argv=None) -> int:
         "learning_frames": frames, "guided_gap_after_learning": gap,
         "b2_iterations": b2_iters, "b2_grid_blocks": grid_blocks,
         "grid_barrier_us": sync_us, "b2_frame_device_kernels": b2_kernels,
-        **fine, **deep},
+        **fine, **deep, "scenes": scenes, "phase_seconds": seconds},
         indent=1))
     print(card)
     print(json.dumps(results))

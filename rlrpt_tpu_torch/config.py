@@ -113,3 +113,22 @@ class TrainerConfig:
     epochs: int = 100
     train_fraction: float = 0.8
     learning_rate: float = 0.001
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    render: RenderConfig = dataclasses.field(default_factory=RenderConfig)
+    rl: RadianceVolumeConfig = dataclasses.field(
+        default_factory=RadianceVolumeConfig)
+    deep: DeepLearningConfig = dataclasses.field(
+        default_factory=DeepLearningConfig)
+    trainer: TrainerConfig = dataclasses.field(default_factory=TrainerConfig)
+
+
+def small(width: int = 128, height: int = 128, spp: int = 4,
+          bounces: int = 8) -> Config:
+    """A small config for tests and CPU runs."""
+    return Config(render=RenderConfig(width=width, height=height,
+                                      samples_per_pixel=spp,
+                                      max_ray_bounces=bounces,
+                                      ray_tile=4096))

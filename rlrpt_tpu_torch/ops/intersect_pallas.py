@@ -41,7 +41,11 @@ from rlrpt_tpu_torch.ops.intersect import Hit
 from rlrpt_tpu_torch.ops.megakernel import INF, closest_hit_mt, pack_scene
 from rlrpt_tpu_torch.scene.scene import AREA_LIGHT, NOTHING, SURFACE, Scene
 
-PLAIN_RAY_TILE = 65536   # rays per (R, T) block of the plain twin
+# The plain twin holds ~20 (rays, T) float32 temporaries per block of rays;
+# a block has at most PLAIN_RAY_TILE rays and PLAIN_TILE_PAIRS (ray,
+# triangle) pairs, so its memory stays bounded at thousands of triangles.
+PLAIN_RAY_TILE = 65536
+PLAIN_TILE_PAIRS = 1 << 24
 
 
 def pack_triangles(scene: Scene) -> torch.Tensor:
@@ -79,8 +83,10 @@ def closest_hit_plain(o: torch.Tensor, d: torch.Tensor, tris: torch.Tensor,
     live = _count(active_count, r)
     t = torch.full((r,), INF, dtype=torch.float32, device=o.device)
     idx = torch.zeros((r,), dtype=torch.int32, device=o.device)
-    for s in range(0, live, PLAIN_RAY_TILE):
-        e = min(s + PLAIN_RAY_TILE, live)
+    tile = min(PLAIN_RAY_TILE,
+               max(1, PLAIN_TILE_PAIRS // max(1, tris.shape[0])))
+    for s in range(0, live, tile):
+        e = min(s + tile, live)
         bt, tri = closest_hit_mt(o[s:e, 0], o[s:e, 1], o[s:e, 2], d[s:e, 0],
                                  d[s:e, 1], d[s:e, 2], tris)[:2]
         hit = bt < INF

@@ -120,3 +120,42 @@ def load_vertices_from_file(path: str) -> np.ndarray:
 def _fmt(x: float) -> str:
     # C++ default ostream float formatting (6 significant digits)
     return f"{float(x):.6g}"
+
+
+def morton_sort_surfaces(scene: Scene) -> Scene:
+    """Reorder the surface triangles along a Morton (Z-order) curve of their
+    centroids; the lights keep their trailing positions.
+
+    The JAX megakernel sweeps triangles in chunks and pre-rejects a chunk
+    by its bounding box, which only pays when a chunk is spatially tight;
+    OBJ files interleave distant faces.  The kernels here sweep every
+    triangle and cull nothing, so the order changes only which of two
+    equally close triangles wins a hit (the reference's first-tested-wins
+    sweep leaves that arbitrary, ray.cu:17-36).  The code is the 10-bit
+    spread of each quantised centroid axis, interleaved x|y<<1|z<<2, and
+    a stable sort: the JAX package's permutation exactly.
+    """
+    ns = scene.n_surfaces
+    host = lambda a: a[:ns].cpu().numpy().astype(np.float64)  # noqa: E731
+    cen = (host(scene.v0) + host(scene.v1) + host(scene.v2)) / 3.0
+    lo = cen.min(axis=0)
+    ext = np.maximum(cen.max(axis=0) - lo, 1e-12)
+    qi = np.clip(((cen - lo) / ext * 1023.0).astype(np.uint64), 0, 1023)
+
+    def spread(x):
+        x = (x | (x << 16)) & np.uint64(0x0000FF0000FF)
+        x = (x | (x << 8)) & np.uint64(0x00F00F00F00F)
+        x = (x | (x << 4)) & np.uint64(0x0C30C30C30C3)
+        x = (x | (x << 2)) & np.uint64(0x249249249249)
+        return x
+
+    code = (spread(qi[:, 0]) | (spread(qi[:, 1]) << np.uint64(1))
+            | (spread(qi[:, 2]) << np.uint64(2)))
+    perm = torch.as_tensor(np.concatenate(
+        [np.argsort(code, kind="stable"),
+         np.arange(ns, scene.n_triangles)]).astype(np.int64),
+        device=scene.device)
+    return dataclasses.replace(
+        scene, v0=scene.v0[perm], v1=scene.v1[perm], v2=scene.v2[perm],
+        normal=scene.normal[perm], diffuse_c=scene.diffuse_c[perm],
+        emission=scene.emission[perm], luminance=scene.luminance[perm])

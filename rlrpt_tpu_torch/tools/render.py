@@ -36,6 +36,11 @@ Modes ported so far:
               vertices (--vertices) distilled into a net for --epochs
               epochs (deep.distill), saved with --save-model
 
+--scene takes every preset of scene/presets.py: the built-in cornell and
+test_room, and the OBJ scenes, read from RLRPT_MODELS_DIR (a missing
+model raises FileNotFoundError naming it).  sarsa-mega runs single-chunk
+scenes only (at most 256 triangles), as the JAX package's does.
+
 The radiance volumes are placed one per --area-per-sample of surface
 (V = 24,526 on the Cornell box at the default 0.001).  --save-q writes the
 learned Q table as radiance_map_data.txt text, --load-q starts from one,

@@ -1,10 +1,14 @@
-"""rlrpt_tpu_torch render CLI on the CPU (the kernels' plain twins)."""
+"""rlrpt_tpu_torch render CLI and scene bench on the CPU (the kernels'
+plain twins)."""
+
+import json
 
 import pytest
 import torch
 
 from rlrpt_tpu.utils.stats import read_stats as jax_read_stats
 from rlrpt_tpu_torch.radiance import map_io
+from rlrpt_tpu_torch.scene import presets
 from rlrpt_tpu_torch.tools import render
 from rlrpt_tpu_torch.utils.image import read_png
 from _torch_parity import one_torch_thread  # noqa: F401
@@ -103,3 +107,50 @@ def test_stats_file(tmp_path, mode):
     assert len(rows) == 2 and all(r[1] == 0.0 and 1 <= r[0] <= 8
                                   for r in rows)
     assert all((r[2] == 0) == (mode == "sarsa-mega") for r in rows)
+
+
+def test_scene_bench_prints_rows(capsys):
+    """scene_bench on the CPU: one parseable JSON row per scene; the
+    device figures (kernel time, share of bound) are null off the card."""
+    from rlrpt_tpu_torch.tools import scene_bench
+    assert scene_bench.main(["--device", "cpu", "--scenes",
+                             "cornell,test_room", "--size", "16",
+                             "--frames", "1"]) == 0
+    rows = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith("{")]
+    assert [r["scene"] for r in rows] == ["cornell", "test_room"]
+    assert [r["triangles"] for r in rows] == [38, 18]
+    for r in rows:
+        assert r["morton"] and r["device"] == "cpu"
+        assert r["sec_per_frame"] > 0 and r["avg_path_length"] > 1
+        assert r["ray_tri_tests_per_sec"] == pytest.approx(
+            r["rays_per_sec"] * r["triangles"])
+        assert r["kernel_ms"] is None and r["bound_share"] is None
+
+
+@pytest.mark.parametrize("mode", [["--mode", "mega"],
+                                  ["--mode", "sarsa-mega", "--frames", "2"]],
+                         ids=["mega", "sarsa-mega"])
+def test_cli_renders_test_room(tmp_path, mode):
+    out = tmp_path / "r.png"
+    assert render.main(mode + ["--scene", "test_room", *SMALL, "--out",
+                               str(out)]) == 0
+    img = read_png(str(out))
+    assert img.shape == (16, 16, 3) and img.max() > 0
+
+
+@pytest.mark.parametrize("name", list(presets.PRESETS))
+def test_every_preset_renders_or_names_its_model(name, tmp_path,
+                                                 monkeypatch):
+    """Every --scene choice renders, or (an OBJ model that is not there)
+    raises FileNotFoundError naming the file and RLRPT_MODELS_DIR."""
+    monkeypatch.setattr(presets, "MODELS_DIR", str(tmp_path))
+    argv = ["--mode", "mega", "--scene", name, "--width", "8", "--height",
+            "8", "--spp", "1", "--bounces", "4", "--device", "cpu",
+            "--out", str(tmp_path / "r.png")]
+    if presets.get(name).obj is None:
+        assert render.main(argv) == 0
+        assert read_png(str(tmp_path / "r.png")).shape == (8, 8, 3)
+    else:
+        with pytest.raises(FileNotFoundError, match="RLRPT_MODELS_DIR"):
+            render.main(argv)
