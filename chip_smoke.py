@@ -5,7 +5,14 @@
 Builds the CUDA kernels from rlrpt_tpu_torch/csrc, holds each against its
 plain torch twin on the card (at small extra cases and at the main path's
 shapes), times both at the main path's shapes beside the kernel's bound
-(the least time for its work, from this run's segment counts), checks
+(the least time for its work, from this run's segment counts, and for
+B4 from the plain BVH walk's node visits and triangle tests), holds B4a-c
+(a BVH walk) bit for bit against the brute-force sweep kernel on full-width
+camera and bounce rays, edge, vertex and grazing rays and a half
+active_count on every scene, and times the two in turns in CUDA graphs
+(the kernels line's B4 ``ms`` stays stream-timed, the wrappers' host time
+included, with ``graph_ms`` beside it; B4a's device time in the OBJ
+loops is their B4a launches replayed in a CUDA graph), checks
 that a decreasing CDF table is refused, times B2's grid barrier and counts
 the device kernels of one B2 learning frame under torch.profiler (one
 launch of the train kernel, no host sync inside the frame), then drives
@@ -53,7 +60,9 @@ set to 0 just before it and read just after:
   sarsa-fast`` through the CLI, means within 2%), and scene_bench rows
   for Cornell, the test room and the OBJ, Morton-sorted and not.
 
-Fails if a kernel of a path was never launched in it.  Prints one line per
+Fails if a kernel of a path was never launched in it, if the brute-force
+sweep was, or if a wavefront or sarsa-fast frame built more than one BVH.
+Prints one line per
 phase and, after the last, each phase's seconds; then the card line, one
 JSON line describing the kernels, and as the last line {"ok": true,
 "device": {...}}.  Any failure raises, exits
@@ -76,8 +85,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from rlrpt_tpu_torch.tools.mega_sweep import (APPLY_OPS, MT_OPS, bound_ms,
-                                              frame_bound, kernel_ms)
+from rlrpt_tpu_torch.tools.mega_sweep import (APPLY_OPS, BOX_OPS, MT_OPS,
+                                              bound_ms, frame_bound,
+                                              graph_ms, kernel_ms)
 
 ROOT = Path(__file__).resolve().parent
 CAM = (0.0, 0.0, -3.0)
@@ -230,18 +240,139 @@ def camera_rays(device, gen, size: int = 720):
     return o.contiguous(), d.contiguous()
 
 
-def hit_rays(device, tris, mat, gen, size: int = 720):
+def hit_rays(device, tris, mat, gen, size: int = 720, hit=None):
     """camera_rays and one bounce ray from each camera ray's hit (uniform
-    about the normal): (camera o, d, camera + bounce o, d)."""
+    about the normal): (camera o, d, camera + bounce o, d).  ``hit``: the
+    closest-hit function for the camera rays (default the plain twin; the
+    brute-force sweep kernel at thousands of triangles)."""
     from rlrpt_tpu_torch.ops import intersect_pallas as ip
     from rlrpt_tpu_torch.ops.hemisphere import sample_uniform_direction
     o, d = camera_rays(device, gen, size)
-    t, _, rows = ip.closest_hit_plain(o, d, tris, o.shape[0], mat)
+    hit = hit or ip.closest_hit_plain
+    t, _, rows = hit(o, d, tris, o.shape[0], mat)
     hit = t < 1e38
     nd, _ = sample_uniform_direction(gen, rows[:, 0:3])
     o2 = o + torch.where(hit, t, 0.0)[:, None] * d + 1e-4 * nd
     return (o, d, torch.cat([o, o2[hit]]).contiguous(),
             torch.cat([d, nd[hit]]).contiguous())
+
+
+def edge_rays(tris, seed: int):
+    """Rays aimed exactly at every triangle's vertices, edge midpoints and
+    a random point of each edge (so at both sides of every shared edge),
+    from the camera and from random origins inside [-0.95, 0.95]^3, and
+    rays grazing each triangle's plane (from outside the triangle towards
+    its centroid, tilted off the plane by 1e-7 to 1e-2 rad): (o, d) on
+    the table's device."""
+    rng = np.random.default_rng(seed)
+    r = tris.cpu().numpy()
+    v0 = r[:, 0:3]
+    v1, v2 = v0 + r[:, 4:7], v0 + r[:, 8:11]
+    pts = []
+    for a, b in ((v0, v1), (v1, v2), (v2, v0)):
+        s = rng.uniform(0, 1, (len(a), 1)).astype(np.float32)
+        pts += [a, (a + b) * np.float32(0.5), a + s * (b - a)]
+    pts = np.concatenate(pts)
+    org = np.concatenate([np.broadcast_to(np.float32(CAM), pts.shape),
+                          rng.uniform(-0.95, 0.95, pts.shape)])
+    d = np.concatenate([pts, pts]) - org
+    cen = (v0.astype(np.float64) + v1 + v2) / 3
+    n = np.cross(v1 - v0, v2 - v0).astype(np.float64)
+    n /= np.maximum(np.linalg.norm(n, axis=1, keepdims=True), 1e-30)
+    g_o = cen + 3.0 * ((v0 + v1) / 2 - cen)
+    g_d = cen - g_o
+    g_d /= np.maximum(np.linalg.norm(g_d, axis=1, keepdims=True), 1e-30)
+    g_d += 10.0 ** rng.uniform(-7, -2, (len(v0), 1)) * rng.choice(
+        [-1.0, 1.0], (len(v0), 1)) * n
+    o = np.concatenate([org, g_o]).astype(np.float32)
+    d = np.concatenate([d, g_d]).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (torch.from_numpy(o).to(tris.device),
+            torch.from_numpy(d.astype(np.float32)).to(tris.device))
+
+
+def walk_vs_sweep(label: str, tris, mat, bvh, ray_sets: dict) -> int:
+    """B4a, B4b and B4c through the BVH against closest_hit_sweep (the
+    brute-force kernel) on each named (o, d, count) ray set: t, index and
+    B4a's rows must be equal bit for bit.  Logs and returns the number of
+    differing rays (the gate is 0)."""
+    from rlrpt_tpu_torch.ops import intersect_pallas as ip
+    total = 0
+    for name, (o, d, count) in ray_sets.items():
+        live = torch.tensor([count], dtype=torch.int32, device=o.device)
+        ref = ip.closest_hit_sweep(o, d, tris, live, mat)
+        diff = {}
+        for kern, fn, tabs in (("B4a", ip.closest_hit_mat_mxu, (tris, mat)),
+                               ("B4b", ip.closest_hit_packed, (tris,)),
+                               ("B4c", ip.closest_hit_packed_mxu, (tris,))):
+            out = fn(o, d, *tabs, live, bvh=bvh)
+            bad = (out[0].view(torch.int32) != ref[0].view(torch.int32)) | (
+                out[1] != ref[1])
+            if len(out) == 3:
+                bad |= (out[2].view(torch.int32)
+                        != ref[2].view(torch.int32)).any(dim=1)
+            diff[kern] = int(bad.sum())
+        torch.cuda.synchronize()
+        total += sum(diff.values())
+        log(f"  {label} {name}: {o.shape[0]} rays, count {count}, "
+            f"{float((ref[0][:count] < 1e38).float().mean()):.4f} hit; "
+            f"rays differing from the sweep: "
+            + ", ".join(f"{k} {v}" for k, v in diff.items()))
+    check(total == 0, f"{label}: {total} rays differ from the brute-force "
+                      f"sweep")
+    return total
+
+
+def walk_timing(label: str, o, d, tris, mat, bvh, reps: int = 50) -> dict:
+    """B4a through the BVH against the brute-force sweep on the same rays,
+    in turns (sweep, walk, walk, sweep), ``reps`` launches each in a CUDA
+    graph timed by CUDA events (graph_ms: device time, not the wrappers'
+    host time; both sides timed so); then the work these rays need, from
+    the plain walk's counts, and the two bounds.  Returns the figures (ms:
+    means of each kind's two turns)."""
+    from rlrpt_tpu_torch.ops import bvh as bv
+    from rlrpt_tpu_torch.ops import intersect_pallas as ip
+    r = o.shape[0]
+    live = torch.tensor([r], dtype=torch.int32, device=o.device)
+    runs = {
+        "sweep": lambda: ip.closest_hit_sweep(o, d, tris, live, mat),
+        "walk": lambda: ip.closest_hit_mat_mxu(o, d, tris, mat, live,
+                                               bvh=bvh)}
+    ms = {k: [] for k in runs}
+    for k in ("sweep", "walk", "walk", "sweep"):
+        ms[k].append(graph_ms(runs[k], reps))
+    out = bv.closest_hit_bvh_plain(o, d, bvh, r, mat)
+    kern = runs["walk"]()
+    for a, b in zip(out[:3], kern):
+        check(torch.equal(a, b), f"{label}: the plain walk and the kernel "
+                                 "differ")
+    visits = float(out[3].double().sum())
+    tests = float(out[4].double().sum())
+    t = tris.shape[0]
+    io_bytes = r * (24 + 8 + 64)     # o, d read; t, index, row written
+    counted = bound_ms(visits * 2 * BOX_OPS + tests * MT_OPS,
+                       io_bytes + bvh.nodes.numel() * 4 + t * (48 + 4 + 64))
+    brute = bound_ms(r * t * MT_OPS, io_bytes)
+    res = {"rays": r, "triangles": t,
+           "ms": {k: statistics.mean(v) for k, v in ms.items()},
+           "turns_ms": ms, "visits_per_ray": visits / r,
+           "tests_per_ray": tests / r, "max_visits": int(out[3].max()),
+           "max_tests": int(out[4].max()), "counted_bound_ms": counted[0],
+           "counted_bound_by": counted[1], "brute_bound_ms": brute[0],
+           "brute_bound_by": brute[1]}
+    res["share"] = counted[0] / res["ms"]["walk"]
+    log(f"  {label}, {r} rays x {t} triangles, B4a (ms, {reps} launches a "
+        f"turn in a CUDA graph, in turns): sweep {ms['sweep'][0]:.4f}, "
+        f"{ms['sweep'][1]:.4f}; walk {ms['walk'][0]:.4f}, "
+        f"{ms['walk'][1]:.4f} (walk/sweep "
+        f"{res['ms']['walk'] / res['ms']['sweep']:.4f}); per ray "
+        f"{res['visits_per_ray']:.3f} "
+        f"inner-node visits (max {res['max_visits']}) and "
+        f"{res['tests_per_ray']:.3f} triangle tests (max "
+        f"{res['max_tests']}); counted bound {counted[0]:.5f} ms "
+        f"({counted[1]}), share {res['share']:.4f}; brute-force bound "
+        f"{brute[0]:.5f} ms ({brute[1]})")
+    return res
 
 
 def host_ms(fn):
@@ -309,6 +440,29 @@ def check_visits(label: str, frames, visits0: int = 0) -> None:
         visits0 = fr["visits"]
 
 
+class CallRecorder:
+    """Stands in for a loop module's closest_hit_mat_mxu (B4a) and keeps a
+    copy of every call's inputs, so that the frame's B4a launches can be
+    replayed afterwards.  The copies add device work to the frame, so it
+    records an extra, untimed one."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, []
+
+    def __call__(self, o, d, tris, mat, m, bvh=None):
+        self.calls.append((o.clone(), d.clone(), tris, mat, m.clone(), bvh))
+        return self.fn(o, d, tris, mat, m, bvh)
+
+    def device_seconds(self) -> float:
+        """B4a's device time in the recorded frame: its launches, on their
+        recorded inputs, replayed back to back in one CUDA graph timed by
+        CUDA events (graph_ms), so no host time falls between them."""
+        def replay():
+            for o, d, tris, mat, m, bvh in self.calls:
+                self.fn(o, d, tris, mat, m, bvh)
+        return graph_ms(replay, 1) / 1e3
+
+
 class HitRecorder:
     """Stands in for sarsa_wavefront's closest_hit_mat_mxu (B4a) and keeps
     copies of the inputs of the calls numbered in ``at`` and of the last
@@ -320,15 +474,15 @@ class HitRecorder:
     def __init__(self, fn, at):
         self.fn, self.at, self.n, self.calls = fn, set(at), 0, {}
 
-    def __call__(self, o, d, tris, mat, m):
-        keep = (o.clone(), d.clone(), tris, mat, m.clone())
+    def __call__(self, o, d, tris, mat, m, bvh):
+        keep = (o.clone(), d.clone(), tris, mat, m.clone(), bvh)
         if "last" in self.calls:
             self.calls["next to last"] = self.calls["last"]
         self.calls["last"] = keep
         if self.n in self.at:
             self.calls[self.n] = keep
         self.n += 1
-        return self.fn(o, d, tris, mat, m)
+        return self.fn(o, d, tris, mat, m, bvh)
 
 
 def fine_map_phases(dev, out_dir: Path, drive, mega_mean: float,
@@ -342,6 +496,7 @@ def fine_map_phases(dev, out_dir: Path, drive, mega_mean: float,
     from rlrpt_tpu_torch.camera import Camera
     from rlrpt_tpu_torch.config import RadianceVolumeConfig, RenderConfig
     from rlrpt_tpu_torch.integrators import sarsa_wavefront as sw
+    from rlrpt_tpu_torch.ops import bvh as bv
     from rlrpt_tpu_torch.ops import intersect_pallas as ip
     from rlrpt_tpu_torch.ops.guided_mega import render_guided_mega
     from rlrpt_tpu_torch.ops.megakernel import _t_pad
@@ -380,6 +535,8 @@ def fine_map_phases(dev, out_dir: Path, drive, mega_mean: float,
         "--pix-mux", "4", "--seed", "1984"]))
     b4a_learn = ip.KERNEL_MAT.launches
     vols, table, frames = aux["vols"], aux["table"], aux["frames"]
+    check(bv.BUILDS == len(frames), f"sarsa-fast: {bv.BUILDS} BVH builds in "
+                                    f"{len(frames)} frames")
     check_image("sarsa-fast learning frame", img, size)
     log(f"[11] V = {vols.n_volumes} volumes; answer table {table.dims} = "
         f"{table.table.shape[0]} cells, {table.nbytes} bytes, host build "
@@ -414,6 +571,7 @@ def fine_map_phases(dev, out_dir: Path, drive, mega_mean: float,
         return out, time.perf_counter() - t0
 
     (t_img, t_vols, t_aux), t_sec = drive("11", ("B4a",), test_render)
+    check(bv.BUILDS == 1, f"sarsa-fast test render: {bv.BUILDS} BVH builds")
     check_image("sarsa-fast test render", t_img, size)
     check_visits("sarsa-fast test render", [{
         "visits": int(t_vols.visits.sum()),
@@ -453,10 +611,10 @@ def fine_map_phases(dev, out_dir: Path, drive, mega_mean: float,
         sw.closest_hit_mat_mxu = rec.fn
     sync(dev)
     seen = set()
-    for key, (o, d, tris, mat, m) in rec.calls.items():
+    for key, (o, d, tris, mat, m, bvh) in rec.calls.items():
         check(torch.equal(mat[:, 11], table.tri_class.float()),
               f"B4a call {key}: column 11 is not the table's tri_class")
-        k_out = ip.closest_hit_mat_mxu(o, d, tris, mat, m)
+        k_out = ip.closest_hit_mat_mxu(o, d, tris, mat, m, bvh)
         sync(dev)
         p_out = ip.closest_hit_plain(o, d, tris, int(m), mat)
         for a, b in zip(k_out, p_out):
@@ -809,8 +967,8 @@ def deep_phases(dev, out_dir: Path, drive, mega_mean: float,
         train_frame(2001)
     finally:
         dw.closest_hit_mat_mxu = rec.fn
-    for key, (o, d, tris, mat, m) in rec.calls.items():
-        k_out = ip.closest_hit_mat_mxu(o, d, tris, mat, m)
+    for key, (o, d, tris, mat, m, bvh) in rec.calls.items():
+        k_out = ip.closest_hit_mat_mxu(o, d, tris, mat, m, bvh)
         sync(dev)
         p_out = ip.closest_hit_plain(o, d, tris, int(m), mat)
         for a, b in zip(k_out, p_out):
@@ -1061,13 +1219,13 @@ def equal_frames(name: str, k_out, p_out, cfg) -> float:
     return err
 
 
-def equal_hits(name: str, fn, o, d, tables, count) -> float:
-    """A closest-hit launcher against the twin on the same rays: t, index
-    (and rows) bit-equal, rays past ``count`` missed.  Returns the largest
-    absolute difference (0)."""
+def equal_hits(name: str, fn, o, d, tables, count, bvh) -> float:
+    """A closest-hit launcher (walking ``bvh``) against the twin on the
+    same rays: t, index (and rows) bit-equal, rays past ``count`` missed.
+    Returns the largest absolute difference (0)."""
     from rlrpt_tpu_torch.ops import intersect_pallas as ip
     live = torch.tensor([count], dtype=torch.int32, device=o.device)
-    k_out = fn(o, d, *tables, live)
+    k_out = fn(o, d, *tables, live, bvh=bvh)
     torch.cuda.synchronize()
     p_out = ip.closest_hit_plain(o, d, tables[0], count, *tables[1:])
     err = 0.0
@@ -1092,6 +1250,8 @@ def scene_phases(dev, out_dir: Path, drive, size: int = 720,
     from rlrpt_tpu_torch.camera import Camera
     from rlrpt_tpu_torch.config import RadianceVolumeConfig, RenderConfig
     from rlrpt_tpu_torch.integrators import sarsa_wavefront as sw
+    from rlrpt_tpu_torch.integrators import wavefront as wf
+    from rlrpt_tpu_torch.ops import bvh as bv
     from rlrpt_tpu_torch.ops import guided_mega as gm
     from rlrpt_tpu_torch.ops import guided_mega_train as gt
     from rlrpt_tpu_torch.ops import intersect_pallas as ip
@@ -1164,11 +1324,24 @@ def scene_phases(dev, out_dir: Path, drive, size: int = 720,
                              n_small, 1), q_in, v_in)
     gen = torch.Generator(device=dev).manual_seed(18)
     h_tris, h_mat = ip.pack_scene_mxu(room)
+    h_bvh = bv.build_bvh(h_tris)
     _, _, o, d = hit_rays(dev, h_tris, h_mat, gen)
     for name, fn, tables in (("B4a", ip.closest_hit_mat_mxu, (h_tris, h_mat)),
                              ("B4b", ip.closest_hit_packed, (h_tris,))):
         errs[name] = equal_hits(f"{name} test_room", fn, o, d, tables,
-                                o.shape[0] // 2)
+                                o.shape[0] // 2, h_bvh)
+    n_cam = size * size
+    e_o, e_d = edge_rays(h_tris, 18)
+    walk_vs_sweep("[18] test_room", h_tris, h_mat, h_bvh, {
+        "camera + bounce rays": (o, d, o.shape[0]),
+        "camera + bounce rays, count at half": (o, d, o.shape[0] // 2),
+        "edge, vertex and grazing rays": (e_o, e_d, e_o.shape[0])})
+    res["walk_test_room"] = {
+        "camera": walk_timing("[18] test_room camera rays", o[:n_cam],
+                              d[:n_cam], h_tris, h_mat, h_bvh),
+        "bounce": walk_timing("[18] test_room bounce rays",
+                              o[n_cam:].contiguous(), d[n_cam:].contiguous(),
+                              h_tris, h_mat, h_bvh)}
     secs["test_room twins"] = time.perf_counter() - t_part
 
     # ---- 18b: the test room's learning path at full width ---------------
@@ -1252,15 +1425,33 @@ def scene_phases(dev, out_dir: Path, drive, size: int = 720,
             mk.mega_default_frame_plain(41, cam, *tables[label], small2,
                                         n_small, 1), small2))
     o_tris, o_mat = ip.pack_scene_mxu(obj)
+    builds = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o_bvh = bv.build_bvh(o_tris)
+        torch.cuda.synchronize()
+        builds.append(time.perf_counter() - t0)
+    log(f"[18] BVH of the {n_tris} triangles: {o_bvh.nodes.shape[0]} inner "
+        f"nodes, depth {o_bvh.depth}; build (host numpy, the table copied "
+        f"from the card) " + ", ".join(f"{b:.4f}" for b in builds) + " s")
     cam_o, cam_d, o, d = hit_rays(dev, o_tris, o_mat, gen, size=256)
     for name, fn, tabs in (("B4a", ip.closest_hit_mat_mxu, (o_tris, o_mat)),
                            ("B4b", ip.closest_hit_packed, (o_tris,))):
         errs[name] = max(errs[name], equal_hits(
             f"{name} torus room camera rays", fn, cam_o, cam_d, tabs,
-            cam_o.shape[0]))
+            cam_o.shape[0], o_bvh))
         errs[name] = max(errs[name], equal_hits(
             f"{name} torus room camera + bounce rays", fn, o, d, tabs,
-            o.shape[0] // 2))
+            o.shape[0] // 2, o_bvh))
+    f_cam_o, f_cam_d, f_o, f_d = hit_rays(dev, o_tris, o_mat, gen, size,
+                                          hit=ip.closest_hit_sweep)
+    e_o, e_d = edge_rays(o_tris, 19)
+    walk_vs_sweep("[18] torus room", o_tris, o_mat, o_bvh, {
+        "camera + bounce rays": (f_o, f_d, f_o.shape[0]),
+        "camera + bounce rays, count at half": (f_o, f_d,
+                                                f_o.shape[0] // 2),
+        "edge, vertex and grazing rays": (e_o, e_d, e_o.shape[0])})
     secs["OBJ import and twins"] = time.perf_counter() - t_part
 
     # ---- 18d: the generated OBJ at full width -----------------------------
@@ -1299,31 +1490,66 @@ def scene_phases(dev, out_dir: Path, drive, size: int = 720,
     log(f"[18] --mode mega --scene {preset.name} 32 spp: {mega_s:.4f} s, "
         f"mean {obj_mean:.6f}, avg path {float(aux['avg_path_length']):.4f}")
 
-    # B4a/b/c per 518,400 camera rays at this T
-    cam_o, cam_d = camera_rays(dev, gen, size)
-    n_rays = cam_o.shape[0]
-    live = torch.tensor([n_rays], dtype=torch.int32, device=dev)
+    # B4a through the walk against the sweep per 518,400 camera rays and
+    # their bounce rays at this T; B4b and B4c (no rows) on the camera rays
+    n_cam = f_cam_o.shape[0]
+    kern["B4 walk"] = {
+        "camera": walk_timing("[18] torus room camera rays", f_cam_o,
+                              f_cam_d, o_tris, o_mat, o_bvh),
+        "bounce": walk_timing("[18] torus room bounce rays",
+                              f_o[n_cam:].contiguous(),
+                              f_d[n_cam:].contiguous(), o_tris, o_mat,
+                              o_bvh),
+        "build_seconds": builds}
+    # B4a/b/c per 518,400 camera rays, stream-timed as in PR 6 (mean of
+    # 10 launches, wrappers' host time included), and in a CUDA graph
+    live = torch.tensor([n_cam], dtype=torch.int32, device=dev)
     for name, fn, tabs in (
             ("B4a", ip.closest_hit_mat_mxu, (o_tris, o_mat)),
             ("B4b", ip.closest_hit_packed, (o_tris,)),
             ("B4c", ip.closest_hit_packed_mxu, (o_tris,))):
-        ms = kernel_ms(lambda: fn(cam_o, cam_d, *tabs, live), 10)
-        bound, by = bound_ms(n_rays * n_tris * MT_OPS, n_rays * (
+        run = lambda: fn(f_cam_o, f_cam_d, *tabs, live,  # noqa: E731
+                         bvh=o_bvh)
+        ms, g_ms = kernel_ms(run, 10), graph_ms(run, 50)
+        bound, by = bound_ms(n_cam * n_tris * MT_OPS, n_cam * (
             24 + 8 + (64 if name == "B4a" else 0)))
-        kern[name] = {"ms": ms, "bound_ms": bound, "bound_by": by,
-                      "share": bound / ms}
-        log(f"[18] {name} torus room, {n_rays} camera rays x {n_tris} "
-            f"triangles: {ms:.4f} ms (mean of 10), bound {bound:.4f} ms "
-            f"({by}), share {bound / ms:.4f}")
+        kern[name] = {"ms": ms, "graph_ms": g_ms, "brute_bound_ms": bound,
+                      "brute_bound_by": by, "brute_share": bound / ms}
+        log(f"[18] {name} torus room, {n_cam} camera rays x {n_tris} "
+            f"triangles: {ms:.4f} ms (stream, mean of 10), {g_ms:.4f} ms "
+            f"(50 launches in a CUDA graph); brute-force bound "
+            f"{bound:.4f} ms ({by}), share {bound / ms:.4f}")
 
-    w_img, w_aux, w_sec = drive("18", ("B4a",), lambda: run_cli(
-        ["--mode", "wavefront", "--scene", preset.name, "--spp", "8",
-         "--seed", "1985"]))
+    def recorded(module, fn):
+        """fn() once more with module.closest_hit_mat_mxu under a
+        CallRecorder; returns the recorder."""
+        rec = CallRecorder(module.closest_hit_mat_mxu)
+        module.closest_hit_mat_mxu = rec
+        try:
+            fn()
+        finally:
+            module.closest_hit_mat_mxu = rec.fn
+        return rec
+
+    w_argv = ["--mode", "wavefront", "--scene", preset.name, "--spp", "8",
+              "--seed", "1985"]
+    w_img, w_aux, w_sec = drive("18", ("B4a",), lambda: run_cli(w_argv))
+    check(bv.BUILDS == 1, f"OBJ wavefront: {bv.BUILDS} BVH builds in one "
+                          f"frame")
+    w_launches = ip.KERNEL_MAT.launches
     check_image("torus room wavefront", w_img, size)
     w_gap = (float(w_img.mean()) - obj_mean) / obj_mean
+    # the same frame again, its B4a calls recorded and replayed
+    w_rec = recorded(wf, lambda: run_cli(w_argv))
+    check(len(w_rec.calls) == w_launches, f"OBJ wavefront: "
+          f"{len(w_rec.calls)} B4a calls recorded, {w_launches} launched")
+    w_b4a = w_rec.device_seconds()
+    del w_rec   # the copies of the frame's rays
     log(f"[18] --mode wavefront 8 spp: {w_sec:.4f} s, "
         f"{int(w_aux['wavefront_iterations'])} iterations, mean "
-        f"{float(w_img.mean()):.6f} vs mega 32 spp {w_gap:+.4%}")
+        f"{float(w_img.mean()):.6f} vs mega 32 spp {w_gap:+.4%}; B4a "
+        f"device time (its {w_launches} launches replayed in a CUDA graph) "
+        f"{w_b4a:.4f} s, {w_b4a / w_sec:.4f} of the frame")
     check(abs(w_gap) <= 0.02, f"torus room wavefront off by {w_gap:+.2%}")
     secs["OBJ mega, B4, wavefront"] = time.perf_counter() - t_part
 
@@ -1336,7 +1562,10 @@ def scene_phases(dev, out_dir: Path, drive, size: int = 720,
          "--seed", "1984"]))
     check_image("torus room sarsa-fast", f_img, size)
     vols, table, frames = f_aux["vols"], f_aux["table"], f_aux["frames"]
+    check(bv.BUILDS == len(frames), f"OBJ sarsa-fast: {bv.BUILDS} BVH builds "
+                                    f"in {len(frames)} frames")
     check_visits("torus room sarsa-fast", frames)
+    f_learn = sum(fr["seconds"] for fr in frames)
     n_cls = len(torch.unique(table.tri_class))
     slots = table.table[:, 0:8:2]
     filled = (slots >= 0).sum(dim=1)
@@ -1360,6 +1589,8 @@ def scene_phases(dev, out_dir: Path, drive, size: int = 720,
         return out, time.perf_counter() - t0
 
     (t_img, t_vols, t_aux), t_sec = drive("18", ("B4a",), test_render)
+    check(bv.BUILDS == 1, f"OBJ sarsa-fast test render: {bv.BUILDS} BVH "
+                          f"builds")
     check_image("torus room sarsa-fast test render", t_img, size)
     check_visits("torus room sarsa-fast test render", [{
         "visits": int(t_vols.visits.sum()),
@@ -1368,8 +1599,30 @@ def scene_phases(dev, out_dir: Path, drive, size: int = 720,
     t_gap = (float(t_img.mean()) - obj_mean) / obj_mean
     write_png(str(out_dir / "torus_room-sarsa-fast.png"), t_img.cpu())
     log(f"[18] sarsa-fast 32-spp test render (f32 CDF): {t_sec:.4f} s, "
-        f"mean {float(t_img.mean()):.6f} vs mega {t_gap:+.4%}")
+        f"{ip.KERNEL_MAT.launches} B4a launches, mean "
+        f"{float(t_img.mean()):.6f} vs mega {t_gap:+.4%}")
     check(abs(t_gap) <= 0.02, f"torus room sarsa-fast off by {t_gap:+.2%}")
+
+    def learning_frame():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sw.render_frame_sarsa_wavefront(5, obj, camera, vols, table, full(8),
+                                        rl, pix_mux=4)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    # one more learning frame from the same volumes, timed, then rerun
+    # with its B4a calls recorded and replayed for their device time
+    before = ip.KERNEL_MAT.launches
+    l_sec = learning_frame()
+    l_n = ip.KERNEL_MAT.launches - before
+    f_rec = recorded(sw, learning_frame)
+    f_b4a = f_rec.device_seconds()
+    log(f"[18] sarsa-fast: one more 8-spp learning frame {l_sec:.4f} s, "
+        f"{l_n} B4a launches; B4a device time (the frame rerun, its "
+        f"{len(f_rec.calls)} launches replayed in a CUDA graph) "
+        f"{f_b4a:.4f} s, {f_b4a / l_sec:.4f} of the timed frame")
+    del f_rec
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1410,6 +1663,9 @@ def scene_phases(dev, out_dir: Path, drive, size: int = 720,
         "parse_python_s": python_s, "mega_mean": obj_mean,
         "mega_seconds": mega_s, "kernels": kern,
         "wavefront_seconds": w_sec, "wavefront_vs_mega": w_gap,
+        "wavefront_b4a_device_seconds": w_b4a,
+        "sarsa_fast_frame_seconds": l_sec,
+        "sarsa_fast_frame_b4a_device_seconds": f_b4a,
         "n_volumes": vols.n_volumes, "classes": n_cls,
         "table_seconds": f_aux["table_seconds"], "learning_frames": frames,
         "test_seconds": t_sec, "test_vs_mega": t_gap, "bake_seconds": bake_s,
@@ -1453,6 +1709,7 @@ def main(argv=None) -> int:
     from rlrpt_tpu_torch.config import RadianceVolumeConfig, RenderConfig
     from rlrpt_tpu_torch.integrators.wavefront import render_wavefront
     from rlrpt_tpu_torch.ops import guided_mega as gm
+    from rlrpt_tpu_torch.ops import bvh as bv
     from rlrpt_tpu_torch.ops import guided_mega_train as gt
     from rlrpt_tpu_torch.ops import intersect_pallas as ip
     from rlrpt_tpu_torch.ops import megakernel as mk
@@ -1651,15 +1908,19 @@ def main(argv=None) -> int:
           f"a learning frame launched the train kernel {n_train} times and "
           f"synchronised {len(sync_after)} times after the launch")
 
-    # ---- 7: B4a, B4b, B4c vs their twins --------------------------------
-    log("[7] B4a/b/c closest_hit vs the torch twin (t, idx and mat rows "
-        "bit-equal; active_count at half the batch)")
+    # ---- 7: B4a, B4b, B4c vs their twins and the sweep ------------------
+    log("[7] B4a/b/c closest_hit (the BVH walk) vs the torch twin (t, idx "
+        "and mat rows bit-equal; active_count at half the batch) and vs "
+        "the brute-force sweep kernel at full width; timed against the "
+        "sweep in turns")
     b4_err = dict.fromkeys(("B4a", "B4b", "B4c"), 0.0)
-    b4_ms, b4_plain_ms, b4_bound = {}, {}, {}
+    b4_ms, b4_plain_ms, b4_bound, b4_walk = {}, {}, {}, {}
+    b4_graph_ms = {}
     gen = torch.Generator(device=dev).manual_seed(11)
     clutter = clutter_scene(dev)
     for scene_name, sc in (("cornell", cornell), ("clutter", clutter)):
         s_tris, s_mat = ip.pack_scene_mxu(sc)
+        s_bvh = bv.build_bvh(s_tris)
         cam_o, cam_d, o, d = hit_rays(dev, s_tris, s_mat, gen)
         half = torch.tensor([o.shape[0] // 2], dtype=torch.int32, device=dev)
         full = torch.tensor([cam_o.shape[0]], dtype=torch.int32, device=dev)
@@ -1669,7 +1930,7 @@ def main(argv=None) -> int:
                 ("B4a", ip.closest_hit_mat_mxu, ip.KERNEL_MAT,
                  (s_tris, s_mat))):
             before = kern.launches
-            k_out = fn(o, d, *tables, half)
+            k_out = fn(o, d, *tables, half, bvh=s_bvh)
             check(kern.launches == before + 1, f"{name} launch not counted")
             torch.cuda.synchronize()
             p_out = ip.closest_hit_plain(o, d, s_tris, int(half), *tables[1:])
@@ -1680,24 +1941,51 @@ def main(argv=None) -> int:
                     (a.double() - b.double()).abs().max()))
             check(bool((k_out[0][int(half):] >= 1e38).all()),
                   f"{name}: a ray past active_count was traced")
-            ms = kernel_ms(lambda: fn(cam_o, cam_d, *tables, full), 50)
+            # stream-timed as in PRs 2-6 (the kernels line's ms: the
+            # wrappers' host time included), and in a CUDA graph
+            run = lambda: fn(cam_o, cam_d, *tables, full,  # noqa: E731
+                             bvh=s_bvh)
+            ms, g_ms = kernel_ms(run, 50), graph_ms(run, 50)
             plain_ms, _ = host_ms(lambda: ip.closest_hit_plain(
                 cam_o, cam_d, s_tris, cam_o.shape[0], *tables[1:]))
             if scene_name == "cornell":
                 b4_ms[name], b4_plain_ms[name] = ms, plain_ms
-                # rays read (o, d), t and index written, B4a's row too
-                n_rays = cam_o.shape[0]
-                b4_bound[name] = bound_ms(
-                    n_rays * sc.n_triangles * MT_OPS,
-                    n_rays * (24 + 8 + (64 if name == "B4a" else 0)))
+                b4_graph_ms[name] = g_ms
             hits = float((k_out[0] < 1e38).float().mean())
             log(f"  {name} {scene_name} ({s_tris.shape[0]} triangles), "
                 f"{o.shape[0]} rays, count {int(half)}: bit-equal, "
-                f"{hits:.4f} hit; 518,400 camera rays: kernel {ms:.4f} ms, "
-                f"torch twin {plain_ms:.1f} ms"
-                + (f"; bound {b4_bound[name][0]:.4f} ms "
-                   f"({b4_bound[name][1]})" if scene_name == "cornell"
-                   else ""))
+                f"{hits:.4f} hit; 518,400 camera rays: kernel {ms:.4f} ms "
+                f"(stream, 50 launches), {g_ms:.4f} ms (50 in a CUDA "
+                f"graph), torch twin {plain_ms:.1f} ms")
+        n_cam = cam_o.shape[0]
+        e_o, e_d = edge_rays(s_tris, 7)
+        walk_vs_sweep(f"[7] {scene_name}", s_tris, s_mat, s_bvh, {
+            "camera + bounce rays": (o, d, o.shape[0]),
+            "camera + bounce rays, count at half": (o, d, o.shape[0] // 2),
+            "edge, vertex and grazing rays": (e_o, e_d, e_o.shape[0])})
+        b4_walk[scene_name] = {
+            "camera": walk_timing(f"[7] {scene_name} camera rays", cam_o,
+                                  cam_d, s_tris, s_mat, s_bvh),
+            "bounce": walk_timing(f"[7] {scene_name} bounce rays",
+                                  o[n_cam:].contiguous(),
+                                  d[n_cam:].contiguous(), s_tris, s_mat,
+                                  s_bvh)}
+        if scene_name == "cornell":
+            cw = b4_walk["cornell"]["camera"]
+            for name in ("B4a", "B4b", "B4c"):
+                # B4b and B4c write no row: 64 bytes a ray fewer
+                nbytes = cw["rays"] * (24 + 8 + (64 if name == "B4a" else 0))
+                ops = (cw["visits_per_ray"] * 2 * BOX_OPS
+                       + cw["tests_per_ray"] * MT_OPS) * cw["rays"]
+                tab = s_bvh.nodes.numel() * 4 + s_tris.shape[0] * (
+                    52 + (64 if name == "B4a" else 0))
+                b4_bound[name] = bound_ms(ops, nbytes + tab)
+                log(f"  {name} cornell camera rays: counted bound "
+                    f"{b4_bound[name][0]:.5f} ms ({b4_bound[name][1]}), "
+                    f"share {b4_bound[name][0] / b4_ms[name]:.4f} of the "
+                    f"stream time, "
+                    f"{b4_bound[name][0] / b4_graph_ms[name]:.4f} of the "
+                    f"graph time")
 
     # ---- the paths, each counted from zero ------------------------------
     kernels = {"B1": mk.KERNEL, "B3": gm.KERNEL, "B2": gt.KERNEL,
@@ -1706,16 +1994,22 @@ def main(argv=None) -> int:
     launches = dict.fromkeys(kernels, 0)
 
     def drive(path: str, expect, fn):
-        """fn() with every count at 0; the expected kernels must launch."""
-        for kern in kernels.values():
+        """fn() with every count at 0; the expected kernels must launch,
+        and the brute-force sweep (no path's kernel) must not.  bv.BUILDS
+        holds the run's BVH builds afterwards."""
+        for kern in (*kernels.values(), ip.KERNEL_SWEEP):
             kern.launches = 0
+        bv.BUILDS = 0
         out = fn()
         torch.cuda.synchronize()
         counts = {n: k.launches for n, k in kernels.items()}
         log(f"[{path}] launches: " + ", ".join(
-            f"{n} {c}" for n, c in counts.items() if c))
+            f"{n} {c}" for n, c in counts.items() if c)
+            + (f"; BVH builds {bv.BUILDS}" if bv.BUILDS else ""))
         check(all(counts[n] > 0 for n in expect),
               f"{path}: a kernel of the path never launched: {counts}")
+        check(ip.KERNEL_SWEEP.launches == 0,
+              f"{path}: the brute-force sweep ran on a path")
         for n in expect:
             launches[n] += counts[n]
         return out
@@ -1836,6 +2130,7 @@ def main(argv=None) -> int:
     # 9: the wavefront path, B4a through the CLI and B4b through hit_mode
     drive("9", ("B4a",), lambda: cli("9", "wavefront",
                                       ["--mode", "wavefront"]))
+    check(bv.BUILDS == 1, f"wavefront: {bv.BUILDS} BVH builds in one frame")
 
     def wavefront_f32():
         t0 = time.perf_counter()
@@ -1849,6 +2144,8 @@ def main(argv=None) -> int:
             f"{int(aux['wavefront_iterations'])} iterations")
 
     drive("9", ("B4b",), wavefront_f32)
+    check(bv.BUILDS == 1, f"wavefront f32: {bv.BUILDS} BVH builds in one "
+                          f"frame")
     for label in ("wavefront", "wavefront-f32"):
         gap_w = (float(imgs[label].mean()) - mm) / mm
         log(f"[9] {label} mean vs mega: {gap_w:+.4%}")
@@ -1905,7 +2202,11 @@ def main(argv=None) -> int:
          "launches": launches[n], "max_abs_err": b4_err[n],
          "ms": b4_ms[n], "plain_ms": b4_plain_ms[n],
          "bound_ms": b4_bound[n][0], "bound_by": b4_bound[n][1],
-         "library_ms": None}
+         "library_ms": None, "graph_ms": b4_graph_ms[n],
+         **({"walk_vs_sweep_graph_ms": {
+             k: [b4_walk["cornell"][k]["ms"]["walk"],
+                 b4_walk["cornell"][k]["ms"]["sweep"]]
+             for k in ("camera", "bounce")}} if n == "B4a" else {})}
         for n, fn, line in (("B4a", "closest_hit_mat_mxu", 203),
                             ("B4b", "closest_hit_packed", 48),
                             ("B4c", "closest_hit_packed_mxu", 116))]}
@@ -1915,6 +2216,7 @@ def main(argv=None) -> int:
         "learning_frames": frames, "guided_gap_after_learning": gap,
         "b2_iterations": b2_iters, "b2_grid_blocks": grid_blocks,
         "grid_barrier_us": sync_us, "b2_frame_device_kernels": b2_kernels,
+        "b4_walk": b4_walk,
         **fine, **deep, "scenes": scenes, "phase_seconds": seconds},
         indent=1))
     print(card)

@@ -1,5 +1,5 @@
-// B4a, B4b, B4c: the closest-hit kernels of the wavefront integrators, for
-// Hopper (sm_90a).
+// B4a, B4b, B4c: the closest-hit kernel of the wavefront integrators, for
+// Hopper (sm_90a), as a bounding-volume-hierarchy walk.
 //
 // Replaces three Pallas TPU kernels of rlrpt_tpu/ops/intersect_pallas.py:
 // _hit_kernel (B4b, launcher closest_hit_packed: exact f32
@@ -8,29 +8,183 @@
 // operands) and _hit_mat_kernel_mxu (B4a, launcher closest_hit_mat_mxu:
 // plus the hit's 16-float material row, which the TPU fetched with a
 // one-hot matmul because gathers are slow there).  All three are this one
-// kernel: the hit is exact f32 (hit_tris of path_common.cuh, the
-// megakernels' routine), so B4c's output is B4b's, and the material row
-// is a load of the winner's row from the (T, 16) f32 table.
+// kernel: the hit is exact f32, so B4c's output is B4b's, and the material
+// row is a load of the winner's row from the unpermuted (T, 16) table.
 //
-// What bounds it on this card: f32 throughput in the sweep, about 30
-// flops per (ray, triangle) pair against 24 bytes read and 8 (or 72)
-// written per ray; at 38 triangles a ray costs ~1.1k flops, so 518,400
-// rays are compute-bound well below a millisecond, and launch latency
-// matters at small batches.
+// What bounds it on this card: no longer the brute-force sweep's flops (50
+// a ray-triangle pair, every pair), but the walk's instructions (slab
+// tests, the stack, dependent branches) and its scattered node and
+// triangle loads, over a few inner nodes and leaves a ray.
 //
-// What the design does about it: one thread per ray; triangles stream
-// through shared memory in tiles of 256 (every thread of a block loads a
-// share, then all test from shared memory); the first-tested triangle wins
-// ties (strict <), as the JAX kernels' lowest index does.  The wavefront's
-// live-ray high-water mark arrives as a device int32 (`count`), so the host
-// never waits on it: rays at index >= count are skipped and written as a
-// miss (t = INF, index 0, zero row), and a block wholly past it returns
-// without a sweep.
+// What the design does about it: each thread walks one ray through the
+// hierarchy of ops/bvh.py (layout and link encoding there), nearer child
+// first, with its own stack of (link, near) entries, and skips a box only
+// when its near distance is above the best t so far or its far one below
+// 0, on the robust slab test of Ize (JCGT 2013: the far distance scaled by
+// 1 + 2 gamma_3; zero direction components clamped as megakernel.py:
+// 424-428).  Leaves run hit_tris's arithmetic (hit_tris_mapped), and an
+// equal t goes to the lower original index, so the answer is the sweep's
+// bit for bit.  The walk runs while-while, so a warp's lanes test their
+// leaves together.  The first kTopNodes inner nodes (breadth-first, at
+// most 16 KB, sized to the tree) sit in shared memory; the rest, the
+// triangles and the material rows are read through the read-only cache.
+// The grid is one thread a ray: a persistent grid whose warps pulled their
+// next 32 rays from a device counter was timed against it on the H100: no
+// faster on camera rays, 4-6% slower on the small scenes' bounce rays and
+// 5% faster on the 4,980-triangle scene's (PERF.md), so it went.  The
+// wavefront's live-ray high-water mark arrives as a device int32
+// (`count`), so the host never waits on it: rays at index >= count are
+// written as a miss (t = INF, index 0, zero row), and a block wholly past
+// it does no walk.
+//
+// The brute-force sweep stays below as closest_hit_sweep_kernel: no path
+// calls it, and chip_smoke.py uses it as the same-card reference.
 #include "path_common.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(rlrpt::kBlock) closest_hit_kernel(
+constexpr int kTopNodes = 256;   // inner nodes kept in shared memory
+constexpr int kStack = 64;       // per-thread stack (ops/bvh.py STACK)
+constexpr int kEmpty = -1;       // the link of no child (ops/bvh.py EMPTY)
+constexpr float kTiny = 1e-30f;  // ops/bvh.py TINY
+// 1 + 2 gamma_3, gamma_n = n u / (1 - n u), u = 2^-24 (ops/bvh.py FAR_SCALE)
+constexpr float kFarScale = static_cast<float>(
+    1.0 + 2.0 * (3.0 * 0x1p-24) / (1.0 - 3.0 * 0x1p-24));
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz, ivx, ivy, ivz;
+};
+
+// Slab test of box [lo, hi]; returns near and sets far
+// (ops/bvh.py:_slab, operation for operation).
+__device__ __forceinline__ float box_near(const float4 lo, const float4 hi,
+                                          const Ray& r, float& far) {
+  const float t1x = (lo.x - r.ox) * r.ivx, t2x = (hi.x - r.ox) * r.ivx;
+  const float t1y = (lo.y - r.oy) * r.ivy, t2y = (hi.y - r.oy) * r.ivy;
+  const float t1z = (lo.z - r.oz) * r.ivz, t2z = (hi.z - r.oz) * r.ivz;
+  far = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z)) *
+        kFarScale;
+  return fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
+}
+
+// Pops the next stacked link whose near distance is within t into link;
+// false when none is left.
+__device__ __forceinline__ bool pop(const int* st_link, const float* st_near,
+                                    int& sp, float t, int& link) {
+  while (sp > 0) {
+    --sp;
+    if (st_near[sp] <= t) {
+      link = st_link[sp];
+      return true;
+    }
+  }
+  return false;
+}
+
+// The closest hit of one ray: the walk of ops/bvh.py:closest_hit_bvh_plain.
+// While-while order (Aila and Laine, HPG 2009): a lane steps through inner
+// nodes until it holds a leaf, and only then tests triangles, so the lanes
+// of a warp test their leaves together; each lane's own sequence of
+// visits is the plain walk's.
+__device__ __forceinline__ rlrpt::Hit walk(
+    const float4* __restrict__ s_nodes, int n_top,
+    const float4* __restrict__ nodes, const float4* __restrict__ tris,
+    const int* __restrict__ order, float ox, float oy, float oz, float dx,
+    float dy, float dz) {
+  Ray r{ox, oy, oz, dx, dy, dz, 0.f, 0.f, 0.f};
+  r.ivx = 1.f / (fabsf(dx) < kTiny ? kTiny : dx);
+  r.ivy = 1.f / (fabsf(dy) < kTiny ? kTiny : dy);
+  r.ivz = 1.f / (fabsf(dz) < kTiny ? kTiny : dz);
+  rlrpt::Hit h{rlrpt::kInf, -1, 0.f, 0.f, 0.f};
+  int st_link[kStack];
+  float st_near[kStack];
+  int sp = 0;
+  int link = 0;   // the root
+  while (true) {
+    while (link >= 0) {
+      float4 a, b, c, e;
+      if (link < n_top) {
+        const float4* p = s_nodes + 4 * link;
+        a = p[0];
+        b = p[1];
+        c = p[2];
+        e = p[3];
+      } else {
+        const float4* p = nodes + 4 * static_cast<size_t>(link);
+        a = __ldg(p);
+        b = __ldg(p + 1);
+        c = __ldg(p + 2);
+        e = __ldg(p + 3);
+      }
+      const int ll = __float_as_int(a.w), lr = __float_as_int(c.w);
+      float fl, fr;
+      const float nl = box_near(a, b, r, fl), nr = box_near(c, e, r, fr);
+      const bool ok_l = ll != kEmpty && nl <= fl && fl >= 0.f && nl <= h.t;
+      const bool ok_r = lr != kEmpty && nr <= fr && fr >= 0.f && nr <= h.t;
+      if (ok_l && ok_r) {
+        const bool r_first = nr < nl;
+        st_link[sp] = r_first ? ll : lr;
+        st_near[sp] = r_first ? nl : nr;
+        ++sp;
+        link = r_first ? lr : ll;
+      } else if (ok_l || ok_r) {
+        link = ok_l ? ll : lr;
+      } else if (!pop(st_link, st_near, sp, h.t, link)) {
+        return h;
+      }
+    }
+    const int code = ~link;
+    rlrpt::hit_tris_mapped(tris, order, code >> 3, code & 7, ox, oy, oz, dx,
+                           dy, dz, h);
+    if (!pop(st_link, st_near, sp, h.t, link)) return h;
+  }
+}
+
+__device__ __forceinline__ void store(int i, const rlrpt::Hit& h,
+                                      const float4* __restrict__ mat,
+                                      float* __restrict__ t_out,
+                                      int* __restrict__ idx_out,
+                                      float4* __restrict__ mat_out) {
+  const bool hit = h.t < rlrpt::kInf;
+  t_out[i] = h.t;
+  idx_out[i] = hit ? h.tri : 0;
+  if (mat_out != nullptr) {
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      mat_out[4 * static_cast<size_t>(i) + j] =
+          hit ? __ldg(mat + 4 * static_cast<size_t>(h.tri) + j) : zero;
+  }
+}
+
+__global__ void __launch_bounds__(rlrpt::kBlock) closest_hit_bvh_kernel(
+    int n_rays, int n_nodes, const int* __restrict__ count,
+    const float* __restrict__ o, const float* __restrict__ d,
+    const float4* __restrict__ nodes, const float4* __restrict__ tris,
+    const int* __restrict__ order, const float4* __restrict__ mat,
+    float* __restrict__ t_out, int* __restrict__ idx_out,
+    float4* __restrict__ mat_out) {
+  extern __shared__ float4 s_nodes[];   // the top min(n_nodes, kTopNodes)
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int live = max(min(__ldg(count), n_rays), 0);
+  rlrpt::Hit h{rlrpt::kInf, -1, 0.f, 0.f, 0.f};
+  if (static_cast<int>(blockIdx.x * blockDim.x) < live) {
+    const int n_top = min(n_nodes, kTopNodes);
+    for (int j = threadIdx.x; j < 4 * n_top; j += blockDim.x)
+      s_nodes[j] = __ldg(nodes + j);
+    __syncthreads();
+    if (i < live)
+      h = walk(s_nodes, n_top, nodes, tris, order, o[3 * i], o[3 * i + 1],
+               o[3 * i + 2], d[3 * i], d[3 * i + 1], d[3 * i + 2]);
+  }
+  if (i >= n_rays) return;
+  store(i, h, mat, t_out, idx_out, mat_out);
+}
+
+// The brute-force sweep (the kernel the walk replaced): one thread a ray,
+// triangles streamed through shared memory in tiles of 256, the
+// first-tested triangle winning ties (strict <).
+__global__ void __launch_bounds__(rlrpt::kBlock) closest_hit_sweep_kernel(
     int n_rays, int n_tris, const int* __restrict__ count,
     const float* __restrict__ o, const float* __restrict__ d,
     const float4* __restrict__ tris, const float4* __restrict__ mat,
@@ -55,34 +209,51 @@ __global__ void __launch_bounds__(rlrpt::kBlock) closest_hit_kernel(
                      dz);
   }
   if (i >= n_rays) return;
-  const bool hit = h.t < rlrpt::kInf;
-  t_out[i] = h.t;
-  idx_out[i] = hit ? h.tri : 0;
-  if (mat_out != nullptr) {
-    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      mat_out[4 * static_cast<size_t>(i) + j] =
-          hit ? __ldg(mat + 4 * h.tri + j) : zero;
-  }
+  store(i, h, mat, t_out, idx_out, mat_out);
 }
 
 }  // namespace
 
-// o, d (n_rays, 3) f32; tris (n_tris, 12) f32 as rlrpt_mega_default's;
-// count: device int32, the number of leading rays to trace.  Outputs
-// t (n_rays,) f32, idx (n_rays,) i32 and, when mat and mat_out are not
-// null, mat_out (n_rays, 16) f32 rows of mat (n_tris, 16) f32.  Returns
-// cudaGetLastError() after the launch.
-extern "C" int rlrpt_closest_hit(int n_rays, int n_tris, const void* count,
+// o, d (n_rays, 3) f32; the hierarchy of ops/bvh.py: nodes (n_nodes, 16)
+// f32, tris (T, 12) f32 in its leaf order and order (T,) i32; count: device
+// int32, the number of leading rays to trace.  Outputs t (n_rays,) f32,
+// idx (n_rays,) i32 (original indices) and, when mat and mat_out are not
+// null, mat_out (n_rays, 16) f32 rows of the unpermuted mat (T, 16) f32.
+// One thread a ray.  Returns cudaGetLastError() after the launch.
+extern "C" int rlrpt_closest_hit(int n_rays, int n_nodes, const void* count,
                                  const void* o, const void* d,
-                                 const void* tris, const void* mat,
+                                 const void* nodes, const void* tris,
+                                 const void* order, const void* mat,
                                  void* t_out, void* idx_out, void* mat_out,
                                  void* stream) {
   if (n_rays <= 0) return 0;
+  // shared memory sized to the tree's top: a small scene's blocks use
+  // little of it, and more of them fit on an SM
+  const size_t smem = sizeof(float4) * 4 * std::min(n_nodes, kTopNodes);
   const int blocks = (n_rays + rlrpt::kBlock - 1) / rlrpt::kBlock;
-  closest_hit_kernel<<<blocks, rlrpt::kBlock, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
+  closest_hit_bvh_kernel<<<blocks, rlrpt::kBlock, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+      n_rays, n_nodes, static_cast<const int*>(count),
+      static_cast<const float*>(o), static_cast<const float*>(d),
+      static_cast<const float4*>(nodes), static_cast<const float4*>(tris),
+      static_cast<const int*>(order), static_cast<const float4*>(mat),
+      static_cast<float*>(t_out), static_cast<int*>(idx_out),
+      static_cast<float4*>(mat_out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The brute-force sweep over tris (n_tris, 12) f32 in index order, with
+// rlrpt_closest_hit's rays, count and outputs.
+extern "C" int rlrpt_closest_hit_sweep(int n_rays, int n_tris,
+                                       const void* count, const void* o,
+                                       const void* d, const void* tris,
+                                       const void* mat, void* t_out,
+                                       void* idx_out, void* mat_out,
+                                       void* stream) {
+  if (n_rays <= 0) return 0;
+  const int blocks = (n_rays + rlrpt::kBlock - 1) / rlrpt::kBlock;
+  closest_hit_sweep_kernel<<<blocks, rlrpt::kBlock, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
       n_rays, n_tris, static_cast<const int*>(count),
       static_cast<const float*>(o), static_cast<const float*>(d),
       static_cast<const float4*>(tris), static_cast<const float4*>(mat),

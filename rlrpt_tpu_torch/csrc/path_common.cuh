@@ -1,9 +1,10 @@
 // Shared device code of the path-tracing kernels (mega_default.cu,
 // mega_guided.cu, mega_train.cu, closest_hit.cu): the counter PRNG, the
-// camera-ray generator, one exact f32 Moller-Trumbore closest-hit routine
-// and its shared-memory sweep, the two hemisphere frames, the guided CDF
-// sampler, the per-slot step of the regenerative slot loop, and that loop
-// on a persistent, work-pulling grid (B1, B3).
+// camera-ray generator, one exact f32 Moller-Trumbore closest-hit routine,
+// its shared-memory sweep and its variant over a BVH leaf, the two
+// hemisphere frames, the guided CDF sampler, the per-slot step of the
+// regenerative slot loop, and that loop on a persistent, work-pulling grid
+// (B1, B3).
 //
 // Every formula keeps the operation order of the JAX reference
 // (rlrpt_tpu/ops/megakernel.py, rlrpt_tpu/ops/guided_mega.py) and of the
@@ -115,6 +116,44 @@ __device__ __forceinline__ void hit_tris(const float4* __restrict__ tri,
       if (t < h.t) {
         h.t = t;
         h.tri = base + i;
+        h.up = up;
+        h.vp = vp;
+        h.det = det;
+      }
+    }
+  }
+}
+
+// hit_tris over positions [first, first + n) of a permuted triangle table
+// (a BVH leaf, ops/bvh.py): the same operations in the same order, so each
+// (ray, triangle) pair gives hit_tris's t bits; h.tri is the original
+// index order[i].  An equal t goes to the lower original index, the one
+// hit_tris keeps with its strict `<` when it sweeps in index order.
+__device__ __forceinline__ void hit_tris_mapped(
+    const float4* __restrict__ tri, const int* __restrict__ order, int first,
+    int n, float ox, float oy, float oz, float dx, float dy, float dz,
+    Hit& h) {
+  for (int i = first; i < first + n; ++i) {
+    const float4 v0 = __ldg(tri + 3 * i), e1 = __ldg(tri + 3 * i + 1),
+                 e2 = __ldg(tri + 3 * i + 2);
+    const float px = dy * e2.z - dz * e2.y;
+    const float py = dz * e2.x - dx * e2.z;
+    const float pz = dx * e2.y - dy * e2.x;
+    const float det = e1.x * px + e1.y * py + e1.z * pz;
+    const float tx = ox - v0.x, ty = oy - v0.y, tz = oz - v0.z;
+    const float up = tx * px + ty * py + tz * pz;
+    const float qx = ty * e1.z - tz * e1.y;
+    const float qy = tz * e1.x - tx * e1.z;
+    const float qz = tx * e1.y - ty * e1.x;
+    const float vp = dx * qx + dy * qy + dz * qz;
+    const float tp = e2.x * qx + e2.y * qy + e2.z * qz;
+    const float a = up * det, b = vp * det;
+    if (a >= 0.f && b >= 0.f && a + b <= det * det && tp * det > 0.f) {
+      const float t = tp / det;
+      const int orig = __ldg(order + i);
+      if (t < h.t || (t == h.t && orig < h.tri)) {
+        h.t = t;
+        h.tri = orig;
         h.up = up;
         h.vp = vp;
         h.det = det;

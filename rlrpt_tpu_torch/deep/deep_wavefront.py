@@ -60,6 +60,7 @@ from rlrpt_tpu_torch.integrators.wavefront import _primary_dirs
 from rlrpt_tpu_torch.nn.adam import AdamState
 from rlrpt_tpu_torch.nn.dq_network import DQNetwork
 from rlrpt_tpu_torch.ops.hemisphere import sector_cos_thetas
+from rlrpt_tpu_torch.ops.bvh import build_bvh
 from rlrpt_tpu_torch.ops.intersect_pallas import (closest_hit_mat_mxu,
                                                   pack_scene_mxu)
 from rlrpt_tpu_torch.scene.scene import Scene
@@ -123,6 +124,7 @@ def trace_frame_deep_wavefront(generator_or_seed, scene: Scene,
     gen = _generator(generator_or_seed, device)
     scene = scene.to(device)
     tris, mat = pack_scene_mxu(scene)
+    bvh = build_bvh(tris)   # once a frame: a host copy of the table
     ns = scene.n_surfaces
     n_pix, spp = cfg.n_pixels, cfg.samples_per_pixel
     gr = rl.grid_resolution
@@ -164,7 +166,7 @@ def trace_frame_deep_wavefront(generator_or_seed, scene: Scene,
         act = c.active
         # last live lane + 1 (0 when none is live), on the device
         m = torch.max(torch.where(act, lane[:wp], 0)).reshape(1)
-        t, tri, mrow = closest_hit_mat_mxu(c.o, c.d, tris, mat, m)
+        t, tri, mrow = closest_hit_mat_mxu(c.o, c.d, tris, mat, m, bvh)
         normal, diffuse3 = mrow[:, 0:3], mrow[:, 3:6]
         emission3, lum = mrow[:, 6:9], mrow[:, 10]
         missed = act & (t >= INF_CUT)

@@ -45,6 +45,7 @@ from rlrpt_tpu_torch.config import (RHO, DeepLearningConfig,
 from rlrpt_tpu_torch.nn.adam import AdamState, adam_init, adam_update
 from rlrpt_tpu_torch.nn.dq_network import DQNetwork
 from rlrpt_tpu_torch.ops import hemisphere as hs
+from rlrpt_tpu_torch.ops.bvh import build_bvh
 from rlrpt_tpu_torch.ops.intersect_pallas import (closest_hit_pallas_mat,
                                                   pack_scene_mxu)
 from rlrpt_tpu_torch.ops.linalg import make_frame
@@ -164,10 +165,12 @@ def sample_directions(generator: torch.Generator, qs: torch.Tensor,
 # ---- tracing, targets, training ------------------------------------------
 
 def make_hit_fn(scene: Scene):
-    """The frame's closest hit: kernel B4a over tables packed once.
-    Returns hit_fn(o, d) -> (Hit, material rows (R, 16))."""
+    """The frame's closest hit: kernel B4a over tables and a BVH made
+    once.  Returns hit_fn(o, d) -> (Hit, material rows (R, 16))."""
     tris, mat = pack_scene_mxu(scene)
-    return lambda o, d: closest_hit_pallas_mat(o, d, scene, tris, mat)
+    bvh = build_bvh(tris)
+    return lambda o, d: closest_hit_pallas_mat(o, d, scene, tris, mat,
+                                               bvh=bvh)
 
 
 def trace_step(state: NeuralQState, scene: Scene, bounce: int,

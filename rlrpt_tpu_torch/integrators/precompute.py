@@ -27,6 +27,7 @@ from rlrpt_tpu_torch.camera import Camera, primary_rays
 from rlrpt_tpu_torch.config import RadianceVolumeConfig, RenderConfig
 from rlrpt_tpu_torch.integrators.default_tracer import trace_sample
 from rlrpt_tpu_torch.ops import hemisphere as hs
+from rlrpt_tpu_torch.ops.bvh import build_bvh
 from rlrpt_tpu_torch.ops.intersect_pallas import (closest_hit_pallas,
                                                   pack_triangles)
 from rlrpt_tpu_torch.radiance.interpolation import interpolated_irradiance
@@ -68,6 +69,7 @@ def render_precomputed_irradiance(generator: torch.Generator, scene: Scene,
     precompute_irradiance_path_tracing.cpp:20-53)."""
     o, d = primary_rays(generator, camera, cfg.width, cfg.height, cfg.focal)
     scene = scene.to(o.device)
+    # one trace a call: the launcher builds the BVH for it on the card
     hit = closest_hit_pallas(o.contiguous(), d, scene)
     irr = interpolated_irradiance(vols, hit.position, hit.normal,
                                   scene.diffuse_c[hit.tri], max_dist)
@@ -87,6 +89,7 @@ def render_importance_sampled(generator: torch.Generator, scene: Scene,
     dev = vols.device
     scene = scene.to(dev)
     tris = pack_triangles(scene)
+    bvh = build_bvh(tris)   # once a frame: a host copy of the table
     n = cfg.n_pixels
     acc = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     for _ in range(cfg.samples_per_pixel):
@@ -97,7 +100,7 @@ def render_importance_sampled(generator: torch.Generator, scene: Scene,
         for _ in range(cfg.max_ray_bounces):
             if not bool(active.any()):
                 break
-            hit = closest_hit_pallas(o, d, scene, tris)
+            hit = closest_hit_pallas(o, d, scene, tris, bvh=bvh)
             is_nothing = active & (hit.hit_type == NOTHING)
             is_light = active & (hit.hit_type == AREA_LIGHT)
             is_surface = active & (hit.hit_type == SURFACE)

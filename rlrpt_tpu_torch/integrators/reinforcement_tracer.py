@@ -25,6 +25,7 @@ import torch
 
 from rlrpt_tpu_torch.camera import Camera, primary_rays
 from rlrpt_tpu_torch.config import RadianceVolumeConfig, RenderConfig
+from rlrpt_tpu_torch.ops.bvh import Bvh, build_bvh
 from rlrpt_tpu_torch.ops.intersect_pallas import (closest_hit_pallas,
                                                   pack_triangles)
 from rlrpt_tpu_torch.radiance.nn_search import find_closest_volume
@@ -39,16 +40,20 @@ from rlrpt_tpu_torch.scene.scene import AREA_LIGHT, NOTHING, SURFACE, Scene
 def trace_sample_sarsa(generator: torch.Generator, o: torch.Tensor,
                        d: torch.Tensor, scene: Scene, vols: RadianceVolumes,
                        cfg: RenderConfig, rl: RadianceVolumeConfig,
-                       tris: torch.Tensor | None = None, scratch=None):
+                       tris: torch.Tensor | None = None, scratch=None,
+                       bvh: Bvh | None = None):
     """One sample per ray with online SARSA learning.  Returns (radiance
     (R, 3), path_len (R,), updated volumes, TD scatters issued (device
-    int64: the visit-count delta)).  ``tris``: pack_triangles(scene);
-    ``scratch``: volumes.td_scratch buffers, allocated here if not given."""
+    int64: the visit-count delta)).  ``tris``: pack_triangles(scene) and
+    ``bvh``: build_bvh(tris), made here if not given; ``scratch``:
+    volumes.td_scratch buffers, allocated here if not given."""
     dev = o.device
     n = o.shape[0]
     o, d = o.contiguous(), d.contiguous()
     if tris is None:
         tris = pack_triangles(scene)
+    if bvh is None:
+        bvh = build_bvh(tris)
     if scratch is None:
         scratch = td_scratch(vols.n_volumes, vols.n_sectors, dev)
     tp = torch.ones((n, 3), dtype=torch.float32, device=dev)
@@ -63,7 +68,7 @@ def trace_sample_sarsa(generator: torch.Generator, o: torch.Tensor,
     for bounce in range(cfg.max_ray_bounces):
         if not bool(active.any()):
             break
-        hit = closest_hit_pallas(o, d, scene, tris)
+        hit = closest_hit_pallas(o, d, scene, tris, bvh=bvh)
         is_nothing = active & (hit.hit_type == NOTHING)
         is_light = active & (hit.hit_type == AREA_LIGHT)
         is_surface = active & (hit.hit_type == SURFACE)
@@ -136,6 +141,7 @@ def render_frame_sarsa(generator_or_seed, scene: Scene, camera: Camera,
         gen = torch.Generator(device=device).manual_seed(int(gen))
     scene = scene.to(device)
     tris = pack_triangles(scene)
+    bvh = build_bvh(tris)   # once a frame: a host copy of the table
     scratch = td_scratch(vols.n_volumes, vols.n_sectors, device)
     n = cfg.n_pixels
     acc = torch.zeros((n, 3), dtype=torch.float32, device=device)
@@ -145,7 +151,8 @@ def render_frame_sarsa(generator_or_seed, scene: Scene, camera: Camera,
     for _ in range(cfg.samples_per_pixel):
         o, d = primary_rays(gen, camera, cfg.width, cfg.height, cfg.focal)
         rad, plen, vols, td_s = trace_sample_sarsa(gen, o, d, scene, vols,
-                                                   cfg, rl, tris, scratch)
+                                                   cfg, rl, tris, scratch,
+                                                   bvh)
         acc += rad
         path_acc += plen
         zclp = zclp + (rad.mean(-1) < cfg.throughput_threshold).sum()

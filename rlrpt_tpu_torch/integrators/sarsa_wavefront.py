@@ -51,6 +51,7 @@ from rlrpt_tpu_torch.camera import Camera
 from rlrpt_tpu_torch.config import RadianceVolumeConfig, RenderConfig
 from rlrpt_tpu_torch.integrators.wavefront import _primary_dirs
 from rlrpt_tpu_torch.ops.hemisphere import sector_cos_thetas
+from rlrpt_tpu_torch.ops.bvh import build_bvh
 from rlrpt_tpu_torch.ops.intersect_pallas import (closest_hit_mat_mxu,
                                                   closest_hit_packed,
                                                   pack_scene_mxu,
@@ -178,6 +179,7 @@ def render_frame_sarsa_wavefront(generator_or_seed, scene: Scene,
             scene, tri_class=grid.tri_class if is_table else None)
     else:
         tris = pack_triangles(scene)
+    bvh = build_bvh(tris)   # once a frame: a host copy of the table
     ns = scene.n_surfaces
     n_pix = cfg.n_pixels
     spp = cfg.samples_per_pixel
@@ -222,13 +224,13 @@ def render_frame_sarsa_wavefront(generator_or_seed, scene: Scene,
         # last live lane + 1 (0 when none is live), on the device
         m = torch.max(torch.where(act, lane[:wp], 0)).reshape(1)
         if hit_mode == "mxu":
-            t, tri, mrow = closest_hit_mat_mxu(c.o, c.d, tris, mat, m)
+            t, tri, mrow = closest_hit_mat_mxu(c.o, c.d, tris, mat, m, bvh)
             normal, diffuse3 = mrow[:, 0:3], mrow[:, 3:6]
             emission3, lum = mrow[:, 6:9], mrow[:, 10]
             cls = mrow[:, 11].round().to(torch.int32) if is_table else None
             tri = tri.long()
         else:
-            t, tri = closest_hit_packed(c.o, c.d, tris, m)
+            t, tri = closest_hit_packed(c.o, c.d, tris, m, bvh)
             tri = tri.long()
             normal, diffuse3 = scene.normal[tri], scene.diffuse_c[tri]
             emission3, lum = scene.emission[tri], scene.luminance[tri]

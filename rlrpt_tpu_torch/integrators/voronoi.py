@@ -26,7 +26,8 @@ def voronoi_colours(generator: torch.Generator,
 def voronoi_ids(o: torch.Tensor, d: torch.Tensor, scene: Scene,
                 vols: RadianceVolumes):
     """(nearest volume (R,) int64, surface-hit mask (R,)) of rays o, d;
-    the hit is closest_hit_pallas (kernel B4b on the card)."""
+    the hit is closest_hit_pallas (kernel B4b on the card, which builds
+    the BVH for this one trace)."""
     hit = closest_hit_pallas(o.contiguous(), d.contiguous(), scene)
     return (find_closest_volume(vols, hit.position, hit.normal),
             hit.hit_type == SURFACE)

@@ -30,6 +30,7 @@ import torch
 from rlrpt_tpu_torch.camera import Camera, rotate_dirs
 from rlrpt_tpu_torch.config import RHO, RenderConfig
 from rlrpt_tpu_torch.ops.hemisphere import sample_uniform_direction
+from rlrpt_tpu_torch.ops.bvh import build_bvh
 from rlrpt_tpu_torch.ops.intersect_pallas import (closest_hit_mat_mxu,
                                                   closest_hit_packed,
                                                   pack_scene_mxu)
@@ -72,6 +73,7 @@ def render_wavefront(generator_or_seed, scene: Scene, camera: Camera,
         gen = torch.Generator(device=device).manual_seed(int(gen))
     scene = scene.to(device)
     tris, mat = pack_scene_mxu(scene)
+    bvh = build_bvh(tris)   # once a frame: a host copy of the table
     ns = scene.n_surfaces
     w = cfg.n_pixels
     spp = cfg.samples_per_pixel
@@ -100,11 +102,11 @@ def render_wavefront(generator_or_seed, scene: Scene, camera: Camera,
         m = torch.max(torch.where(act, lane, 0)).reshape(1)
 
         if hit_mode == "mxu":
-            t, tri, mrow = closest_hit_mat_mxu(o, d, tris, mat, m)
+            t, tri, mrow = closest_hit_mat_mxu(o, d, tris, mat, m, bvh)
             normal, diffuse = mrow[:, 0:3], mrow[:, 3:6]
             emission = mrow[:, 6:9]
         else:
-            t, tri = closest_hit_packed(o, d, tris, m)
+            t, tri = closest_hit_packed(o, d, tris, m, bvh)
             tri = tri.long()
             normal, diffuse = scene.normal[tri], scene.diffuse_c[tri]
             emission = scene.emission[tri]

@@ -25,9 +25,13 @@ inside a live tile get real hits there.  On the card the count is read
 from a device int32 tensor, so the wavefront's high-water mark never makes
 the host wait.
 
-Each launcher runs the plain twin ``closest_hit_plain`` (built on
-``ops.megakernel.closest_hit_mt``) for CPU tensors and the kernel for
-CUDA tensors.
+On the card the kernel walks a bounding-volume hierarchy of the table
+(``ops/bvh.py``): each launcher takes the frame's ``bvh=``, built once
+per table by the caller, and builds one itself when given none (a host
+copy of the table, and so a sync).  The answer is the brute-force sweep's
+bit for bit.  Each launcher runs the plain twin ``closest_hit_plain``
+(built on ``ops.megakernel.closest_hit_mt``, the brute force) for CPU
+tensors, where ``bvh`` is not used, and the kernel for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -37,8 +41,10 @@ import ctypes
 import torch
 
 from rlrpt_tpu_torch import _cuda
+from rlrpt_tpu_torch.ops.bvh import Bvh, build_bvh
 from rlrpt_tpu_torch.ops.intersect import Hit
-from rlrpt_tpu_torch.ops.megakernel import INF, closest_hit_mt, pack_scene
+from rlrpt_tpu_torch.ops.megakernel import (INF, closest_hit_mt, hit_rows,
+                                             pack_scene)
 from rlrpt_tpu_torch.scene.scene import AREA_LIGHT, NOTHING, SURFACE, Scene
 
 # The plain twin holds ~20 (rays, T) float32 temporaries per block of rays;
@@ -80,7 +86,7 @@ def closest_hit_plain(o: torch.Tensor, d: torch.Tensor, tris: torch.Tensor,
     """Plain torch twin of the closest-hit kernel: (t (R,), idx (R,) i32)
     and, with ``mat``, the (R, 16) material rows."""
     r = o.shape[0]
-    live = _count(active_count, r)
+    live = _count(active_count, r) if tris.shape[0] else 0   # T = 0: misses
     t = torch.full((r,), INF, dtype=torch.float32, device=o.device)
     idx = torch.zeros((r,), dtype=torch.int32, device=o.device)
     tile = min(PLAIN_RAY_TILE,
@@ -94,8 +100,7 @@ def closest_hit_plain(o: torch.Tensor, d: torch.Tensor, tris: torch.Tensor,
         idx[s:e] = torch.where(hit, tri, 0).to(torch.int32)
     if mat is None:
         return t, idx
-    rows = torch.where((t < INF)[:, None], mat[idx.long()], 0.0)
-    return t, idx, rows
+    return t, idx, hit_rows(mat, t, idx)
 
 
 def _check(o, d, tris, mat):
@@ -119,18 +124,17 @@ def _check(o, d, tris, mat):
         raise ValueError("tris and mat must be 16-byte aligned (float4 loads)")
 
 
-_ARGS = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 9
+_ARGS = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 11
 KERNEL_F32 = _cuda.Kernel("rlrpt_closest_hit", _ARGS)   # B4b
 KERNEL_MXU = _cuda.Kernel("rlrpt_closest_hit", _ARGS)   # B4c
 KERNEL_MAT = _cuda.Kernel("rlrpt_closest_hit", _ARGS)   # B4a
+# The brute-force sweep, kept as the card's same-width reference; not B4.
+KERNEL_SWEEP = _cuda.Kernel("rlrpt_closest_hit_sweep",
+                            [ctypes.c_int] * 2 + [ctypes.c_void_p] * 9)
 
 
-def _closest_hit(kernel: _cuda.Kernel, o, d, tris, active_count, mat=None):
-    _check(o, d, tris, mat)
-    if o.device.type == "cpu":
-        return closest_hit_plain(o, d, tris, active_count, mat)
-    if o.device.type != "cuda":
-        raise ValueError(f"no kernel for device {o.device}")
+def _launch_setup(o, active_count, mat):
+    """The device count and the outputs t, idx and (with ``mat``) rows."""
     r = o.shape[0]
     if isinstance(active_count, torch.Tensor):
         count = active_count.reshape(1).to(o.device, torch.int32)
@@ -141,38 +145,87 @@ def _closest_hit(kernel: _cuda.Kernel, o, d, tris, active_count, mat=None):
     idx = torch.empty((r,), dtype=torch.int32, device=o.device)
     rows = (torch.empty((r, 16), dtype=torch.float32, device=o.device)
             if mat is not None else None)
+    return count, t, idx, rows
+
+
+def _closest_hit(kernel: _cuda.Kernel, o, d, tris, active_count, mat=None,
+                 bvh: Bvh | None = None):
+    """The launchers' body."""
+    _check(o, d, tris, mat)
+    if bvh is not None and bvh.source is not tris:
+        raise ValueError("bvh was built from another triangle table: pass "
+                         "the table given to build_bvh")
+    if o.device.type == "cpu":
+        return closest_hit_plain(o, d, tris, active_count, mat)
+    if o.device.type != "cuda":
+        raise ValueError(f"no kernel for device {o.device}")
+    if bvh is None:
+        bvh = build_bvh(tris)
+    r = o.shape[0]
+    count, t, idx, rows = _launch_setup(o, active_count, mat)
     if r:
         with torch.cuda.device(o.device):
             stream = torch.cuda.current_stream().cuda_stream
-            kernel.launch(r, tris.shape[0], count.data_ptr(), o.data_ptr(),
-                          d.data_ptr(), tris.data_ptr(),
+            kernel.launch(r, bvh.nodes.shape[0], count.data_ptr(),
+                          o.data_ptr(), d.data_ptr(), bvh.nodes.data_ptr(),
+                          bvh.tris_sorted.data_ptr(), bvh.order.data_ptr(),
                           None if mat is None else mat.data_ptr(),
                           t.data_ptr(), idx.data_ptr(),
                           None if rows is None else rows.data_ptr(), stream)
     return (t, idx) if mat is None else (t, idx, rows)
 
 
+def closest_hit_sweep(o: torch.Tensor, d: torch.Tensor, tris: torch.Tensor,
+                      active_count, mat: torch.Tensor | None = None):
+    """The brute-force closest-hit kernel (every ray against every
+    triangle, in 256-triangle shared-memory tiles), which the BVH walk
+    replaced.  No path calls it and its launches do not count as B4's:
+    chip_smoke.py alone uses it, as a full-width reference on the same card
+    and to time the walk against, in turns.  Returns closest_hit_packed's
+    outputs, and the rows with ``mat``; the plain twin on the CPU."""
+    _check(o, d, tris, mat)
+    if o.device.type == "cpu":
+        return closest_hit_plain(o, d, tris, active_count, mat)
+    if o.device.type != "cuda":
+        raise ValueError(f"no kernel for device {o.device}")
+    r = o.shape[0]
+    count, t, idx, rows = _launch_setup(o, active_count, mat)
+    if r:
+        with torch.cuda.device(o.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            KERNEL_SWEEP.launch(r, tris.shape[0], count.data_ptr(),
+                                o.data_ptr(), d.data_ptr(), tris.data_ptr(),
+                                None if mat is None else mat.data_ptr(),
+                                t.data_ptr(), idx.data_ptr(),
+                                None if rows is None else rows.data_ptr(),
+                                stream)
+    return (t, idx) if mat is None else (t, idx, rows)
+
+
 def closest_hit_packed(o: torch.Tensor, d: torch.Tensor, tris: torch.Tensor,
-                       active_count):
+                       active_count, bvh: Bvh | None = None):
     """Closest hit for rays o, d (R, 3) against pack_triangles rows (B4b).
     ``active_count``: int or device int32 tensor; rays at index >= count
-    are skipped (INF, 0).  Returns (t (R,), tri_idx (R,) int32)."""
-    return _closest_hit(KERNEL_F32, o, d, tris, active_count)
+    are skipped (INF, 0).  ``bvh``: build_bvh(tris), built once a frame.
+    Returns (t (R,), tri_idx (R,) int32)."""
+    return _closest_hit(KERNEL_F32, o, d, tris, active_count, bvh=bvh)
 
 
 def closest_hit_packed_mxu(o: torch.Tensor, d: torch.Tensor,
-                           tris: torch.Tensor, active_count):
+                           tris: torch.Tensor, active_count,
+                           bvh: Bvh | None = None):
     """closest_hit_packed under the JAX MXU launcher's name (B4c): the
     same exact output, counted apart."""
-    return _closest_hit(KERNEL_MXU, o, d, tris, active_count)
+    return _closest_hit(KERNEL_MXU, o, d, tris, active_count, bvh=bvh)
 
 
 def closest_hit_mat_mxu(o: torch.Tensor, d: torch.Tensor, tris: torch.Tensor,
-                        mat: torch.Tensor, active_count):
+                        mat: torch.Tensor, active_count,
+                        bvh: Bvh | None = None):
     """Closest hit plus material row (B4a) over pack_scene_mxu's tables.
     Returns (t (R,), tri_idx (R,) int32, mat (R, 16) f32); a miss or a
     skipped ray has a zero row."""
-    return _closest_hit(KERNEL_MAT, o, d, tris, active_count, mat)
+    return _closest_hit(KERNEL_MAT, o, d, tris, active_count, mat, bvh=bvh)
 
 
 def _hit_record(o, d, scene: Scene, t, tri, normal):
@@ -188,14 +241,15 @@ def _hit_record(o, d, scene: Scene, t, tri, normal):
 
 def closest_hit_pallas(o: torch.Tensor, d: torch.Tensor, scene: Scene,
                        tris: torch.Tensor | None = None,
-                       active_count=None) -> Hit:
+                       active_count=None, bvh: Bvh | None = None) -> Hit:
     """``ops.intersect.closest_hit`` through the B4b kernel: the same Hit
-    record.  ``tris``: pack_triangles(scene), packed once per frame."""
+    record.  ``tris``: pack_triangles(scene), and ``bvh``: build_bvh(tris),
+    each made once per frame."""
     if tris is None:
         tris = pack_triangles(scene)
     if active_count is None:
         active_count = o.shape[0]
-    t, tri = closest_hit_packed(o, d, tris, active_count)
+    t, tri = closest_hit_packed(o, d, tris, active_count, bvh)
     tri = tri.long()
     return _hit_record(o, d, scene, t, tri, scene.normal[tri])
 
@@ -213,11 +267,11 @@ def material_rows(scene: Scene, tri: torch.Tensor) -> torch.Tensor:
 
 def closest_hit_pallas_mat(o: torch.Tensor, d: torch.Tensor, scene: Scene,
                            tris: torch.Tensor, mat: torch.Tensor,
-                           active_count=None):
+                           active_count=None, bvh: Bvh | None = None):
     """closest_hit_pallas that also returns the material row, through the
     B4a kernel.  Returns (Hit, mat (N, 16)); Hit.normal comes from the row
     (zeros for misses)."""
     if active_count is None:
         active_count = o.shape[0]
-    t, tri, rows = closest_hit_mat_mxu(o, d, tris, mat, active_count)
+    t, tri, rows = closest_hit_mat_mxu(o, d, tris, mat, active_count, bvh)
     return _hit_record(o, d, scene, t, tri.long(), rows[:, 0:3]), rows

@@ -167,20 +167,15 @@ def _uniform_hemisphere_dir(u1, u2, nx, ny, nz):
 
 # ---- the plain twin: the slot loop vectorised over slots ------------------
 
-def closest_hit_mt(ox, oy, oz, dx, dy, dz, tris):
-    """Exact f32 Moller-Trumbore over every (ray, triangle) pair, with the
-    kernel's algebra: sign tests multiplied through by det, t = t'/det.
-
-    Returns (t (R,), tri (R,), u' (R,), v' (R,), det (R,)) of the closest
-    hit; the first-tested triangle wins ties; misses give t = INF and
-    u' = v' = det = 0.
-    """
-    col = lambda j: tris[:, j][None, :]  # noqa: E731
+def mt_terms(ox, oy, oz, dx, dy, dz, col):
+    """Exact f32 Moller-Trumbore terms with the kernels' algebra
+    (csrc/path_common.cuh:hit_tris, in its operation order), elementwise
+    and broadcasting: ``col(j)`` is column j of the (T, 12) triangle rows,
+    shaped against the rays.  Returns (t', det, u', v', valid): a hit at
+    t = t'/det where valid (the sign tests multiplied through by det)."""
     v0x, v0y, v0z = col(0), col(1), col(2)
     e1x, e1y, e1z = col(4), col(5), col(6)
     e2x, e2y, e2z = col(8), col(9), col(10)
-    ox, oy, oz = ox[:, None], oy[:, None], oz[:, None]
-    dx, dy, dz = dx[:, None], dy[:, None], dz[:, None]
     px = dy * e2z - dz * e2y
     py = dz * e2x - dx * e2z
     pz = dx * e2y - dy * e2x
@@ -194,12 +189,36 @@ def closest_hit_mt(ox, oy, oz, dx, dy, dz, tris):
     tp = e2x * qx + e2y * qy + e2z * qz
     a, b = up * det, vp * det
     valid = (a >= 0.0) & (b >= 0.0) & (a + b <= det * det) & (tp * det > 0.0)
+    return tp, det, up, vp, valid
+
+
+def closest_hit_mt(ox, oy, oz, dx, dy, dz, tris):
+    """Exact f32 Moller-Trumbore over every (ray, triangle) pair, with the
+    kernel's algebra: sign tests multiplied through by det, t = t'/det.
+
+    Returns (t (R,), tri (R,), u' (R,), v' (R,), det (R,)) of the closest
+    hit; the first-tested triangle wins ties; misses give t = INF and
+    u' = v' = det = 0.
+    """
+    r = lambda a: a[:, None]  # noqa: E731
+    tp, det, up, vp, valid = mt_terms(
+        r(ox), r(oy), r(oz), r(dx), r(dy), r(dz),
+        lambda j: tris[:, j][None, :])
     tt = torch.where(valid, tp / det, torch.full_like(tp, INF))
     best_t, tri = torch.min(tt, dim=1)
     hit = best_t < INF
     pick = lambda q: torch.where(  # noqa: E731
         hit, q.gather(1, tri[:, None])[:, 0], torch.zeros_like(best_t))
     return best_t, tri, pick(up), pick(vp), pick(det)
+
+
+def hit_rows(mat: torch.Tensor, t: torch.Tensor, idx: torch.Tensor):
+    """(R, 16) material rows of the hits (t < INF), zero rows elsewhere."""
+    rows = torch.zeros((t.shape[0], 16), dtype=torch.float32,
+                       device=t.device)
+    hit = t < INF
+    rows[hit] = mat[idx[hit].long()]
+    return rows
 
 
 def run_slots_plain(seed: int, cam: tuple, tris: torch.Tensor,

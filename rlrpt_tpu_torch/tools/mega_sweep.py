@@ -60,6 +60,10 @@ SEGMENT_OPS = {   # f32 operations of a step besides the hit test
     "B2": 131,    # B3's plus the TD target and the pending brdf
 }
 APPLY_OPS = 10    # f32 operations per (sector, column) cell per iteration
+BOX_OPS = 26      # f32 operations of one slab test in the BVH walk: 6
+#                 # subtracts, 6 multiplies, 10 min/max, the far scale, 3
+#                 # compares (csrc/closest_hit.cu:box_near and its callers);
+#                 # a visited inner node tests its two children's boxes
 # (spp, pix_mux, r_tile); r_tile 1024 / pix_mux 32 is the JAX bench.py choice
 B1_POINTS = [(spp, pm, 128) for spp in (1, 32) for pm in (1, 2, 4, 8)]
 B1_POINTS += [(1, 32, 1024), (32, 32, 1024)]
@@ -115,6 +119,29 @@ def kernel_ms(fn, reps: int) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device time of fn() over reps launches captured in one CUDA
+    graph and replayed, after one warm-up: no host time falls between the
+    launches, so a kernel shorter than its wrapper's host time is timed by
+    the device, where kernel_ms would time the host.  fn must be
+    capturable: device tensors only, no host sync."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
