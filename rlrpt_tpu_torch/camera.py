@@ -12,6 +12,7 @@ never waits on the device to read the camera.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -28,6 +29,49 @@ class Camera:
         f32 = lambda v: float(np.float32(v))  # noqa: E731
         return Camera(position=tuple(f32(v) for v in np.ravel(position)),
                       yaw_y=f32(yaw_y), yaw_x=f32(yaw_x))
+
+    # --- rotation controls (ref: camera.cu:9-45): an incremental rotation
+    # of the position about the origin, the yaw accumulated.
+    def rotate_left(self, y: float) -> "Camera":
+        return self._rot_y(+y)
+
+    def rotate_right(self, y: float) -> "Camera":
+        return self._rot_y(-y)
+
+    def rotate_up(self, x: float) -> "Camera":
+        return self._rot_x(-x)
+
+    def rotate_down(self, x: float) -> "Camera":
+        return self._rot_x(+x)
+
+    def _rotated(self, m) -> tuple:
+        pos = np.asarray(m, np.float32) @ np.asarray(self.position,
+                                                     np.float32)
+        return tuple(float(v) for v in pos)
+
+    def _rot_y(self, y: float) -> "Camera":
+        c, s = math.cos(y), math.sin(y)
+        return Camera(self._rotated([[c, 0, -s], [0, 1, 0], [s, 0, c]]),
+                      float(np.float32(self.yaw_y) + np.float32(y)),
+                      self.yaw_x)
+
+    def _rot_x(self, x: float) -> "Camera":
+        c, s = math.cos(x), math.sin(x)
+        return Camera(self._rotated([[1, 0, 0], [0, c, s], [0, -s, c]]),
+                      self.yaw_y,
+                      float(np.float32(self.yaw_x) + np.float32(x)))
+
+    # --- movement (ref: camera.cu:47-83): the position moves along the
+    # current yaw; the yaw is unchanged.
+    def move_forwards(self, distance: float) -> "Camera":
+        yaw = np.float32(self.yaw_y)
+        delta = np.asarray([np.float32(-distance) * np.sin(yaw), 0.0,
+                            np.float32(distance) * np.cos(yaw)], np.float32)
+        pos = np.asarray(self.position, np.float32) + delta
+        return Camera(tuple(float(v) for v in pos), self.yaw_y, self.yaw_x)
+
+    def move_backwards(self, distance: float) -> "Camera":
+        return self.move_forwards(-distance)
 
     def yaw_cos_sin(self) -> tuple:
         """(cos yaw_y, sin yaw_y, cos yaw_x, sin yaw_x) computed in float32

@@ -28,7 +28,7 @@ class DQNetwork(nn.Module):
             for i, o in zip(sizes[:-1], sizes[1:]))
 
     @classmethod
-    def from_layers(cls, layers, device="cpu") -> "DQNetwork":
+    def from_layers(cls, layers, device="cuda") -> "DQNetwork":
         """A network holding the given (w (out, in), b (out,)) arrays."""
         ws = [torch.as_tensor(w, dtype=torch.float32) for w, _ in layers]
         net = cls(ws[0].shape[1], ws[-1].shape[0],

@@ -63,7 +63,7 @@ def load_dynet_arrays(path: str) -> list[np.ndarray]:
     return arrays
 
 
-def load_dynet_model(path: str, device="cpu") -> DQNetwork:
+def load_dynet_model(path: str, device="cuda") -> DQNetwork:
     arrays = load_dynet_arrays(path)
     if len(arrays) % 2 != 0:
         raise ValueError("expected W, b pairs")

@@ -62,7 +62,7 @@ def bin_luminance(scene: Scene, t_pad: int, uv_bins: int) -> torch.Tensor:
 
 
 def init_bin_q(t_pad: int, uv_bins: int, sector_grid: int,
-               initial_radiance: float, device="cpu"):
+               initial_radiance: float, device="cuda"):
     """Fresh (q, visits), (S_pad, C) float32 each.  Padding sector rows
     hold zeros (never scattered into: the sampler clamps to S-1)."""
     s = sector_grid * sector_grid

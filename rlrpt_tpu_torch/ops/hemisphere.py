@@ -146,6 +146,11 @@ def sample_uniform_direction(generator: torch.Generator,
     """
     r = torch.rand(normal.shape[:-1] + (2,), generator=generator,
                    device=normal.device)
+    return uniform_direction_u(r, normal)
+
+
+def uniform_direction_u(r: torch.Tensor, normal: torch.Tensor):
+    """sample_uniform_direction's core on given uniforms r (..., 2)."""
     cos_theta = r[..., 0]
     local = uniform_hemisphere_local(cos_theta, r[..., 1])
     frame = make_frame(normal)

@@ -92,7 +92,7 @@ def save_selected_volumes(vols: RadianceVolumes, probe_path: str,
 
 
 def load_volumes_from_selected(path: str, grid_resolution: int = 12,
-                               device="cpu") -> RadianceVolumes:
+                               device="cuda") -> RadianceVolumes:
     """Rebuild RadianceVolumes from selected-volume rows: q is the stored
     plain distribution and the CDF its cumulative sum."""
     rows = []
@@ -124,7 +124,7 @@ def save_volumes_npz(vols: RadianceVolumes, path: str) -> None:
         grid_resolution=vols.grid_resolution)
 
 
-def load_volumes_npz(path: str, device="cpu") -> RadianceVolumes:
+def load_volumes_npz(path: str, device="cuda") -> RadianceVolumes:
     with np.load(path) as z:
         t = {k: torch.as_tensor(z[k], device=device)
              for k in ("position", "normal", "frame", "surface_lum", "q",

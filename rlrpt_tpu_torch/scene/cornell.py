@@ -65,7 +65,7 @@ def _normalise(v: np.ndarray, l: float) -> np.ndarray:
     return v
 
 
-def cornell_box(device="cpu") -> Scene:
+def cornell_box(device="cuda") -> Scene:
     """The 38-triangle Cornell box: 36 surfaces, then 2 light triangles."""
     l = 555.0  # noqa: E741
     tris, lights = _room(l)
@@ -99,7 +99,7 @@ def polygon_light(vertices) -> list:
     return [(v[0], v[i], v[i + 1]) for i in range(1, len(v) - 1)]
 
 
-def monte_carlo_test_scene(device="cpu") -> Scene:
+def monte_carlo_test_scene(device="cuda") -> Scene:
     """The CPU engine's extra hard-coded test room (ref:
     Old_CPU_Rendering_Engine/Source/scenes/monte_carlo_test_scene.cpp):
     the Cornell room shell without blocks (commented out there), white

@@ -119,7 +119,7 @@ def load_obj_scene(path: str, default_rgb: tuple = (0.75, 0.75, 0.75),
                    light_power: float = 8.0,
                    light_ranges: Sequence[LightRange] = (),
                    light_range_power: float = 12.0,
-                   flip_winding: bool = False, device="cpu") -> Scene:
+                   flip_winding: bool = False, device="cuda") -> Scene:
     """Load an OBJ file into a Scene on ``device``.
 
     With ``light_ranges``, the faces in those triangulated index ranges

@@ -85,7 +85,7 @@ class ScenePreset:
     light_range_power: float = 12.0
     flip_winding: bool = False
 
-    def load(self, device="cpu") -> Scene:
+    def load(self, device="cuda") -> Scene:
         if self.builder is not None:
             return self.builder(device=device)
         path = (self.obj if os.path.isabs(self.obj)
@@ -199,5 +199,5 @@ def get(name: str) -> ScenePreset:
     return PRESETS[name]
 
 
-def load_scene(name: str, device="cpu") -> Scene:
+def load_scene(name: str, device="cuda") -> Scene:
     return PRESETS[name].load(device=device)

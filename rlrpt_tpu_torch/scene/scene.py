@@ -66,7 +66,7 @@ class Scene:
 
 def build_scene(surf_v0, surf_v1, surf_v2, surf_rgb,
                 light_v0, light_v1, light_v2, light_power,
-                device="cpu") -> Scene:
+                device="cuda") -> Scene:
     """Assemble a Scene from host numpy surface + light triangle soup."""
     f32 = lambda a: np.asarray(a, np.float32).reshape(-1, 3)  # noqa: E731
     surf_v0, surf_v1, surf_v2 = f32(surf_v0), f32(surf_v1), f32(surf_v2)

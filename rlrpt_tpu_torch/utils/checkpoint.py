@@ -55,7 +55,7 @@ def save_training_state(path: str, net: DQNetwork, opt_state: AdamState,
     os.replace(tmp, path)
 
 
-def load_training_state(path: str, device="cpu"):
+def load_training_state(path: str, device="cuda"):
     """Read a checkpoint; returns (net, opt_state, epsilon, frame, vols)
     on ``device``.  The network's shapes come from the file; ``vols`` is
     None when the checkpoint holds no tabular state."""

@@ -71,9 +71,11 @@ def tables(torus_preset):
         "soup": (_rows(soup[:, 0], soup[:, 1], soup[:, 2]),
                  _random_mat(400, 1)),
     }
-    for name, scene in (("cornell", presets.load_scene("cornell")),
-                        ("test_room", presets.load_scene("test_room")),
-                        ("torus", torus_preset.load())):
+    for name, scene in (("cornell", presets.load_scene("cornell",
+                                                       device="cpu")),
+                        ("test_room", presets.load_scene("test_room",
+                                                         device="cpu")),
+                        ("torus", torus_preset.load(device="cpu"))):
         out[name] = ip.pack_scene_mxu(scene)
     return out
 
@@ -341,7 +343,7 @@ def test_walk_matches_jax_kernel(torus_preset):
     tj, ij = map(np.asarray, jip.closest_hit_packed(
         jnp.asarray(o), jnp.asarray(d), jip.pack_triangles(js), r,
         interpret=True))
-    tris = ip.pack_triangles(p.load())
+    tris = ip.pack_triangles(p.load(device="cpu"))
     tt, it = bv.closest_hit_bvh_plain(torch.from_numpy(o), torch.from_numpy(d),
                                       bv.build_bvh(tris), r)[:2]
     tt, it = tt.numpy(), it.numpy()
@@ -419,7 +421,7 @@ def test_loops_build_once_a_frame(loop):
     from rlrpt_tpu_torch.radiance.grid_bucket import build_volume_class_table
     from rlrpt_tpu_torch.radiance.volumes import build_radiance_volumes
 
-    scene = presets.load_scene("cornell")
+    scene = presets.load_scene("cornell", device="cpu")
     cam = Camera.create(CAM)
     cfg = RenderConfig(width=8, height=8, samples_per_pixel=2,
                        max_ray_bounces=6)

@@ -35,7 +35,8 @@ SKEWS = [0.0, 3.0, 12.0, 30.0]
 
 def _q(sector_grid: int, uv_bins: int, skew: float, seed: int = 0):
     """Initial binned Q skewed per entry by exp(skew * U[0, 1))."""
-    q, _ = gt.init_bin_q(T_PAD, uv_bins, sector_grid, 100.0 / sector_grid ** 2)
+    q, _ = gt.init_bin_q(T_PAD, uv_bins, sector_grid,
+                         100.0 / sector_grid ** 2, device="cpu")
     u = np.random.default_rng(seed).random(q.shape)
     return (q.numpy() * np.exp(skew * u)).astype(np.float32)
 
@@ -50,7 +51,7 @@ def baked():
     """Bakes of a skewed fine map (area 0.05, Q = U^4 + 1e-3 from numpy
     seed 3) at (sector_grid, uv_bins) (11, 4) and (12, 2)."""
     rl = RadianceVolumeConfig(area_per_sample=0.05)
-    scene = cornell_box()
+    scene = cornell_box(device="cpu")
     vols = tv.build_radiance_volumes(scene, rl)
     u = np.random.default_rng(3).random(tuple(vols.q.shape))
     vols = tv.rebuild_cdf(dataclasses.replace(
@@ -180,7 +181,7 @@ def test_check_cdf_rejects_decreasing_column(where):
     unbroken passes."""
     table = _rebuilt(11, 3.0)
     cdf_t = table.cdf.T.contiguous()
-    tris, mat = mk.pack_scene(cornell_box())
+    tris, mat = mk.pack_scene(cornell_box(device="cpu"))
     gm.check_cdf(cdf_t, tris, 11, 4)
     col, row = {"first_column": (0, 5), "middle": (37, 60),
                 "padding": (100, 122)}[where]

@@ -35,13 +35,14 @@ VOL_FIELDS = ("position", "normal", "frame", "surface_lum", "q", "visits",
 def _stepped_port_state(seed: int = 0):
     """A port network and an Adam state two steps in (moments non-zero),
     and fine-map volumes with a moved Q and visits."""
-    net, opt = init_neural_q(seed, cornell_box(), DL, RL.grid_resolution,
+    net, opt = init_neural_q(seed, cornell_box(device="cpu"), DL,
+                             RL.grid_resolution,
                              device="cpu")
     g = torch.Generator().manual_seed(seed)
     for _ in range(2):
         grads = [torch.randn(p.shape, generator=g) for p in net.parameters()]
         adam_update(list(net.parameters()), grads, opt, DL.learning_rate)
-    vols = build_radiance_volumes(cornell_box(), RL)
+    vols = build_radiance_volumes(cornell_box(device="cpu"), RL)
     vols = dataclasses.replace(
         vols, q=vols.q * (1.0 + torch.rand(vols.q.shape, generator=g)),
         visits=torch.randint(0, 9, vols.visits.shape, generator=g,
@@ -83,7 +84,8 @@ def test_full_state_roundtrip(tmp_path):
     path = str(tmp_path / "ckpt.npz")
     checkpoint.save_training_state(path, net, opt, epsilon=0.37, frame=12,
                                    vols=vols)
-    net2, opt2, eps, frame, vols2 = checkpoint.load_training_state(path)
+    net2, opt2, eps, frame, vols2 = checkpoint.load_training_state(
+        path, device="cpu")
     assert eps == np.float32(0.37) and frame == 12
     for a, b in zip(net.parameters(), net2.parameters()):
         assert torch.equal(a, b)
@@ -99,7 +101,7 @@ def test_params_only_roundtrip(tmp_path):
     net, opt, _ = _stepped_port_state(1)
     path = str(tmp_path / "ckpt.npz")
     checkpoint.save_training_state(path, net, opt, epsilon=0.05, frame=0)
-    *_, vols = checkpoint.load_training_state(path)
+    *_, vols = checkpoint.load_training_state(path, device="cpu")
     assert vols is None
 
 
@@ -108,7 +110,8 @@ def test_jax_checkpoint_loads_in_port(tmp_path):
     path = str(tmp_path / "jax.npz")
     jckpt.save_training_state(path, params, opt, epsilon=0.125, frame=7,
                               vols=vols)
-    net, opt_t, eps, frame, vols_t = checkpoint.load_training_state(path)
+    net, opt_t, eps, frame, vols_t = checkpoint.load_training_state(
+        path, device="cpu")
     assert (eps, frame) == (0.125, 7)
     _assert_net_equal(net, params)
     _assert_opt_equal(opt_t, opt)
@@ -141,7 +144,7 @@ def test_resumed_run_equals_uninterrupted(tmp_path):
     """Two lockstep neural-q frames in one go, and the same two with a
     checkpoint written and read back between them: equal weights, Adam
     state, epsilon and images, bit for bit (CPU)."""
-    scene, cam = cornell_box(), Camera.create((0.0, 0.0, -3.0))
+    scene, cam = cornell_box(device="cpu"), Camera.create((0.0, 0.0, -3.0))
     cfg = config.RenderConfig(width=8, height=8, samples_per_pixel=1,
                               max_ray_bounces=4)
     dl = dataclasses.replace(DL, batch_size=32)
@@ -162,7 +165,8 @@ def test_resumed_run_equals_uninterrupted(tmp_path):
     img0, net_r, opt_r, eps_r, _ = frame(0, net_r, opt_r, dl.epsilon_start)
     path = str(tmp_path / "mid.npz")
     checkpoint.save_training_state(path, net_r, opt_r, eps_r, frame=1)
-    net_r, opt_r, eps_r, start, _ = checkpoint.load_training_state(path)
+    net_r, opt_r, eps_r, start, _ = checkpoint.load_training_state(
+        path, device="cpu")
     img1, net_r, opt_r, eps_r, _ = frame(start, net_r, opt_r, eps_r)
     assert torch.equal(img0, imgs[0]) and torch.equal(img1, imgs[1])
     assert eps_r == eps

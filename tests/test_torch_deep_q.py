@@ -150,7 +150,7 @@ def test_td_targets_exact_with_the_scan_seed_quirk(monkeypatch, jax_net):
                               torch.from_numpy(rewards),
                               torch.from_numpy(discounts), *([None] * 3))
     params, _ = jax_net
-    net, js, scene = _net(params), jax_cornell_box(), cornell_box()
+    net, js, scene = _net(params), jax_cornell_box(), cornell_box(device="cpu")
     want = A(jnq.compute_td_targets(params, js, j_state, GR, JDL(**DL)))
     got = nq.compute_td_targets(net, scene, t_state, GR, DeepLearningConfig(
         **DL)).numpy()
@@ -176,7 +176,7 @@ def test_trace_step_matches_jax():
     >= 99.9% of rays."""
     cfg, jcfg = RenderConfig(**KW), JCfg(**KW)
     dl, jdl = DeepLearningConfig(**DL), JDL(**DL)
-    js, scene = jax_cornell_box(), cornell_box()
+    js, scene = jax_cornell_box(), cornell_box(device="cpu")
     j_st = jnq.init_rays(jax.random.PRNGKey(4), JCamera.create(CAM), jcfg)
     rng = np.random.default_rng(5)
     for bounce in (0, 1):
@@ -209,7 +209,7 @@ def test_respawn_only_moves_terminated():
     states = st.states.clone()
     states[0], states[1] = nq.TERMINATED, nq.LEARNING_ONLY
     st = st._replace(states=states)
-    scene = cornell_box()
+    scene = cornell_box(device="cpu")
     out = nq.respawn_terminated(g, st, scene)
     assert int(out.states[0]) == nq.LEARNING_ONLY
     assert int(out.states[1]) == nq.LEARNING_ONLY
@@ -312,7 +312,7 @@ def test_frame_matches_jax(jax_net, label, lockstep, train, kw):
                                  opt_state, eps)
                       for i in range(FRAME_SEEDS)))
     net = _net(params)
-    scene, cam = cornell_box(), Camera.create(CAM)
+    scene, cam = cornell_box(device="cpu"), Camera.create(CAM)
     cfg = RenderConfig(**FRAME_KW)
     rl = RadianceVolumeConfig(grid_resolution=GR)
     dl = DeepLearningConfig(**DL)
@@ -359,7 +359,7 @@ def test_wavefront_epsilon_schedule_and_options():
                                   jdl, GR)
     net = _net(params)
     state = adam_init(net.parameters())
-    scene, cam = cornell_box(), Camera.create(CAM)
+    scene, cam = cornell_box(device="cpu"), Camera.create(CAM)
     cfg, rl = RenderConfig(**KW), RadianceVolumeConfig(grid_resolution=GR)
     eps, j_eps = 1.0, jnp.float32(1.0)
     for f in range(3):

@@ -171,7 +171,8 @@ def test_td_minibatch_gradients_match_jax(full_net):
         return jnp.sum(jnp.asarray(w) * (jnp.asarray(td) - qa) ** 2)
 
     j_l, j_g = jax.value_and_grad(jloss)(params)
-    loss = neural_q.td_loss(net, cornell_box(), torch.from_numpy(loc),
+    loss = neural_q.td_loss(net, cornell_box(device="cpu"),
+                            torch.from_numpy(loc),
                             torch.from_numpy(act), torch.from_numpy(td),
                             torch.from_numpy(w), config.DeepLearningConfig())
     grads = torch.autograd.grad(loss, list(net.parameters()))
@@ -248,7 +249,7 @@ def test_train_on_batches_matches_jax_and_skips_empty_batches():
     j_p, j_o, j_loss = jnq.train_on_batches(
         params, opt_state, optimizer, js, jnp.asarray(loc), jnp.asarray(act),
         jnp.asarray(td), jdl, weights=jnp.asarray(w))
-    scene = cornell_box()
+    scene = cornell_box(device="cpu")
     t = torch.from_numpy
     loss = neural_q.train_on_batches(net, state, scene, t(loc), t(act), t(td),
                                      dl, weights=t(w))
@@ -279,7 +280,7 @@ def test_dynet_files_cross_load(tmp_path, full_net):
     params, net, verts, pos = full_net
     j_path, t_path = tmp_path / "jax.model", tmp_path / "port.model"
     jio.save_dynet_model(params, str(j_path))
-    loaded = dynet_io.load_dynet_model(str(j_path))
+    loaded = dynet_io.load_dynet_model(str(j_path), device="cpu")
     for (w, b), (jw, jb) in zip(dq_network_to_numpy(loaded), _layers(params)):
         assert np.array_equal(w, jw) and np.array_equal(b, jb)
     dynet_io.save_dynet_model(net, str(t_path))
@@ -305,7 +306,7 @@ def test_dynet_loader_rejects_bad_files(tmp_path, fault):
 
 def test_q_probe_rows_match_jax(tmp_path, full_net):
     params, net, _, pos = full_net
-    js, scene = jax_cornell_box(), cornell_box()
+    js, scene = jax_cornell_box(), cornell_box(device="cpu")
     _close(probe_q_values(net, scene, pos), j_probe(params, js, pos))
     probe = tmp_path / "to_select.txt"
     probe.write_text("".join(f"{x:.6g} {y:.6g} {z:.6g} 0 1 0\n"
@@ -373,7 +374,7 @@ def test_distillation_reduces_error(tmp_path):
 def test_vertices_file_and_configs_match_jax(tmp_path):
     """vertices_flat, vertices.txt (byte-equal) and its reader, and the
     deep-learning and trainer configs' defaults."""
-    js, scene = jax_cornell_box(), cornell_box()
+    js, scene = jax_cornell_box(), cornell_box(device="cpu")
     assert np.array_equal(scene.vertices_flat.numpy(), A(js.vertices_flat))
     assert scene.vertices_count == js.vertices_count == 342
     t_path, j_path = tmp_path / "t.txt", tmp_path / "j.txt"

@@ -33,7 +33,7 @@ PKG = pathlib.Path(__file__).resolve().parent.parent / "rlrpt_tpu_torch"
 @pytest.mark.parametrize("field", ["v0", "v1", "v2", "normal", "diffuse_c",
                                    "emission", "luminance"])
 def test_cornell_arrays_equal(field):
-    j, t = jax_cornell_box(), cornell_box()
+    j, t = jax_cornell_box(), cornell_box(device="cpu")
     assert t.n_surfaces == j.n_surfaces == 36 and t.n_triangles == 38
     np.testing.assert_array_equal(getattr(t, field).numpy(),
                                   np.asarray(getattr(j, field)))

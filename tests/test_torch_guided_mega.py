@@ -46,11 +46,11 @@ def _q(uv_bins: int, sector_grid: int, skew: float = 0.0, seed: int = 0):
 def test_init_bin_q_and_luminance_equal():
     for ub, g in ((4, 11), (2, 12), (1, 11)):
         qj, vj = jgt.init_bin_q(T_PAD, ub, g, 100.0 / g ** 2)
-        qt, vt = gt.init_bin_q(T_PAD, ub, g, 100.0 / g ** 2)
+        qt, vt = gt.init_bin_q(T_PAD, ub, g, 100.0 / g ** 2, device="cpu")
         np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
         np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
         np.testing.assert_array_equal(
-            gt.bin_luminance(cornell_box(), T_PAD, ub).numpy(),
+            gt.bin_luminance(cornell_box(device="cpu"), T_PAD, ub).numpy(),
             np.asarray(jgt.bin_luminance(jax_cornell_box(), T_PAD, ub)))
     q, v = bin_q_from_numpy(np.asarray(qj), np.asarray(vj))
     assert q.dtype == v.dtype == torch.float32 and q.shape == qj.shape
@@ -95,7 +95,7 @@ def test_twin_matches_jax(uv_bins, skew):
         jconfig.RenderConfig(**kw), r_tile=128, pix_mux=1, interpret=True,
         precision="highest")
     img_t, aux_t = gm.render_guided_mega(
-        kernel_seed(key), cornell_box(), Camera.create(CAM), tt,
+        kernel_seed(key), cornell_box(device="cpu"), Camera.create(CAM), tt,
         RenderConfig(**kw), device="cpu", r_tile=128, pix_mux=1)
     assert_frame_parity(img_t, aux_t, img_j, aux_j)
 
@@ -112,9 +112,10 @@ def test_guided_unbiased_under_skewed_table():
     tb = gt.rebuild_bin_cdf(torch.from_numpy(_q(2, 11, skew=1.0, seed=5)),
                             11, 2, T_PAD)
     cam = Camera.create(CAM)
-    img_g, _ = gm.render_guided_mega(11, cornell_box(), cam, tb, cfg,
+    img_g, _ = gm.render_guided_mega(11, cornell_box(device="cpu"), cam, tb,
+                                     cfg,
                                      device="cpu", r_tile=512, pix_mux=2)
-    img_d, _ = mk.render_default_mega(13, cornell_box(), cam, cfg,
+    img_d, _ = mk.render_default_mega(13, cornell_box(device="cpu"), cam, cfg,
                                       device="cpu", r_tile=512, pix_mux=2)
     assert torch.isfinite(img_g).all()
     mg, md = float(img_g.mean()), float(img_d.mean())
@@ -125,20 +126,20 @@ def test_validation_errors():
     cfg = RenderConfig(width=16, height=16, samples_per_pixel=1,
                        max_ray_bounces=2)
     cam = Camera.create(CAM)
-    q, _ = gt.init_bin_q(T_PAD + 8, 2, 11, 1.0)
+    q, _ = gt.init_bin_q(T_PAD + 8, 2, 11, 1.0, device="cpu")
     with pytest.raises(ValueError, match="t_pad"):
-        gm.render_guided_mega(0, cornell_box(), cam,
+        gm.render_guided_mega(0, cornell_box(device="cpu"), cam,
                               gt.rebuild_bin_cdf(q, 11, 2, T_PAD + 8), cfg,
                               device="cpu")
     clutter = torch_scene(cornell_plus_clutter())
     t_pad = mk._t_pad(clutter.n_triangles)
-    q, _ = gt.init_bin_q(t_pad, 4, 11, 1.0)
+    q, _ = gt.init_bin_q(t_pad, 4, 11, 1.0, device="cpu")
     with pytest.raises(ValueError, match="uv_bins=1"):
         gm.render_guided_mega(0, clutter, cam,
                               gt.rebuild_bin_cdf(q, 11, 4, t_pad), cfg,
                               device="cpu")
     # per-triangle tables do run on multi-chunk scenes
-    q, _ = gt.init_bin_q(t_pad, 1, 11, 1.0)
+    q, _ = gt.init_bin_q(t_pad, 1, 11, 1.0, device="cpu")
     img, _ = gm.render_guided_mega(0, clutter, cam,
                                    gt.rebuild_bin_cdf(q, 11, 1, t_pad), cfg,
                                    device="cpu")

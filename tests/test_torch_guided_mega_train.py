@@ -39,12 +39,13 @@ def _train(uv_bins: int, n_frames: int, cfg: RenderConfig, seed0: int,
            pix_mux: int = 2, r_tile: int = 512):
     """Twin frames from the initial Q; returns (q, visits, per-frame
     (image, aux))."""
-    q, v = gt.init_bin_q(T_PAD, uv_bins, G, INIT)
+    q, v = gt.init_bin_q(T_PAD, uv_bins, G, INIT, device="cpu")
     outs = []
     for f in range(n_frames):
         tb = gt.rebuild_bin_cdf(q, G, uv_bins, T_PAD)
         img, q, v, aux = gt.render_sarsa_mega_train(
-            seed0 + f, cornell_box(), Camera.create(CAM), tb, q, v, cfg, THR,
+            seed0 + f, cornell_box(device="cpu"), Camera.create(CAM), tb, q,
+            v, cfg, THR,
             device="cpu", r_tile=r_tile, pix_mux=pix_mux)
         outs.append((img, aux))
     return q, v, outs
@@ -82,7 +83,8 @@ def test_twin_matches_jax(uv_bins, rr, key0):
             jconfig.RenderConfig(**kw), THR, r_tile=512, pix_mux=2,
             interpret=True, precision="highest")
         img_t, qt2, vt2, aux_t = gt.render_sarsa_mega_train(
-            kernel_seed(key), cornell_box(), Camera.create(CAM), tt, qt, vt,
+            kernel_seed(key), cornell_box(device="cpu"), Camera.create(CAM),
+            tt, qt, vt,
             RenderConfig(**kw), THR, device="cpu", r_tile=512, pix_mux=2)
         assert_frame_parity(img_t, aux_t, img_j, aux_j)
         # JAX reports its loop count rounded up to the unroll of 2
@@ -111,14 +113,14 @@ def test_image_is_the_guided_frame_and_inputs_untouched():
     cfg = RenderConfig(width=24, height=24, samples_per_pixel=4,
                        max_ray_bounces=8, russian_roulette=True)
     rng = np.random.default_rng(4)
-    q, v = gt.init_bin_q(T_PAD, 2, G, INIT)
+    q, v = gt.init_bin_q(T_PAD, 2, G, INIT, device="cpu")
     q = q * torch.from_numpy(np.exp(rng.random(q.shape)).astype(np.float32))
     v = torch.from_numpy(rng.integers(0, 5, v.shape).astype(np.float32))
     q0, v0 = q.clone(), v.clone()
     tb = gt.rebuild_bin_cdf(q, G, 2, T_PAD)
     cdf_t = tb.cdf.T.contiguous()
     cam = mk.camera_vector(Camera.create(CAM))
-    scene = cornell_box()
+    scene = cornell_box(device="cpu")
     tris, mat = mk.pack_scene(scene)
     n_slots = mk.n_slots_for(cfg.n_pixels, 128, 2)
     rad, path_sum, iters, q1, v1, td = gt.mega_train_frame(
@@ -143,7 +145,8 @@ def test_learning_frame_unbiased():
                        max_ray_bounces=6)
     _, _, outs = _train(2, 2, cfg, 11)
     img2 = outs[-1][0]
-    img_d, _ = mk.render_default_mega(99, cornell_box(), Camera.create(CAM),
+    img_d, _ = mk.render_default_mega(99, cornell_box(device="cpu"),
+                                      Camera.create(CAM),
                                       cfg, device="cpu", r_tile=512,
                                       pix_mux=2)
     assert torch.isfinite(img2).all()
@@ -170,20 +173,20 @@ def test_validation_errors():
     cfg = RenderConfig(width=16, height=16, samples_per_pixel=1,
                        max_ray_bounces=2)
     cam = Camera.create(CAM)
-    q, v = gt.init_bin_q(T_PAD + 8, 2, G, 1.0)
+    q, v = gt.init_bin_q(T_PAD + 8, 2, G, 1.0, device="cpu")
     with pytest.raises(ValueError, match="t_pad"):
-        gt.render_sarsa_mega_train(0, cornell_box(), cam,
+        gt.render_sarsa_mega_train(0, cornell_box(device="cpu"), cam,
                                    gt.rebuild_bin_cdf(q, G, 2, T_PAD + 8),
                                    q, v, cfg, THR, device="cpu")
     clutter = torch_scene(cornell_plus_clutter())
     t_pad = mk._t_pad(clutter.n_triangles)
-    q, v = gt.init_bin_q(t_pad, 1, G, 1.0)
+    q, v = gt.init_bin_q(t_pad, 1, G, 1.0, device="cpu")
     with pytest.raises(ValueError, match="single-chunk"):
         gt.render_sarsa_mega_train(0, clutter, cam,
                                    gt.rebuild_bin_cdf(q, G, 1, t_pad), q, v,
                                    cfg, THR, device="cpu")
-    q, v = gt.init_bin_q(T_PAD, 2, G, 1.0)
+    q, v = gt.init_bin_q(T_PAD, 2, G, 1.0, device="cpu")
     with pytest.raises(ValueError, match="visits must be"):
-        gt.render_sarsa_mega_train(0, cornell_box(), cam,
+        gt.render_sarsa_mega_train(0, cornell_box(device="cpu"), cam,
                                    gt.rebuild_bin_cdf(q, G, 2, T_PAD), q,
                                    v[:, :-1], cfg, THR, device="cpu")

@@ -69,10 +69,12 @@ def renders():
     cfg = RenderConfig(width=32, height=32, samples_per_pixel=8,
                        max_ray_bounces=10)
     cam = Camera.create(CAM)
-    img_m, aux_m = mk.render_default_mega(11, cornell_box(), cam, cfg,
+    img_m, aux_m = mk.render_default_mega(11, cornell_box(device="cpu"), cam,
+                                          cfg,
                                           device="cpu", r_tile=128,
                                           pix_mux=4)
-    img_d, aux_d = render_default(7, cornell_box(), cam, cfg, device="cpu")
+    img_d, aux_d = render_default(7, cornell_box(device="cpu"), cam, cfg,
+                                  device="cpu")
     return img_m.numpy(), aux_m, img_d.numpy(), aux_d
 
 
@@ -98,7 +100,7 @@ def test_pixel_mapping_no_holes(renders):
 
 
 def test_wrapper_validates_inputs():
-    tris, mat = mk.pack_scene(cornell_box())
+    tris, mat = mk.pack_scene(cornell_box(device="cpu"))
     cfg = RenderConfig(width=8, height=8, samples_per_pixel=1)
     with pytest.raises(ValueError, match="contiguous float32"):
         mk.mega_default_frame(0, (0.0,) * 7, tris.double(), mat, cfg, 128, 1)
@@ -115,7 +117,7 @@ def test_frame_layout():
     """rad is (pix_mux, n_slots, 3): pixel p = slot + k*n_slots."""
     cfg = RenderConfig(width=10, height=7, samples_per_pixel=2,
                        max_ray_bounces=4)
-    tris, mat = mk.pack_scene(cornell_box())
+    tris, mat = mk.pack_scene(cornell_box(device="cpu"))
     n_slots = mk.n_slots_for(cfg.n_pixels, 16, 3)
     assert n_slots == 32
     rad, path_sum, iters = mk.mega_default_frame(
@@ -138,7 +140,7 @@ def test_lane_efficiency_of_slot_iterations():
     assert lane_efficiency(one, 32) == 8 / (32 * 8)
     cfg = RenderConfig(width=16, height=16, samples_per_pixel=1,
                        max_ray_bounces=20)
-    tris, mat = mk.pack_scene(cornell_box())
+    tris, mat = mk.pack_scene(cornell_box(device="cpu"))
     n_slots = mk.n_slots_for(cfg.n_pixels, 128, 1)
     _, path_sum, iters = mk.mega_default_frame(
         9, mk.camera_vector(Camera.create(CAM)), tris, mat, cfg, n_slots, 1)

@@ -95,9 +95,9 @@ def test_volume_set_bit_equal(area):
     rl_j, rl_t = JRL(area_per_sample=area), RadianceVolumeConfig(
         area_per_sample=area)
     jvols = jv.build_radiance_volumes(js, rl_j)
-    tvols = tv.build_radiance_volumes(cornell_box(), rl_t)
+    tvols = tv.build_radiance_volumes(cornell_box(device="cpu"), rl_t)
     assert tvols.n_volumes == jvols.n_volumes
-    assert (tv.volume_counts(cornell_box(), rl_t)
+    assert (tv.volume_counts(cornell_box(device="cpu"), rl_t)
             == jv.volume_counts(js, rl_j)).all()
     if area == 0.001:
         assert tvols.n_volumes == 24526
@@ -370,14 +370,15 @@ def test_map_io_text_and_npz(maps, tmp_path):
     map_io.save_selected_volumes(tvols, str(probe), str(tmp_path / "ts.txt"))
     assert (tmp_path / "ts.txt").read_bytes() == \
         (tmp_path / "js.txt").read_bytes()
-    sel = map_io.load_volumes_from_selected(str(tmp_path / "ts.txt"))
+    sel = map_io.load_volumes_from_selected(str(tmp_path / "ts.txt"),
+                                            device="cpu")
     jsel = jio.load_volumes_from_selected(str(tmp_path / "ts.txt"))
     assert sel.n_volumes == 9
     np.testing.assert_allclose(sel.cdf.numpy(), A(jsel.cdf), rtol=1e-5,
                                atol=1e-7)
 
     map_io.save_volumes_npz(tvols, str(tmp_path / "v.npz"))
-    back = map_io.load_volumes_npz(str(tmp_path / "v.npz"))
+    back = map_io.load_volumes_npz(str(tmp_path / "v.npz"), device="cpu")
     for f in ("position", "normal", "frame", "surface_lum", "q", "visits",
               "cdf"):
         assert torch.equal(getattr(back, f), getattr(tvols, f)), f

@@ -67,7 +67,7 @@ def jax_frames():
 
 @pytest.fixture(scope="module")
 def port_setup():
-    scene = cornell_box()
+    scene = cornell_box(device="cpu")
     rl = RadianceVolumeConfig(area_per_sample=0.05)
     vols = build_radiance_volumes(scene, rl)
     return scene, rl, vols, build_volume_class_table(vols, scene)
@@ -182,7 +182,7 @@ def test_mat_row_normal_is_the_scene_normal():
     """B4a's material row carries the exact f32 triangle normal, so the
     grid search's exact-normal filter reads it directly (no re-gather as
     on the TPU's bf16 hi/lo rows)."""
-    scene = cornell_box()
+    scene = cornell_box(device="cpu")
     tris, mat = ip.pack_scene_mxu(scene, torch.arange(scene.n_triangles))
     assert torch.equal(mat[:, 0:3], scene.normal)
     assert torch.equal(mat[:, 11], torch.arange(scene.n_triangles).float())

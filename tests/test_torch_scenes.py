@@ -124,8 +124,8 @@ def jax_preset(p):
 def test_obj_scene_matches_jax(tmp_path, case):
     path = tmp_path / "m.obj"
     path.write_text(OBJ_TEXT)
-    s_t = obj_importer.load_obj_scene(str(path),
-                                      **_kwargs(CASES[case], obj_importer))
+    s_t = obj_importer.load_obj_scene(
+        str(path), **_kwargs(CASES[case], obj_importer), device="cpu")
     s_j = jobj.load_obj_scene(str(path), **_kwargs(CASES[case], jobj))
     assert_scenes_equal(s_t, s_j)
     n_light = s_t.n_triangles - s_t.n_surfaces
@@ -207,7 +207,7 @@ def test_generated_scene_faces_the_camera(tmp_path):
     p = generated.torus_room(tmp_path / "torus.obj")
     v, f = obj_importer.parse_obj(p.obj)
     assert len(f) == 2 * 46 * 54 + 10 and 2 * 46 * 54 == 4968
-    s = p.load()
+    s = p.load(device="cpu")
     assert (s.n_triangles, s.n_surfaces) == (4980, 4978)
     v0, v1, v2, n = (getattr(s, a).double().numpy()
                      for a in ("v0", "v1", "v2", "normal"))
@@ -240,7 +240,7 @@ def test_generated_scene_faces_the_camera(tmp_path):
 
 @pytest.mark.parametrize("name", ["cornell", "test_room"])
 def test_builtin_scene_matches_jax(name):
-    s_t = presets.load_scene(name)
+    s_t = presets.load_scene(name, device="cpu")
     s_j = jpresets.load_scene(name)
     assert_scenes_equal(s_t, s_j)
     if name == "test_room":
@@ -259,10 +259,11 @@ def test_polygon_light_matches_jax():
 @pytest.mark.parametrize("which", ["cornell", "torus"])
 def test_morton_order_matches_jax(which, small_torus):
     if which == "cornell":
-        s_t = presets.load_scene("cornell")
+        s_t = presets.load_scene("cornell", device="cpu")
         s_j = jpresets.load_scene("cornell")
     else:
-        s_t, s_j = small_torus.load(), jax_preset(small_torus).load()
+        s_t = small_torus.load(device="cpu")
+        s_j = jax_preset(small_torus).load()
     m_t, m_j = morton_sort_surfaces(s_t), jax_morton(s_j)
     assert_scenes_equal(m_t, m_j)
     # a permutation of the surfaces; the lights stay at the tail
@@ -296,14 +297,15 @@ def test_preset_registry_matches_jax():
 def test_missing_model_raises(name, tmp_path, monkeypatch):
     monkeypatch.setattr(presets, "MODELS_DIR", str(tmp_path))
     with pytest.raises(FileNotFoundError, match="RLRPT_MODELS_DIR") as e:
-        presets.load_scene(name)
+        presets.load_scene(name, device="cpu")
     assert str(tmp_path / presets.get(name).obj) in str(e.value)
 
 
 def test_preset_loads_absolute_obj_path(small_torus, tmp_path, monkeypatch):
     """An absolute obj path ignores the models directory, as in JAX."""
     monkeypatch.setattr(presets, "MODELS_DIR", str(tmp_path / "none"))
-    assert_scenes_equal(small_torus.load(), jax_preset(small_torus).load())
+    assert_scenes_equal(small_torus.load(device="cpu"),
+                        jax_preset(small_torus).load())
 
 
 # ---- frames on the new scenes ---------------------------------------------
@@ -320,7 +322,7 @@ def test_generated_frame_matches_jax(small_torus):
         key, s_j, JCamera.create(cam), jconfig.RenderConfig(**cfg),
         r_tile=128, pix_mux=2, interpret=True, precision="highest")
     img_t, aux_t = mk.render_default_mega(
-        kernel_seed(key), small_torus.load(), Camera.create(cam),
+        kernel_seed(key), small_torus.load(device="cpu"), Camera.create(cam),
         RenderConfig(**cfg), device="cpu", r_tile=128, pix_mux=2)
     assert_frame_parity(img_t, aux_t, img_j, aux_j)
     assert float(img_t.max()) > 0 and float(aux_t["avg_path_length"]) > 2.0
@@ -334,7 +336,7 @@ def test_test_room_frame_matches_jax():
         jconfig.RenderConfig(**cfg), r_tile=128, pix_mux=4, interpret=True,
         precision="highest")
     img_t, aux_t = mk.render_default_mega(
-        kernel_seed(key), presets.load_scene("test_room"),
+        kernel_seed(key), presets.load_scene("test_room", device="cpu"),
         Camera.create((0.0, 0.0, -3.0)), RenderConfig(**cfg), device="cpu",
         r_tile=128, pix_mux=4)
     assert_frame_parity(img_t, aux_t, img_j, aux_j)
@@ -383,11 +385,12 @@ def test_multi_tile_binned_limits_match_jax(small_torus):
     """The binned learning kernel takes single-chunk scenes only, and a
     multi-chunk guided render needs a per-triangle (uv_bins 1) table: both
     packages refuse alike."""
-    s_t, s_j = small_torus.load(), jax_preset(small_torus).load()
+    s_t = small_torus.load(device="cpu")
+    s_j = jax_preset(small_torus).load()
     t_pad = mk._t_pad(s_t.n_triangles)
     cfg = dict(width=8, height=8, samples_per_pixel=1, max_ray_bounces=2)
     cam = small_torus.camera_position
-    q, v = gt.init_bin_q(t_pad, 4, 11, 1.0)
+    q, v = gt.init_bin_q(t_pad, 4, 11, 1.0, device="cpu")
     table = gt.rebuild_bin_cdf(q, 11, 4, t_pad)
     qj, vj = jgt.init_bin_q(t_pad, 4, 11, 1.0)
     table_j = jgt.rebuild_bin_cdf(qj, 11, 4, t_pad)

@@ -45,8 +45,9 @@ def test_matches_jax_f32(rr):
     img_j, aux_j = jax_wavefront(jax.random.PRNGKey(3), jax_cornell_box(),
                                  JCamera.create(CAM), JRenderConfig(**kw),
                                  interpret=True, hit_mode="f32")
-    img_t, aux_t = render_wavefront(1, cornell_box(), Camera.create(CAM),
-                                    RenderConfig(**kw), "cpu")
+    img_t, aux_t = render_wavefront(1, cornell_box(device="cpu"),
+                                    Camera.create(CAM), RenderConfig(**kw),
+                                    "cpu")
     a, b = img_t.numpy(), np.asarray(img_j)
     assert a.shape == b.shape and np.isfinite(a).all()
     assert abs(a.mean() - b.mean()) / b.mean() < 0.08, (a.mean(), b.mean())
@@ -61,21 +62,22 @@ def test_hit_modes_agree():
     two seeds agree in distribution (tests/test_wavefront.py:58-77)."""
     cfg = RenderConfig(**KW)
     cam = Camera.create(CAM)
+    scene = cornell_box(device="cpu")
     before = (ip.KERNEL_F32.launches, ip.KERNEL_MAT.launches)
-    img_m, aux_m = render_wavefront(5, cornell_box(), cam, cfg, "cpu",
+    img_m, aux_m = render_wavefront(5, scene, cam, cfg, "cpu",
                                     hit_mode="mxu")
-    img_f, aux_f = render_wavefront(5, cornell_box(), cam, cfg, "cpu",
+    img_f, aux_f = render_wavefront(5, scene, cam, cfg, "cpu",
                                     hit_mode="f32")
     assert torch.equal(img_m, img_f)
     assert float(aux_m["avg_path_length"]) == float(aux_f["avg_path_length"])
-    img_g, _ = render_wavefront(torch.Generator().manual_seed(6),
-                                cornell_box(), cam, cfg, "cpu", hit_mode="f32")
+    img_g, _ = render_wavefront(torch.Generator().manual_seed(6), scene,
+                                cam, cfg, "cpu", hit_mode="f32")
     m, f = img_m.numpy(), img_g.numpy()
     assert abs(m.mean() - f.mean()) / f.mean() < 0.06
     assert _profile_corr(m, f) > 0.95
     assert (ip.KERNEL_F32.launches, ip.KERNEL_MAT.launches) == before
     with pytest.raises(ValueError, match="hit_mode"):
-        render_wavefront(5, cornell_box(), cam, cfg, "cpu", hit_mode="bf16")
+        render_wavefront(5, scene, cam, cfg, "cpu", hit_mode="bf16")
 
 
 def test_rr_keeps_the_mean():
@@ -83,12 +85,13 @@ def test_rr_keeps_the_mean():
     spp, as the anchor); RR shortens paths."""
     cfg = RenderConfig(**KW)
     cam = Camera.create(CAM)
+    scene = cornell_box(device="cpu")
     img_r, aux_r = render_wavefront(
-        7, cornell_box(), cam, dataclasses.replace(cfg, russian_roulette=True),
+        7, scene, cam, dataclasses.replace(cfg, russian_roulette=True),
         "cpu")
-    img_o, aux_o = render_wavefront(8, cornell_box(), cam, cfg, "cpu")
+    img_o, aux_o = render_wavefront(8, scene, cam, cfg, "cpu")
     img_ref, _ = render_default_mega(
-        9, cornell_box(), cam,
+        9, scene, cam,
         dataclasses.replace(cfg, samples_per_pixel=64), device="cpu",
         r_tile=512, pix_mux=4)
     ref = float(img_ref.mean())
