@@ -45,7 +45,7 @@ set to 0 just before it and read just after:
   of iterations, which also gives kernels per iteration and the device's
   idle share), one ``train_batching="fused"`` frame, the MLP's forward
   against its f32 bound; ``--mode pretrained`` from the saved model at
-  32 spp in f32 and bf16 (bf16 within 3x the f32 seed-to-seed noise per
+  16 spp in f32 and bf16 (bf16 within 3x the f32 seed-to-seed noise per
   pixel, and its frame and block means within the standard errors that
   seed pairs give; the f32 frame means within -8% to -2% of
   ``--mode mega``'s, the reference estimator's darkening); the lockstep
@@ -72,7 +72,26 @@ set to 0 just before it and read just after:
   (its line count), the interactive renderers of each mode at 96x96, and
   ``pixel_gradients`` through ``render_diff`` at 720x720, 2 spp, 80
   bounces (B4b), finite and equal to the same render's with the plain
-  hit on the same draws, with its peak memory.
+  hit on the same draws, with its peak memory;
+* the multi-device layer (phase 21, ``rlrpt_tpu_torch/parallel``): a
+  world of one over NCCL (``multihost.initialize``), every dp and
+  multiscene entry point beside the single-process call it shards, with
+  their seconds: ``render_default_dp`` at 8 spp (mean within 2% of
+  ``--mode mega``), 10 ``sarsa_mega_train_dp`` frames at 32 spp and
+  ``render_guided_mega_dp`` (B2, B3; each frame's image and visits
+  bit-equal to the launcher's with the rank-0 seed, q within rtol 1e-4,
+  the visit invariant exact), ``render_frame_sarsa_wavefront_dp`` on
+  phase 11's volumes and the pretrained and neural-Q wavefront dp frames
+  (B4a; bit-equal to the single-process frames), ``render_frame_sarsa_dp``
+  at 128x128 (B4b), ``neural_q_train_step_dp``
+  at 256x256 (B4a), ``render_multiscene_dp`` and
+  ``train_multiscene_deep_dp`` on Cornell and the test room at 256x256,
+  and the scaling bench's rows for sizes 1 and 2 (2 skipped: one card);
+  then two spawned ranks sharing the card over gloo
+  (``sarsa_mega_train_dp`` at 16 spp a rank, ``render_guided_mega_dp``,
+  ``render_frame_neural_q_wavefront_dp`` at 128x128): the replicated q,
+  visits, net and Adam state bit-identical on both ranks, the visits
+  v0 + c_0 + c_1 exactly, and B2, B3 and B4a launched on each rank.
 
 Fails if a kernel of a path was never launched in it, if the brute-force
 sweep was, or if a wavefront or sarsa-fast frame built more than one BVH.
@@ -89,8 +108,10 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import hashlib
 import io
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -100,6 +121,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from rlrpt_tpu_torch.tools.mega_sweep import (APPLY_OPS, BOX_OPS, MT_OPS,
                                               bound_ms, frame_bound,
@@ -108,8 +130,10 @@ from rlrpt_tpu_torch.tools.mega_sweep import (APPLY_OPS, BOX_OPS, MT_OPS,
 ROOT = Path(__file__).resolve().parent
 CAM = (0.0, 0.0, -3.0)
 TOL = "99% of pixels within atol 1e-4 rtol 1e-3; mean 0.5%; avg path 1%"
-# a pretrained f32 32-spp frame's mean relative to --mode mega's ([15])
+# a pretrained f32 frame's mean relative to --mode mega's ([15]), and its
+# spp (32 before phase 21 came; 16 keeps the script near 600 s)
 PRETRAINED_BAND = (-0.08, -0.02)
+PRETRAINED_SPP = 16
 
 PHASE_START: dict = {}   # phase tag -> perf_counter at its first line
 
@@ -506,11 +530,14 @@ class HitRecorder:
 def fine_map_phases(dev, out_dir: Path, drive, mega_mean: float,
                     size: int = 720, learn_frames: int = 20,
                     area: float = 0.001, small: int = 128,
-                    nn_queries: int = 100_000) -> dict:
+                    nn_queries: int = 100_000, keep: dict | None = None
+                    ) -> dict:
     """Phases 11-13, the fine-map expected-SARSA stack; returns their
     figures.  ``drive`` runs a path with every launch count at 0 and
     fails it if an expected kernel never launched; ``mega_mean`` is the
-    mean of a ``--mode mega`` frame at size x size, 32 spp."""
+    mean of a ``--mode mega`` frame at size x size, 32 spp.  ``keep``
+    receives phase 11's learned volumes and class table (phase 21 reuses
+    them)."""
     from rlrpt_tpu_torch.camera import Camera
     from rlrpt_tpu_torch.config import RadianceVolumeConfig, RenderConfig
     from rlrpt_tpu_torch.integrators import sarsa_wavefront as sw
@@ -554,6 +581,8 @@ def fine_map_phases(dev, out_dir: Path, drive, mega_mean: float,
         "--pix-mux", "4", "--seed", "1984"]))
     b4a_learn = ip.KERNEL_MAT.launches
     vols, table, frames = aux["vols"], aux["table"], aux["frames"]
+    if keep is not None:
+        keep.update(vols=vols, table=table)
     check(bv.BUILDS == len(frames), f"sarsa-fast: {bv.BUILDS} BVH builds in "
                                     f"{len(frames)} frames")
     check_image("sarsa-fast learning frame", img, size)
@@ -1094,18 +1123,18 @@ def deep_phases(dev, out_dir: Path, drive, mega_mean: float,
           "the DyNet file does not give back the trained weights")
     log(f"[15] pretrained wavefront from {model.name} (load_dynet_model on "
         f"the card gives back the trained weights bit for bit): {size}x"
-        f"{size}, 32 spp, pix_mux 8")
+        f"{size}, {PRETRAINED_SPP} spp, pix_mux 8")
     pre, secs_p = {}, {}
     for label, argv in (("f32", ["--mlp-dtype", "f32", "--seed", 1984]),
                         ("f32-seed2", ["--mlp-dtype", "f32", "--seed", 1985]),
                         ("bf16", ["--mlp-dtype", "bf16", "--seed", 1986])):
         img, p_aux, sec = drive("15", ("B4a",), lambda: run_cli([
             "--mode", "pretrained", "--impl", "wavefront", "--model", model,
-            "--width", size, "--height", size, "--spp", 32, "--bounces", 80,
-            "--pix-mux", 8] + argv))
+            "--width", size, "--height", size, "--spp", PRETRAINED_SPP,
+            "--bounces", 80, "--pix-mux", 8] + argv))
         check_image(f"pretrained {label}", img, size)
         apl = float(p_aux["avg_path_length"])
-        rays = apl * size * size * 32 / sec
+        rays = apl * size * size * PRETRAINED_SPP / sec
         pre[label], secs_p[label] = img, sec
         write_png(str(out_dir / f"pretrained-{label}.png"), img.cpu())
         log(f"[15] {label}: {sec:.4f} s, "
@@ -1960,6 +1989,451 @@ def tool_phase(dev, out_dir: Path, drive) -> dict:
     return res
 
 
+def timed(dev, fn):
+    """(fn(), its host seconds), the device synchronised on both sides."""
+    sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(dev)
+    return out, time.perf_counter() - t0
+
+
+def digest(*tensors) -> str:
+    """A hash of the tensors' bytes: equal digests are equal bits."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def gloo_rank(rank: int, world: int, address: str, size: int, small: int,
+              device: str):
+    """One of two ranks sharing the card over gloo (phase 21): B2 and B3
+    through the binned dp entry points at size x size, then a neural-Q
+    wavefront dp frame at small x small.  Returns digests of the
+    replicated state, the rank's launch counts and checks.  ``device``
+    "cpu" rehearses it on the twins."""
+    from rlrpt_tpu_torch.camera import Camera
+    from rlrpt_tpu_torch.config import (DeepLearningConfig,
+                                        RadianceVolumeConfig, RenderConfig)
+    from rlrpt_tpu_torch.deep.neural_q import init_neural_q
+    from rlrpt_tpu_torch.ops import guided_mega as gm
+    from rlrpt_tpu_torch.ops import guided_mega_train as gt
+    from rlrpt_tpu_torch.ops import intersect_pallas as ip
+    from rlrpt_tpu_torch.parallel import dp, multihost
+    from rlrpt_tpu_torch.parallel.mesh import (all_gather, make_mesh,
+                                               rank_seed)
+    from rlrpt_tpu_torch.scene import cornell_box
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    multihost.initialize(address, world, rank, device="cpu")   # gloo
+    try:
+        mesh = make_mesh(device=dev)
+        kernels = {"B2": gt.KERNEL, "B3": gm.KERNEL, "B4a": ip.KERNEL_MAT}
+        for k in kernels.values():
+            k.launches = 0
+        scene, camera = cornell_box(device=dev), Camera.create(CAM)
+        rl = RadianceVolumeConfig(grid_resolution=11)
+        cfg = RenderConfig(width=size, height=size, samples_per_pixel=32,
+                           max_ray_bounces=80)
+        q0, v0 = gt.init_bin_q(40, 4, 11, rl.initial_radiance, device=dev)
+        table = gt.rebuild_bin_cdf(q0, 11, 4, 40,
+                                   defensive_mix=rl.defensive_mix)
+        secs = {}
+        (img, q, v, aux), secs["sarsa_mega_train_dp"] = timed(
+            dev, lambda: dp.sarsa_mega_train_dp(1984, scene, camera, table,
+                                                q0, v0, cfg,
+                                                rl.radiance_threshold,
+                                                mesh))
+        launched = {n: k.launches for n, k in kernels.items()}
+        # this rank's own visit delta, from its frame alone (not counted)
+        _, _, v_r, _ = gt.render_sarsa_mega_train(
+            rank_seed(1984, rank), scene, camera, table, q0, v0,
+            dataclasses.replace(cfg, samples_per_pixel=32 // world),
+            rl.radiance_threshold, dev)
+        cs = all_gather((v_r - v0)[None], mesh)
+        visits_exact = bool(torch.equal(v, v0 + cs[0] + cs[1]))
+        for n, k in kernels.items():
+            k.launches = launched[n]
+        table = gt.rebuild_bin_cdf(q, 11, 4, 40,
+                                   defensive_mix=rl.defensive_mix)
+        (g_img, _), secs["render_guided_mega_dp"] = timed(
+            dev, lambda: dp.render_guided_mega_dp(1985, scene, camera, table,
+                                                  cfg, mesh))
+        dl = DeepLearningConfig()
+        net, opt = init_neural_q(5, scene, dl, 12, device=dev)
+        small_cfg = RenderConfig(width=small, height=small,
+                                 samples_per_pixel=1, max_ray_bounces=80)
+        (nq_img, net, opt, eps, nq_aux), secs["neural_q_wavefront_dp"] = \
+            timed(dev, lambda: dp.render_frame_neural_q_wavefront_dp(
+                1986, scene, camera, net, opt, dl.epsilon_start, small_cfg,
+                RadianceVolumeConfig(), dl, mesh, pix_mux=8))
+        outs = [img, q, v, g_img, nq_img, *net.parameters(), opt.count,
+                *opt.mu, *opt.nu]
+        return {
+            "launches": {n: k.launches for n, k in kernels.items()},
+            "on_card": all(t.device == dev for t in outs),
+            "visits_exact": visits_exact, "td": int(aux["td_scatter_count"]),
+            "visit_delta": float((v - v0).double().sum()),
+            "state": digest(q, v, img, g_img),
+            "net": digest(*net.parameters(), opt.count, *opt.mu, *opt.nu),
+            "nq_image": digest(nq_img), "eps": eps,
+            "finite": bool(torch.isfinite(img).all()
+                           and torch.isfinite(g_img).all()
+                           and torch.isfinite(nq_img).all()),
+            "loss": float(nq_aux["loss"]), "seconds": secs,
+            "guided_mean": float(g_img.mean())}
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_phase(dev, out_dir: Path, drive, mega_mean: float,
+             fine: dict | None = None, size: int = 720,
+             small: int = 256) -> dict:
+    """Phase 21, the multi-device layer (``rlrpt_tpu_torch/parallel``):
+    every dp and multiscene entry point in a world of one over NCCL, each
+    beside the single-process call it shards (bit for bit where the world
+    of one draws the same numbers), the scaling bench's rows for sizes 1
+    and 2, then two ranks sharing the card over gloo.  ``fine``: phase
+    11's volumes and class table, if it ran; phase 15's saved net is read
+    from ``out_dir`` if it is there.  Returns the phase's figures."""
+    from rlrpt_tpu_torch.camera import Camera
+    from rlrpt_tpu_torch.config import (DeepLearningConfig,
+                                        RadianceVolumeConfig, RenderConfig)
+    from rlrpt_tpu_torch.deep import deep_wavefront as dw
+    from rlrpt_tpu_torch.deep import neural_q as nq
+    from rlrpt_tpu_torch.integrators.default_tracer import render_default
+    from rlrpt_tpu_torch.integrators.reinforcement_tracer import \
+        render_frame_sarsa
+    from rlrpt_tpu_torch.integrators.sarsa_wavefront import \
+        render_frame_sarsa_wavefront
+    from rlrpt_tpu_torch.nn.dynet_io import load_dynet_model
+    from rlrpt_tpu_torch.ops import guided_mega as gm
+    from rlrpt_tpu_torch.ops import guided_mega_train as gt
+    from rlrpt_tpu_torch.parallel import dp, multihost, multiscene
+    from rlrpt_tpu_torch.parallel.mesh import make_mesh, rank_seed
+    from rlrpt_tpu_torch.radiance.grid_bucket import build_volume_class_table
+    from rlrpt_tpu_torch.radiance.volumes import build_radiance_volumes
+    from rlrpt_tpu_torch.scene import cornell_box, presets
+    from rlrpt_tpu_torch.tools.scaling_bench import (available_devices,
+                                                      run_scaling)
+    from rlrpt_tpu_torch.utils.rng import fold_in
+
+    # the ranks meet on the loopback interface
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    scene, camera = cornell_box(device=dev), Camera.create(CAM)
+    full = dict(width=size, height=size, max_ray_bounces=80)
+    res, t_world = {}, {}
+
+    def both(label, dp_fn, single_fn, expect=()):
+        """The dp call through drive (its launches counted), then the
+        single-process call (not counted); logs both times."""
+        out, s_dp = drive("21", expect, lambda: timed(dev, dp_fn))
+        ref, s_1 = timed(dev, single_fn)
+        t_world[label] = {"dp": s_dp, "single": s_1}
+        log(f"[21] {label}: dp {s_dp:.4f} s, single-process "
+            f"{s_1:.4f} s")
+        return out, ref
+
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    t0 = time.perf_counter()
+    multihost.initialize(f"127.0.0.1:{multihost.free_port()}", 1, 0,
+                         device=dev)
+    try:
+        mesh = make_mesh(device=dev)
+        check(mesh.backend == ("nccl" if dev.type == "cuda" else "gloo")
+              and mesh.size == 1,
+              f"world-1 group: {mesh.backend}, {mesh.size} ranks")
+        log(f"[21] the multi-device layer: a world of one over "
+            f"{mesh.backend.upper()} "
+            f"({time.perf_counter() - t0:.2f} s to form), Cornell "
+            f"{size}x{size}, 80 bounces, unless named")
+
+        # the default tracer (the plain sweep, no kernel)
+        cfg = RenderConfig(samples_per_pixel=8, ray_tile=size * size, **full)
+        (img, aux), (img1, _) = both(
+            "render_default_dp 8 spp",
+            lambda: dp.render_default_dp(1984, scene, camera, cfg, mesh),
+            lambda: render_default(1984, scene, camera, cfg, dev))
+        check_image("render_default_dp", img, size)
+        gap = float(img.mean()) / mega_mean - 1.0
+        log(f"[21] render_default_dp mean {float(img.mean()):.6f} vs mega "
+            f"{gap:+.4%} (limit 2%); single-process "
+            f"{float(img1.mean()) / mega_mean - 1.0:+.4%}")
+        check(abs(gap) <= 0.02, f"render_default_dp mean off by {gap:+.2%}")
+        res["default_vs_mega"] = gap
+
+        # the binned pair: 10 learning frames (B2), then B3
+        rl = RadianceVolumeConfig(grid_resolution=11)
+        thr = rl.radiance_threshold
+        cfg = RenderConfig(samples_per_pixel=32, **full)
+        q, v = gt.init_bin_q(40, 4, 11, rl.initial_radiance, device=dev)
+        frames = []
+
+        def learn():
+            qq, vv = q, v
+            for f in range(10):
+                table = gt.rebuild_bin_cdf(qq, 11, 4, 40,
+                                           defensive_mix=rl.defensive_mix)
+                out, sec = timed(dev, lambda: dp.sarsa_mega_train_dp(
+                    fold_in(1984, f), scene, camera, table, qq, vv, cfg,
+                    thr, mesh))
+                frames.append((table, qq, vv, out, sec))
+                qq, vv = out[1], out[2]
+            table = gt.rebuild_bin_cdf(qq, 11, 4, 40,
+                                       defensive_mix=rl.defensive_mix)
+            return table, dp.render_guided_mega_dp(fold_in(1984, 10), scene,
+                                                   camera, table, cfg, mesh)
+
+        (table, (g_img, _)), s_dp = drive("21", ("B2", "B3"),
+                                          lambda: timed(dev, learn))
+        worst, s_1 = 0.0, 0.0
+        for f, (tb, q_in, v_in, (img, q_dp, v_dp, aux), _) in \
+                enumerate(frames):
+            (img1, q1, v1, _), sec = timed(dev, lambda: (
+                gt.render_sarsa_mega_train(rank_seed(fold_in(1984, f), 0),
+                                           scene, camera, tb, q_in, v_in,
+                                           cfg, thr, dev)))
+            s_1 += sec
+            check(torch.equal(img, img1), f"sarsa_mega_train_dp frame {f}: "
+                                          "image not the launcher's")
+            check(torch.equal(v_dp, v1), f"frame {f}: visits differ")
+            check(float((v_dp - v_in).double().sum())
+                  == int(aux["td_scatter_count"]) > 0,
+                  f"frame {f}: the visit invariant broke")
+            rel = float(((q_dp - q1).abs() / q1.abs().clamp(min=1e-30))
+                        .max())
+            worst = max(worst, rel)
+            # B2's atomics reorder the TD sums (chip_smoke [6] holds B2
+            # to its twin at rtol 1e-4), and the merge rounds once more
+            check(torch.allclose(q_dp, q1, rtol=1e-4, atol=0.0),
+                  f"frame {f}: q off by {rel:.3g}")
+        (g1, _), sec = timed(dev, lambda: gm.render_guided_mega(
+            rank_seed(fold_in(1984, 10), 0), scene, camera, table, cfg,
+            dev))
+        check(torch.equal(g_img, g1), "render_guided_mega_dp: the image is "
+                                      "not the launcher's")
+        t_world["sarsa_mega_train_dp x10 + render_guided_mega_dp"] = {
+            "dp": s_dp, "single": s_1 + sec}
+        log(f"[21] sarsa_mega_train_dp x 10 at 32 spp, then "
+            f"render_guided_mega_dp: dp {s_dp:.4f} s, single-process "
+            f"{s_1 + sec:.4f} s; every frame's image and visits bit-equal "
+            f"to the launcher's with the rank-0 seed, q within "
+            f"{worst:.3g} relative (limit 1e-4), the visit invariant exact "
+            f"in every frame; the guided frame bit-equal")
+        res["binned_q_max_rel"] = worst
+
+        # the fine-map SARSA wavefront (B4a), one 8-spp learning frame
+        rl = RadianceVolumeConfig(area_per_sample=0.001)
+        if fine:
+            vols, table = fine["vols"], fine["table"]
+        else:
+            vols = build_radiance_volumes(scene, rl)
+            table = build_volume_class_table(vols, scene)
+        cfg = RenderConfig(samples_per_pixel=8, **full)
+        (img, vols_dp, aux), (img1, vols1, aux1) = both(
+            f"render_frame_sarsa_wavefront_dp 8 spp, V = {vols.n_volumes}",
+            lambda: dp.render_frame_sarsa_wavefront_dp(
+                1985, scene, camera, vols, table, cfg, rl, mesh),
+            lambda: render_frame_sarsa_wavefront(
+                rank_seed(1985, 0), scene, camera, vols, table, cfg, rl,
+                pix_mux=4), ("B4a",))
+        check(torch.equal(img, img1) and torch.equal(vols_dp.visits,
+                                                     vols1.visits),
+              "sarsa wavefront dp: image or visits not the single frame's")
+        check(int((vols_dp.visits - vols.visits).sum())
+              == int(aux["td_scatter_count"]) > 0,
+              "sarsa wavefront dp: the visit invariant broke")
+        # index_add_ on the card adds in any order
+        check(torch.allclose(vols_dp.q, vols1.q, rtol=1e-4, atol=1e-6),
+              "sarsa wavefront dp: q apart from the single frame's")
+        log(f"[21] sarsa wavefront dp: image and visits bit-equal to the "
+            f"single frame's, q within rtol 1e-4, "
+            f"{int(aux['td_scatter_count'])} TD scatters == the visit delta")
+
+        # the lockstep SARSA frame (B4b) at the fine-map modes' size ([12])
+        rl = RadianceVolumeConfig(area_per_sample=0.01)
+        vols = build_radiance_volumes(scene, rl)
+        lock = small // 2
+        cfg = RenderConfig(width=lock, height=lock, samples_per_pixel=4,
+                           max_ray_bounces=80)
+        (img, vols_dp, aux), (img1, _, _) = both(
+            f"render_frame_sarsa_dp {lock}x{lock} 4 spp, V = "
+            f"{vols.n_volumes}",
+            lambda: dp.render_frame_sarsa_dp(1992, scene, camera, vols, cfg,
+                                             rl, mesh),
+            lambda: render_frame_sarsa(rank_seed(1992, 0), scene, camera,
+                                       vols, cfg, rl), ("B4b",))
+        check_image("lockstep sarsa dp", img, lock)
+        check(int((vols_dp.visits - vols.visits).sum())
+              == int(aux["td_scatter_count"]) > 0,
+              "lockstep sarsa dp: the visit invariant broke")
+        a, b = img.double().mean(-1), img1.double().mean(-1)
+        z = float((a.mean() - b.mean()) / ((a - b).var() / a.numel())
+                  .sqrt())
+        check(abs(z) < 4.0, f"lockstep sarsa dp: z {z}")
+        log(f"[21] lockstep sarsa dp: the visit invariant exact "
+            f"({int(aux['td_scatter_count'])} TD scatters), the frame mean "
+            f"vs the single-process frame's z {z:+.3f} (limit 4; other "
+            f"random streams)")
+
+        # the deep wavefronts (B4a): pretrained, then one training frame
+        dl = DeepLearningConfig()
+        rl = RadianceVolumeConfig()
+        model = out_dir / "neural_q.model"
+        net = (load_dynet_model(str(model), device=dev) if model.exists()
+               else nq.init_neural_q(7, scene, dl, 12, device=dev)[0])
+        cfg = RenderConfig(samples_per_pixel=8, **full)
+        (img, _), (img1, _) = both(
+            "render_frame_pretrained_wavefront_dp 8 spp",
+            lambda: dp.render_frame_pretrained_wavefront_dp(
+                1986, scene, camera, net, cfg, rl, dl, mesh),
+            lambda: dw.render_frame_pretrained_wavefront(
+                rank_seed(1986, 0), scene, camera, net, cfg, rl, dl,
+                pix_mux=4), ("B4a",))
+        check_image("pretrained dp", img, size)
+        check(torch.equal(img, img1), "pretrained dp: not the single frame")
+        cfg = RenderConfig(samples_per_pixel=1, **full)
+        nets = [nq.init_neural_q(8, scene, dl, 12, device=dev)
+                for _ in range(2)]
+        (img, net_dp, opt_dp, eps, aux), (img1, net1, opt1, eps1, _) = both(
+            "render_frame_neural_q_wavefront_dp 1 spp, pix_mux 8",
+            lambda: dp.render_frame_neural_q_wavefront_dp(
+                1987, scene, camera, *nets[0], dl.epsilon_start, cfg, rl,
+                dl, mesh, pix_mux=8),
+            lambda: dw.render_frame_neural_q_wavefront(
+                rank_seed(1987, 0), scene, camera, *nets[1],
+                dl.epsilon_start, cfg, rl, dl, pix_mux=8), ("B4a",))
+        check_image("neural-q dp", img, size)
+        check(torch.equal(img, img1) and eps == eps1
+              == nq.decay_epsilon(dl.epsilon_start, 1, dl)
+              and digest(*net_dp.parameters(), *opt_dp.mu)
+              == digest(*net1.parameters(), *opt1.mu),
+              "neural-q dp: not the single frame, net or epsilon")
+        log(f"[21] both deep frames bit-equal to the single-process ones "
+            f"(the training frame's net and Adam state too), loss "
+            f"{float(aux['loss']):.6g}, epsilon {eps}")
+
+        # the lockstep neural-Q training sample at the lockstep's size
+        cfg = RenderConfig(width=small, height=small, samples_per_pixel=1,
+                           max_ray_bounces=80)
+        nets = [nq.init_neural_q(9, scene, dl, 12, device=dev)
+                for _ in range(2)]
+        (tp, *_, loss), (img1, *_) = both(
+            f"neural_q_train_step_dp {small}x{small} (lockstep)",
+            lambda: dp.neural_q_train_step_dp(
+                1988, scene, camera, *nets[0], 0.3, cfg, rl, dl, mesh),
+            lambda: nq.render_frame_neural_q(
+                rank_seed(1988, 0), scene, camera, *nets[1], 0.3, cfg, rl,
+                dl), ("B4a",))
+        a, b = tp.double().mean(-1), img1.double().reshape(-1, 3).mean(-1)
+        z = float((a.mean() - b.mean()) / ((a - b).var() / a.numel())
+                  .sqrt())
+        check(torch.isfinite(tp).all() and np.isfinite(float(loss))
+              and abs(z) < 4.0, f"neural_q_train_step_dp: z {z}")
+        log(f"[21] the lockstep sample's mean vs a single-process 1-spp "
+            f"frame from the same net: z {z:+.3f} (limit 4)")
+
+        # multiscene: the batch render and the joint training
+        room = presets.get("test_room")
+        scenes = [scene, room.load(device=dev)]
+        cams = [camera, Camera.create(room.camera_position)]
+        cfg = RenderConfig(width=small, height=small, samples_per_pixel=8,
+                           max_ray_bounces=80, ray_tile=small * small)
+        imgs, ref = both(
+            f"render_multiscene_dp cornell + test_room {small}x{small} 8 spp",
+            lambda: multiscene.render_multiscene_dp(1989, scenes, cams, cfg,
+                                                    mesh),
+            lambda: [render_default(1990 + k, s, c, cfg, dev)[0]
+                     for k, (s, c) in enumerate(zip(scenes, cams))])
+        for k in range(2):
+            gap = float(imgs[k].mean()) / float(ref[k].mean()) - 1.0
+            check(abs(gap) <= 0.02, f"multiscene scene {k}: {gap:+.2%}")
+        cfg = RenderConfig(width=small, height=small, samples_per_pixel=1,
+                           max_ray_bounces=80)
+        inits = [multiscene.init_multiscene_neural_q(10, scenes, dl, 12,
+                                                     device=dev)
+                 for _ in range(2)]
+        p0 = digest(*inits[0][0].parameters())
+        (imgs, net_ms, opt_ms, eps, aux), img1 = both(
+            f"train_multiscene_deep_dp cornell + test_room {small}x{small} "
+            f"1 spp",
+            lambda: multiscene.train_multiscene_deep_dp(
+                1991, scenes, cams, *inits[0][:2], 0.05, cfg, rl, dl, mesh,
+                batched=inits[0][2]),
+            lambda: [dw.render_frame_neural_q_wavefront(
+                rank_seed(1991, 0), multiscene.scene_at(inits[1][2], k),
+                c, *inits[1][:2], 0.05, cfg, rl, dl, pix_mux=2)[0]
+                for k, c in enumerate(cams)], ("B4a",))
+        net1, opt1 = inits[1][:2]
+        check(tuple(imgs.shape) == (2, small, small, 3)
+              and torch.isfinite(imgs).all()
+              and digest(*net_ms.parameters()) != p0
+              and abs(eps - 0.05) < 1e-6, "train_multiscene_deep_dp")
+        check(all(torch.equal(imgs[k], img1[k]) for k in range(2))
+              and digest(*net_ms.parameters(), *opt_ms.mu)
+              == digest(*net1.parameters(), *opt1.mu),
+              "train_multiscene_deep_dp: not the single-process frames")
+        log(f"[21] multiscene: each batch image's mean within 2% of the "
+            f"single-process render's; the joint training (both scenes on "
+            f"the one rank, one after the other) bit-equal to two "
+            f"single-process training frames on the padded scenes, net and "
+            f"Adam state too")
+
+        # the scaling bench: size 1 runs, size 2 is skipped (one card)
+        cfg = RenderConfig(width=256, height=256, samples_per_pixel=4,
+                           max_ray_bounces=20, ray_tile=256 * 256)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rows = run_scaling(scene, camera, cfg, [1, 2], repeats=3,
+                               device=dev.type, timeout=300)
+        for line in buf.getvalue().splitlines():
+            log(f"[21] scaling_bench: {line}")
+        for r in rows:
+            log(f"[21] scaling_bench row: {json.dumps(r)}")
+        fit = [d for d in (1, 2) if d <= available_devices(dev.type)]
+        check([r["devices"] for r in rows] == fit
+              and ("# skipping size 2" in buf.getvalue()) == (fit == [1]),
+              f"scaling_bench rows {rows}")
+        res["scaling_rows"] = rows
+    finally:
+        dist.destroy_process_group()
+
+    # two ranks sharing the card over gloo (NCCL takes one rank a card)
+    log(f"[21] two ranks on the one card over gloo: sarsa_mega_train_dp "
+        f"16 spp a rank and render_guided_mega_dp 32 spp at {size}x{size}, "
+        f"render_frame_neural_q_wavefront_dp at {small // 2}x{small // 2}")
+    (r0, r1), s_gloo = timed(dev, lambda: multihost.spawn(
+        gloo_rank, 2, (size, small // 2, dev.type), timeout=300))
+    for r, o in enumerate((r0, r1)):
+        log(f"[21] gloo rank {r}: launches {o['launches']}, seconds "
+            + ", ".join(f"{k} {v:.4f}" for k, v in o["seconds"].items())
+            + f"; td {o['td']} == visit delta {o['visit_delta']:.0f}")
+        check(o["on_card"] and o["finite"] and o["visits_exact"]
+              and all(o["launches"][n] > 0 for n in ("B2", "B3", "B4a"))
+              and o["visit_delta"] == o["td"] > 0,
+              f"gloo rank {r}: {o}")
+    check(r0["state"] == r1["state"] and r0["net"] == r1["net"]
+          and r0["nq_image"] == r1["nq_image"] and r0["eps"] == r1["eps"],
+          "gloo ranks: the replicated state differs")
+    gap = r0["guided_mean"] / mega_mean - 1.0
+    log(f"[21] gloo: merged q, visits and images, the net and its Adam "
+        f"state bit-identical on both ranks; visits == v0 + c_0 + c_1 "
+        f"exactly; guided mean after the merged frame vs mega {gap:+.4%}; "
+        f"{s_gloo:.2f} s in all (spawn and set-up included)")
+    res.update(world_1_seconds=t_world, gloo_seconds=[r0["seconds"],
+                                                      r1["seconds"]],
+               gloo_launches=[r0["launches"], r1["launches"]],
+               gloo_total_seconds=s_gloo)
+    return res
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", type=Path, default=ROOT / "build" / "smoke",
@@ -2412,7 +2886,8 @@ def main(argv=None) -> int:
     drive("10", ("B4c",), b4c_path)
 
     # 11-13: the fine-map expected-SARSA stack
-    fine = fine_map_phases(dev, out_dir, drive, mm)
+    fine_state: dict = {}
+    fine = fine_map_phases(dev, out_dir, drive, mm, keep=fine_state)
     # 14-17: the deep-Q family
     deep = deep_phases(dev, out_dir, drive, mm)
     # 18: the test room and a generated OBJ at bunny size
@@ -2425,6 +2900,8 @@ def main(argv=None) -> int:
     # 19: the thesis MAPE protocol; 20: the tools
     evaluation = eval_phase(dev, out_dir, drive, card)
     tools = tool_phase(dev, out_dir, drive)
+    # 21: the multi-device layer
+    parallel = dp_phase(dev, out_dir, drive, mm, fine_state)
     seconds = phase_seconds(time.perf_counter())
     log("[timing] seconds per phase: " + ", ".join(
         f"[{t}] {s:.1f}" for t, s in seconds.items()))
@@ -2471,7 +2948,7 @@ def main(argv=None) -> int:
         "grid_barrier_us": sync_us, "b2_frame_device_kernels": b2_kernels,
         "b4_walk": b4_walk,
         **fine, **deep, "scenes": scenes, "evaluation": evaluation,
-        "tools": tools, "phase_seconds": seconds},
+        "tools": tools, "parallel": parallel, "phase_seconds": seconds},
         indent=1))
     print(card)
     print(json.dumps(results))

@@ -63,6 +63,7 @@ from rlrpt_tpu_torch.ops.hemisphere import sector_cos_thetas
 from rlrpt_tpu_torch.ops.bvh import build_bvh
 from rlrpt_tpu_torch.ops.intersect_pallas import (closest_hit_mat_mxu,
                                                   pack_scene_mxu)
+from rlrpt_tpu_torch.parallel.mesh import any_rank, psum
 from rlrpt_tpu_torch.scene.scene import Scene
 
 SYNC_EVERY = 2
@@ -92,8 +93,11 @@ def trace_frame_deep_wavefront(generator_or_seed, scene: Scene,
                                opt_state: AdamState | None = None,
                                epsilon: float = 0.0, train: bool = False,
                                pix_mux: int = 1, mlp_dtype: str = "f32",
-                               train_batching: str = "minibatch"):
-    """One regenerative deep frame; returns (image_sum (n_pix, 3), stats).
+                               train_batching: str = "minibatch",
+                               pix_lo: int = 0,
+                               n_pix_local: int | None = None, mesh=None):
+    """One regenerative deep frame; returns (image_sum (n_pix_local, 3),
+    the pixels from ``pix_lo`` on, stats).
 
     ``train=False`` freezes the net (pretrained; the caller passes
     epsilon 0); ``train=True`` runs the online TD updates with
@@ -108,6 +112,15 @@ def trace_frame_deep_wavefront(generator_or_seed, scene: Scene,
     stats: path_sum, zclp, loss_sum, td_sq_sum, light_hits,
     light_path_sum (device tensors), phase_iterations (a device tensor),
     phase_widths (ints).
+
+    ``pix_lo`` and ``n_pix_local`` carve out this shard's pixel range
+    [pix_lo, pix_lo + n_pix_local) (the whole frame by default).  With a
+    ``mesh`` (parallel.mesh) every rank holds its shard (or its own scene)
+    and a replica of the net: the gradients, loss and live count are
+    summed per minibatch (neural_q.train_on_batches), as is td_sq, and a
+    phase ends only when every rank's live count fits the next width, so
+    all ranks run the same iterations and minibatches.  The other stats
+    stay the rank's own.
     """
     if mlp_dtype not in ("f32", "bf16"):
         raise ValueError(f"mlp_dtype must be 'f32' or 'bf16', got "
@@ -127,8 +140,10 @@ def trace_frame_deep_wavefront(generator_or_seed, scene: Scene,
     bvh = build_bvh(tris)   # once a frame: a host copy of the table
     ns = scene.n_surfaces
     n_pix, spp = cfg.n_pixels, cfg.samples_per_pixel
+    n_local = n_pix if n_pix_local is None else n_pix_local
+    pix_end = pix_lo + n_local
     gr = rl.grid_resolution
-    w0 = -(-n_pix // pix_mux)          # slots; slot i owns i + k*w0, k<mux
+    w0 = -(-n_local // pix_mux)        # slots; slot i owns i + k*w0, k<mux
     f32d = dict(dtype=torch.float32, device=device)
     i32 = dict(dtype=torch.int32, device=device)
     i64 = dict(dtype=torch.int64, device=device)
@@ -141,8 +156,8 @@ def trace_frame_deep_wavefront(generator_or_seed, scene: Scene,
     lane = torch.arange(1, w0 + 1, **i32)
     ksel_base = torch.arange(pix_mux, **i64)
 
-    pix0 = torch.arange(w0, **i64)
-    in_image = pix0 < n_pix
+    pix0 = pix_lo + torch.arange(w0, **i64)
+    in_image = (pix0 < n_pix) & (pix0 < pix_end)
     st = _State(
         o=cam_o.expand(w0, 3).clone(),
         d=_primary_dirs(gen, pix0, camera, cfg),
@@ -154,7 +169,7 @@ def trace_frame_deep_wavefront(generator_or_seed, scene: Scene,
         slot_rad=torch.zeros((w0, pix_mux, 3), **f32d),
         prev_loc=torch.zeros((w0, 3), **f32d),
         action=torch.full((w0,), -1, **i64))
-    image = torch.zeros((n_pix, 3), **f32d)
+    image = torch.zeros((n_local, 3), **f32d)
     zero = lambda dt: torch.zeros((), dtype=dt, device=device)  # noqa: E731
     stats = {"path_sum": zero(torch.float64), "zclp": zero(torch.int64),
              "loss_sum": zero(torch.float32),
@@ -200,10 +215,13 @@ def trace_frame_deep_wavefront(generator_or_seed, scene: Scene,
             stats["loss_sum"] += train_on_batches(
                 net, opt_state, scene, c.prev_loc,
                 torch.clamp(c.action, min=0), td, dl_t,
-                weights=pending.float())
+                weights=pending.float(), mesh=mesh)
             # the loss's scale: squared error grows with Q's magnitude
             # (x200 light reward) even while the relative error falls
-            stats["td_sq_sum"] += torch.where(pending, td * td, 0.0).sum()
+            td_sq = torch.where(pending, td * td, 0.0).sum()
+            if mesh is not None:
+                td_sq = psum(td_sq.reshape(1), mesh)[0]
+            stats["td_sq_sum"] += td_sq
 
         contrib = (torch.where(missed[:, None],
                                c.tp * cfg.environment_light, 0.0)
@@ -267,7 +285,7 @@ def trace_frame_deep_wavefront(generator_or_seed, scene: Scene,
         # regeneration: the next sample, else the next multiplexed pixel
         next_pix = c.pixel + w0
         step_k = (finished & (c.remaining <= 0) & (c.kmx + 1 < pix_mux)
-                  & (next_pix < n_pix))
+                  & (next_pix < n_pix) & (next_pix < pix_end))
         pixel = torch.where(step_k, next_pix, c.pixel)
         kmx = torch.where(step_k, c.kmx + 1, c.kmx)
         remaining = torch.where(step_k, spp, c.remaining)
@@ -292,7 +310,7 @@ def trace_frame_deep_wavefront(generator_or_seed, scene: Scene,
         w_next = widths[i + 1] if i + 1 < len(widths) else 0
         iters = torch.zeros((), **i64)
         n = 0
-        while n % SYNC_EVERY or int(st.active.sum()) > w_next:
+        while n % SYNC_EVERY or any_rank(st.active.sum() > w_next, mesh):
             iters = iters + st.active.any()
             st = step(st, wp)
             n += 1
@@ -302,9 +320,9 @@ def trace_frame_deep_wavefront(generator_or_seed, scene: Scene,
             # the tail [w_next:] is dead: flush its banked radiance before
             # slicing it away
             _flush(image, st.pixel[w_next:], st.kmx[w_next:],
-                   st.slot_rad[w_next:], w0)
+                   st.slot_rad[w_next:], w0, pix_lo)
             st = _State(*(a[:w_next] for a in st))
-    _flush(image, st.pixel, st.kmx, st.slot_rad, w0)
+    _flush(image, st.pixel, st.kmx, st.slot_rad, w0, pix_lo)
     stats.update(phase_iterations=torch.stack(phase_iters),
                  phase_widths=tuple(widths))
     return image, stats

@@ -46,9 +46,12 @@ from rlrpt_tpu_torch.nn.adam import AdamState, adam_init, adam_update
 from rlrpt_tpu_torch.nn.dq_network import DQNetwork
 from rlrpt_tpu_torch.ops import hemisphere as hs
 from rlrpt_tpu_torch.ops.bvh import build_bvh
+from rlrpt_tpu_torch.ops.intersect import closest_hit
 from rlrpt_tpu_torch.ops.intersect_pallas import (closest_hit_pallas_mat,
+                                                  material_rows,
                                                   pack_scene_mxu)
 from rlrpt_tpu_torch.ops.linalg import make_frame
+from rlrpt_tpu_torch.parallel.mesh import any_rank, psum
 from rlrpt_tpu_torch.scene.scene import AREA_LIGHT, NOTHING, SURFACE, Scene
 
 ACTIVE, TERMINATED, LEARNING_ONLY = 0, 1, 2
@@ -164,9 +167,18 @@ def sample_directions(generator: torch.Generator, qs: torch.Tensor,
 
 # ---- tracing, targets, training ------------------------------------------
 
-def make_hit_fn(scene: Scene):
+def make_hit_fn(scene: Scene, use_pallas: bool = True,
+                ray_tile: int = 8192):
     """The frame's closest hit: kernel B4a over tables and a BVH made
-    once.  Returns hit_fn(o, d) -> (Hit, material rows (R, 16))."""
+    once, or with ``use_pallas`` False the plain ``ops.intersect``
+    closest hit (tiled by ``ray_tile``) with gathered material rows, the
+    JAX package's non-Pallas option.  Returns hit_fn(o, d) -> (Hit,
+    material rows (R, 16))."""
+    if not use_pallas:
+        def plain(o, d):
+            hit = closest_hit(o, d, scene, ray_tile=ray_tile)
+            return hit, material_rows(scene, hit.tri)
+        return plain
     tris, mat = pack_scene_mxu(scene)
     bvh = build_bvh(tris)
     return lambda o, d: closest_hit_pallas_mat(o, d, scene, tris, mat,
@@ -242,13 +254,22 @@ def td_loss(net: DQNetwork, scene: Scene, loc: torch.Tensor,
 def train_on_batches(net: DQNetwork, opt_state: AdamState, scene: Scene,
                      prev_loc: torch.Tensor, actions: torch.Tensor,
                      tds: torch.Tensor, dl: DeepLearningConfig,
-                     weights: torch.Tensor | None = None) -> torch.Tensor:
+                     weights: torch.Tensor | None = None,
+                     mesh=None) -> torch.Tensor:
     """One Adam step per minibatch of dl.batch_size rays, in order (ref:
     neural_q_pathtracer.cu:421-513).  ``weights`` (R,) weight the
     squared errors (the wavefront's pending mask).  A minibatch whose
     weights are all zero (padding, or nothing pending) leaves the network
     and the state as they were, decided on the device.  Updates ``net``
-    and ``opt_state`` in place; returns the summed loss (a () tensor)."""
+    and ``opt_state`` in place; returns the summed loss (a () tensor).
+
+    With a ``mesh`` (parallel.mesh) each rank holds its share of every
+    global minibatch: one psum per minibatch sums the gradients, the loss
+    and the live-ray count, in one flat buffer, so every rank takes the
+    same Adam step (or none, when no rank has a live ray) and the
+    replicas stay bit-identical.  Every rank must hold as many rays
+    (``prev_loc.shape[0]``) and the same ``dl.batch_size``, so all run
+    the same number of minibatches."""
     r = prev_loc.shape[0]
     b = min(dl.batch_size, r)
     if weights is None:
@@ -261,8 +282,17 @@ def train_on_batches(net: DQNetwork, opt_state: AdamState, scene: Scene,
         loss = td_loss(net, scene, prev_loc[s:s + b], actions[s:s + b],
                        tds[s:s + b], w, dl)
         grads = torch.autograd.grad(loss, params)
+        n_live = w.sum()
+        if mesh is not None:
+            flat = psum(torch.cat([g.reshape(-1) for g in grads]
+                                  + [loss.detach().reshape(1),
+                                     n_live.reshape(1)]), mesh)
+            grads = [g.view_as(p) for g, p in
+                     zip(flat[:-2].split([p.numel() for p in params]),
+                         params)]
+            loss, n_live = flat[-2], flat[-1]
         adam_update(params, grads, opt_state, dl.learning_rate, dl.adam_b1,
-                    dl.adam_b2, dl.adam_eps, live=w.sum() > 0)
+                    dl.adam_b2, dl.adam_eps, live=n_live > 0)
         loss_sum = loss_sum + loss.detach()
     return loss_sum
 
@@ -291,10 +321,17 @@ def respawn_terminated(generator: torch.Generator, state: NeuralQState,
 
 def _trace_sample(generator, scene, camera, net, opt_state, epsilon,
                   cfg: RenderConfig, rl: RadianceVolumeConfig,
-                  dl: DeepLearningConfig, hit_fn):
+                  dl: DeepLearningConfig, hit_fn, rays=None, mesh=None):
     """One spp sample, bounce by bounce, training online.  Returns (final
-    ray state, summed loss)."""
-    state = init_rays(generator, camera, cfg)
+    ray state, summed loss).  ``rays``: (origins, directions) to trace in
+    place of the camera's (parallel.dp feeds each rank its shard).  With a
+    ``mesh`` (parallel.mesh) the gradients are summed over the ranks per
+    minibatch (train_on_batches) and the bounce loop ends when no rank's
+    active ray hit a surface."""
+    if rays is None:
+        state = init_rays(generator, camera, cfg)
+    else:
+        state = init_rays_from(rays[0], rays[1], cfg)
     loss = torch.zeros((), dtype=torch.float32, device=state.loc.device)
     for bounce in range(cfg.max_ray_bounces):
         if bounce > 0:     # primary rays keep the camera's directions
@@ -312,9 +349,9 @@ def _trace_sample(generator, scene, camera, net, opt_state, epsilon,
                                     dl)
             loss = loss + train_on_batches(net, opt_state, scene,
                                            state.prev_loc, state.action, td,
-                                           dl)
+                                           dl, mesh=mesh)
         state = respawn_terminated(generator, state, scene)
-        if not bool(go):
+        if not any_rank(go, mesh):
             break
     return state, loss
 

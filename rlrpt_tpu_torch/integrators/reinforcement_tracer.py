@@ -14,7 +14,7 @@ Per bounce, for every ray of one sample per pixel at once
 and the CDFs are rebuilt once per frame (ref: reinforcement_path_tracing.
 cu:6-13).  The hit is ``closest_hit_pallas`` (kernel B4b on the card), the
 nearest volume the dense search.  The bounce loop reads the live flag on
-the host every bounce.
+the host every bounce (the flag OR'd over the ranks under a mesh).
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from rlrpt_tpu_torch.config import RadianceVolumeConfig, RenderConfig
 from rlrpt_tpu_torch.ops.bvh import Bvh, build_bvh
 from rlrpt_tpu_torch.ops.intersect_pallas import (closest_hit_pallas,
                                                   pack_triangles)
+from rlrpt_tpu_torch.parallel.mesh import any_rank, psum
 from rlrpt_tpu_torch.radiance.nn_search import find_closest_volume
 from rlrpt_tpu_torch.radiance.volumes import (RadianceVolumes,
                                               expected_sarsa_update,
@@ -41,12 +42,17 @@ def trace_sample_sarsa(generator: torch.Generator, o: torch.Tensor,
                        d: torch.Tensor, scene: Scene, vols: RadianceVolumes,
                        cfg: RenderConfig, rl: RadianceVolumeConfig,
                        tris: torch.Tensor | None = None, scratch=None,
-                       bvh: Bvh | None = None):
+                       bvh: Bvh | None = None, mesh=None):
     """One sample per ray with online SARSA learning.  Returns (radiance
     (R, 3), path_len (R,), updated volumes, TD scatters issued (device
     int64: the visit-count delta)).  ``tris``: pack_triangles(scene) and
     ``bvh``: build_bvh(tris), made here if not given; ``scratch``:
-    volumes.td_scratch buffers, allocated here if not given."""
+    volumes.td_scratch buffers, allocated here if not given.
+
+    With a ``mesh`` (parallel.mesh) each rank holds a shard of the rays
+    and a replica of the volumes: every bounce's TD contributions are
+    summed over the ranks before the update, the bounce loop ends when no
+    rank has a live ray, and the TD scatter count is the ranks' sum."""
     dev = o.device
     n = o.shape[0]
     o, d = o.contiguous(), d.contiguous()
@@ -66,7 +72,7 @@ def trace_sample_sarsa(generator: torch.Generator, o: torch.Tensor,
     cur_brdf = torch.zeros((n,), dtype=torch.float32, device=dev)
     td_count = torch.zeros((), dtype=torch.int64, device=dev)
     for bounce in range(cfg.max_ray_bounces):
-        if not bool(active.any()):
+        if not any_rank(active.any(), mesh):
             break
         hit = closest_hit_pallas(o, d, scene, tris, bvh=bvh)
         is_nothing = active & (hit.hit_type == NOTHING)
@@ -85,7 +91,8 @@ def trace_sample_sarsa(generator: torch.Generator, o: torch.Tensor,
         td_count = td_count + pending.sum()
         vols = expected_sarsa_update(vols, cur_vol,
                                      torch.clamp(cur_sector, min=0), target,
-                                     pending, rl.radiance_threshold, scratch)
+                                     pending, rl.radiance_threshold, scratch,
+                                     mesh)
 
         # 2. terminal contributions
         radiance = (radiance
@@ -124,6 +131,8 @@ def trace_sample_sarsa(generator: torch.Generator, o: torch.Tensor,
         cur_vol = torch.where(is_surface, next_vol, cur_vol)
         cur_sector = torch.where(is_surface, sector, -1)
         cur_brdf = torch.where(is_surface, lum / math.pi, cur_brdf)
+    if mesh is not None:
+        td_count = psum(td_count.reshape(1), mesh)[0]
     return radiance, path_len, vols, td_count
 
 

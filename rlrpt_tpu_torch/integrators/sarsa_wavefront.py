@@ -57,6 +57,7 @@ from rlrpt_tpu_torch.ops.intersect_pallas import (closest_hit_mat_mxu,
                                                   pack_scene_mxu,
                                                   pack_triangles)
 from rlrpt_tpu_torch.ops.linalg import make_frame
+from rlrpt_tpu_torch.parallel.mesh import any_rank, psum
 from rlrpt_tpu_torch.radiance.grid_bucket import (VolumeClassTable,
                                                   find_closest_volume_grid,
                                                   find_closest_volume_table)
@@ -115,13 +116,14 @@ def _compact(s, wp: int):
 
 
 def _flush(image: torch.Tensor, pixel: torch.Tensor, kmx: torch.Tensor,
-           slot_rad: torch.Tensor, w0: int) -> torch.Tensor:
-    """Add the slots' banked radiance rows to ``image`` (n_pix, 3) in
-    place.  Slot s0's k-th pixel is s0 + k*w0, and s0 = pixel - kmx*w0
-    from the slot's current pixel; ids past the image are dropped.  Each
-    pixel belongs to one slot, so the adds never collide."""
+           slot_rad: torch.Tensor, w0: int, pix_lo: int = 0) -> torch.Tensor:
+    """Add the slots' banked radiance rows to ``image`` (n_pix_local, 3),
+    the pixels from ``pix_lo`` on, in place.  Slot s0's k-th pixel is
+    pix_lo + s0 + k*w0, and s0 = pixel - pix_lo - kmx*w0 from the slot's
+    current pixel; ids past the image are dropped.  Each pixel belongs to
+    one slot, so the adds never collide."""
     n_pix, pix_mux = image.shape[0], slot_rad.shape[1]
-    s0 = pixel - kmx * w0
+    s0 = pixel - pix_lo - kmx * w0
     idx = s0[:, None] + torch.arange(pix_mux, device=pixel.device) * w0
     valid = (idx >= 0) & (idx < n_pix)
     image.index_add_(0, idx[valid], slot_rad[valid])
@@ -135,18 +137,31 @@ def _phase_widths(w0: int, drain_factor: int, min_drain_w: int) -> list:
     return widths
 
 
-def render_frame_sarsa_wavefront(generator_or_seed, scene: Scene,
-                                 camera: Camera, vols: RadianceVolumes,
-                                 grid, cfg: RenderConfig,
-                                 rl: RadianceVolumeConfig,
-                                 pix_mux: int = 1, hit_mode: str = "mxu",
-                                 sampler: str = "row",
-                                 frame_mode: str = "hit",
-                                 drain_factor: int = DRAIN_FACTOR,
-                                 min_drain_w: int = MIN_DRAIN_W,
-                                 cdf_dtype: str = "f32"):
-    """Render one frame while learning; returns (image (H, W, 3), vols,
-    aux), the CDF rebuilt at the end (ref: main.cu:342-344).
+def trace_frame_sarsa_wavefront(generator_or_seed, scene: Scene,
+                                camera: Camera, vols: RadianceVolumes, grid,
+                                cfg: RenderConfig, rl: RadianceVolumeConfig,
+                                pix_mux: int = 1, mesh=None, pix_lo: int = 0,
+                                n_pix_local: int | None = None,
+                                hit_mode: str = "mxu", sampler: str = "row",
+                                frame_mode: str = "hit",
+                                drain_factor: int = DRAIN_FACTOR,
+                                min_drain_w: int = MIN_DRAIN_W,
+                                cdf_dtype: str = "f32"):
+    """One frame of regenerative SARSA tracing, no CDF rebuild.  Returns
+    (image_sum (n_pix_local, 3), the SUM over spp of the pixels from
+    ``pix_lo`` on; vols; path_sum; zclp; iters, the iterations with a
+    live slot; td_count; phase_iterations (a device tensor); phase_widths
+    (ints)), the statistics device tensors.
+
+    ``pix_lo`` and ``n_pix_local`` carve out this shard's pixel range
+    [pix_lo, pix_lo + n_pix_local) (the whole frame by default).  With a
+    ``mesh`` (parallel.mesh) every rank holds its shard and a replica of
+    the volumes: each iteration's TD contributions and scatter count are
+    summed over the ranks before the update, and a phase ends only when
+    every rank's live count fits the next width, so all ranks compact and
+    narrow together and run the same number of iterations (a rank whose
+    slots are all dead steps on, changing nothing).  path_sum, zclp and
+    iters stay the rank's own.
 
     ``generator_or_seed``: a torch.Generator on the volumes' device, or an
     int seed for one.  ``grid``: a VolumeClassTable or a VolumeGrid.
@@ -157,10 +172,6 @@ def render_frame_sarsa_wavefront(generator_or_seed, scene: Scene,
     normal, "volume" in the matched volume's.  cdf_dtype "bf16" stores the
     carried rows in bfloat16: the pdf is taken from the same rounded rows,
     so the image stays unbiased.
-
-    aux: avg_path_length, zero_contribution_light_paths,
-    wavefront_iterations, td_scatter_count (== the visit-count delta),
-    phase_iterations (device tensors) and phase_widths (ints).
     """
     for name, val, ok in (("hit_mode", hit_mode, ("mxu", "f32")),
                           ("sampler", sampler, ("row", "hier")),
@@ -182,9 +193,11 @@ def render_frame_sarsa_wavefront(generator_or_seed, scene: Scene,
     bvh = build_bvh(tris)   # once a frame: a host copy of the table
     ns = scene.n_surfaces
     n_pix = cfg.n_pixels
+    n_local = n_pix if n_pix_local is None else n_pix_local
+    pix_end = pix_lo + n_local
     spp = cfg.samples_per_pixel
     v, s = vols.n_volumes, vols.n_sectors
-    w0 = -(-n_pix // pix_mux)          # slots; slot i owns i + k*w0, k<mux
+    w0 = -(-n_local // pix_mux)        # slots; slot i owns i + k*w0, k<mux
     f32 = dict(dtype=torch.float32, device=device)
     i32 = dict(dtype=torch.int32, device=device)
     i64 = dict(dtype=torch.int64, device=device)
@@ -200,8 +213,8 @@ def render_frame_sarsa_wavefront(generator_or_seed, scene: Scene,
     lane = torch.arange(1, w0 + 1, **i32)
     ksel_base = torch.arange(pix_mux, **i64)
 
-    pix0 = torch.arange(w0, **i64)
-    in_image = pix0 < n_pix
+    pix0 = pix_lo + torch.arange(w0, **i64)
+    in_image = (pix0 < n_pix) & (pix0 < pix_end)
     st = _State(
         o=cam_o.expand(w0, 3).clone(),
         d=_primary_dirs(gen, pix0, camera, cfg),
@@ -213,7 +226,7 @@ def render_frame_sarsa_wavefront(generator_or_seed, scene: Scene,
         cur_vol=torch.zeros((w0,), **i64),
         cur_sector=torch.full((w0,), -1, **i64),
         cur_brdf=torch.zeros((w0,), **f32))
-    image = torch.zeros((n_pix, 3), **f32)
+    image = torch.zeros((n_local, 3), **f32)
     path_sum = torch.zeros((), dtype=torch.float64, device=device)
     zclp = torch.zeros((), **i64)
     td_count = torch.zeros((), **i64)
@@ -258,10 +271,14 @@ def render_frame_sarsa_wavefront(generator_or_seed, scene: Scene,
             missed, c.cur_brdf * cfg.environment_light,
             torch.where(hit_light, c.cur_brdf * lum, c.cur_brdf * irr_b))
         pending = act & (c.cur_sector >= 0)
-        td_count = td_count + pending.sum()
+        td_add = pending.sum()
         sum_t, cnt = sarsa_contributions(
             c.cur_vol, torch.clamp(c.cur_sector, min=0), target, pending, v,
             s, scratch)
+        if mesh is not None:
+            td_add = psum(td_add.reshape(1), mesh)[0]
+            sum_t, cnt = psum(torch.stack([sum_t, cnt]), mesh)
+        td_count = td_count + td_add
         vols = apply_sarsa_contributions(vols, sum_t, cnt,
                                          rl.radiance_threshold)
         cdfplus[:, -1] = irradiance_estimates(vols, sec_cos).to(
@@ -328,7 +345,7 @@ def render_frame_sarsa_wavefront(generator_or_seed, scene: Scene,
         # (the pixel stride stays w0 in every phase)
         next_pix = c.pixel + w0
         step_k = (finished & (c.remaining <= 0) & (c.kmx + 1 < pix_mux)
-                  & (next_pix < n_pix))
+                  & (next_pix < n_pix) & (next_pix < pix_end))
         pixel = torch.where(step_k, next_pix, c.pixel)
         kmx = torch.where(step_k, c.kmx + 1, c.kmx)
         remaining = torch.where(step_k, spp, c.remaining)
@@ -352,7 +369,7 @@ def render_frame_sarsa_wavefront(generator_or_seed, scene: Scene,
         w_next = widths[i + 1] if i + 1 < len(widths) else 0
         iters = torch.zeros((), **i64)
         n = 0
-        while n % SYNC_EVERY or int(st.active.sum()) > w_next:
+        while n % SYNC_EVERY or any_rank(st.active.sum() > w_next, mesh):
             iters = iters + st.active.any()
             st = step(st, wp)
             n += 1
@@ -362,17 +379,46 @@ def render_frame_sarsa_wavefront(generator_or_seed, scene: Scene,
             # the tail [w_next:] is dead (live <= w_next, compacted to the
             # front): flush its banked radiance before slicing it away
             _flush(image, st.pixel[w_next:], st.kmx[w_next:],
-                   st.slot_rad[w_next:], w0)
+                   st.slot_rad[w_next:], w0, pix_lo)
             st = _State(*(a[:w_next] for a in st))
-    _flush(image, st.pixel, st.kmx, st.slot_rad, w0)
+    _flush(image, st.pixel, st.kmx, st.slot_rad, w0, pix_lo)
+    phase_iters = torch.stack(phase_iters)
+    return (image, vols, path_sum, zclp, phase_iters.sum(), td_count,
+            phase_iters, tuple(widths))
 
+
+def render_frame_sarsa_wavefront(generator_or_seed, scene: Scene,
+                                 camera: Camera, vols: RadianceVolumes,
+                                 grid, cfg: RenderConfig,
+                                 rl: RadianceVolumeConfig,
+                                 pix_mux: int = 1, hit_mode: str = "mxu",
+                                 sampler: str = "row",
+                                 frame_mode: str = "hit",
+                                 drain_factor: int = DRAIN_FACTOR,
+                                 min_drain_w: int = MIN_DRAIN_W,
+                                 cdf_dtype: str = "f32"):
+    """Render one frame while learning; returns (image (H, W, 3), vols,
+    aux), the CDF rebuilt at the end (ref: main.cu:342-344).  The
+    arguments are trace_frame_sarsa_wavefront's.
+
+    aux: avg_path_length, zero_contribution_light_paths,
+    wavefront_iterations, td_scatter_count (== the visit-count delta),
+    phase_iterations (device tensors) and phase_widths (ints).
+    """
+    image, vols, path_sum, zclp, iters, td_count, phase_iters, widths = \
+        trace_frame_sarsa_wavefront(
+            generator_or_seed, scene, camera, vols, grid, cfg, rl,
+            pix_mux=pix_mux, hit_mode=hit_mode, sampler=sampler,
+            frame_mode=frame_mode, drain_factor=drain_factor,
+            min_drain_w=min_drain_w, cdf_dtype=cdf_dtype)
     vols = rebuild_cdf(vols, rl.distribution_threshold, rl.defensive_mix)
+    spp = cfg.samples_per_pixel
     img = (image / spp).reshape(cfg.height, cfg.width, 3)
-    aux = {"avg_path_length": path_sum / (n_pix * spp),
+    aux = {"avg_path_length": path_sum / (cfg.n_pixels * spp),
            "zero_contribution_light_paths": zclp,
-           "wavefront_iterations": sum(phase_iters),
+           "wavefront_iterations": iters,
            "td_scatter_count": td_count,
-           "phase_iterations": torch.stack(phase_iters),
-           "phase_widths": tuple(widths)}
+           "phase_iterations": phase_iters,
+           "phase_widths": widths}
     return img, vols, aux
 

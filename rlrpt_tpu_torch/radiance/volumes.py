@@ -34,6 +34,7 @@ import torch
 from rlrpt_tpu_torch.config import RHO, RadianceVolumeConfig
 from rlrpt_tpu_torch.ops import hemisphere as hs
 from rlrpt_tpu_torch.ops.linalg import make_frame
+from rlrpt_tpu_torch.parallel.mesh import psum
 from rlrpt_tpu_torch.scene.geometry import sample_points_on_triangles
 from rlrpt_tpu_torch.scene.scene import Scene, surface_areas
 
@@ -336,9 +337,13 @@ def apply_sarsa_contributions(vols: RadianceVolumes, sum_t: torch.Tensor,
 def expected_sarsa_update(vols: RadianceVolumes, vol_idx: torch.Tensor,
                           sector: torch.Tensor, target: torch.Tensor,
                           mask: torch.Tensor, radiance_threshold: float,
-                          scratch=None) -> RadianceVolumes:
+                          scratch=None, mesh=None) -> RadianceVolumes:
     """Batched expected-SARSA TD update (ref: radiance_volume.cu:283-301);
-    masked-out entries are dropped."""
+    masked-out entries are dropped.  With a ``mesh`` (parallel.mesh) the
+    contributions are summed over its ranks before the apply, so every
+    rank applies the same update to its replicated volumes."""
     sum_t, cnt = sarsa_contributions(vol_idx, sector, target, mask,
                                      vols.n_volumes, vols.n_sectors, scratch)
+    if mesh is not None:
+        sum_t, cnt = psum(torch.stack([sum_t, cnt]), mesh)
     return apply_sarsa_contributions(vols, sum_t, cnt, radiance_threshold)

@@ -54,22 +54,10 @@ from rlrpt_tpu_torch.config import (DeepLearningConfig, RadianceVolumeConfig,
                                     RenderConfig)
 from rlrpt_tpu_torch.utils.image import mape_score, write_png
 from rlrpt_tpu_torch.utils.profiling import host_fence
+from rlrpt_tpu_torch.utils.rng import fold_in
 
 PROTOCOL = "thesis MAPE (4_critical_evaluation.tex:47-69)"
 SEED = 1984         # the JAX tool's root key, jax.random.PRNGKey(1984)
-_M32 = 0xFFFFFFFF
-
-
-def fold_in(seed: int, n: int) -> int:
-    """The int seed of stream ``n`` of a run seeded with ``seed``: the
-    port's counterpart of ``jax.random.fold_in(key, n)``.  A murmur3
-    finaliser of (seed, n), in [0, 2**31 - 1)."""
-    x = (seed * 0x9E3779B1 + (n + 1) * 0x85EBCA77) & _M32
-    for shift, mul in ((16, 0x7FEB352D), (15, 0x846CA68B)):
-        x ^= x >> shift
-        x = (x * mul) & _M32
-    x ^= x >> 16
-    return x % (2 ** 31 - 1)
 
 
 def _split_chunks(total: int, chunk: int) -> list:
