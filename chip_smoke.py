@@ -59,8 +59,14 @@ set to 0 just before it and read just after:
   generated OBJ at bunny.obj's size, 4,980 triangles (native parse equal
   to the Python one; B1, B3 with a baked per-triangle table and B4a/b
   bit-equal to their twins; B1, B3 and B4a-c timed against their bounds
-  at 720x720; ``--mode mega``, ``--mode wavefront`` and ``--mode
-  sarsa-fast`` through the CLI, means within 2%), and scene_bench rows
+  at 720x720; ``--mode wavefront`` and ``--mode sarsa-fast`` through the
+  CLI, means within 2%); the culled B1 (``render_default_mega(cull=...)``,
+  a BVH walk in the slot loop) on the OBJ and on the 288-triangle
+  clutter scene at 720x720: bit-equal to the sweep kernel at 1 and 32
+  spp, each timed in turns, and to its twin (the plain walk) at 1 spp,
+  its counted bound from the count-only build (equal to the twin's
+  counts); ``--mode mega`` on the OBJ, culled by default, bit-equal to
+  ``cull=False`` at its seed; and scene_bench rows with ``--cull both``
   for Cornell, the test room and the OBJ, Morton-sorted and not;
 * the thesis MAPE protocol (phase 19, ``tools/evaluate.py``) on Cornell
   at 720x720, 128 spp: the port's own 4096-spp GT (B1) within 0.5% of
@@ -94,7 +100,9 @@ set to 0 just before it and read just after:
   v0 + c_0 + c_1 exactly, and B2, B3 and B4a launched on each rank.
 
 Fails if a kernel of a path was never launched in it, if the brute-force
-sweep was, or if a wavefront or sarsa-fast frame built more than one BVH.
+sweep was, if the culled B1 was on a path that sweeps (Cornell, the test
+room: one chunk; ``cull=True`` on Cornell is forced off, as in JAX), or
+if a wavefront or sarsa-fast frame built more than one BVH.
 Prints one line per
 phase and, after the last, each phase's seconds; then the card line, one
 JSON line describing the kernels, and as the last line {"ok": true,
@@ -1324,13 +1332,14 @@ def scene_phases(dev, out_dir: Path, drive, size: int = 720,
                                                     parse_obj)
     from rlrpt_tpu_torch.scene.scene import morton_sort_surfaces
     from rlrpt_tpu_torch.tools import render
-    from rlrpt_tpu_torch.tools.mega_sweep import lane_efficiency
+    from rlrpt_tpu_torch.tools.mega_sweep import (lane_efficiency,
+                                                  walk_frame_bound)
     from rlrpt_tpu_torch.tools.scene_bench import bench_scene
     from rlrpt_tpu_torch.utils import native
     from rlrpt_tpu_torch.utils.image import write_png
 
     res, secs = {}, {}
-    errs = dict.fromkeys(("B1", "B3", "B2", "B4a", "B4b"), 0.0)
+    errs = dict.fromkeys(("B1", "B1 culled", "B3", "B2", "B4a", "B4b"), 0.0)
     cam = mk.camera_vector(Camera.create(CAM))
     camera = Camera.create(CAM)
     full = lambda spp: RenderConfig(  # noqa: E731
@@ -1479,12 +1488,20 @@ def scene_phases(dev, out_dir: Path, drive, size: int = 720,
     tables = {}
     for label, sc in (("unsorted", obj), ("Morton-sorted", obj_sorted)):
         tables[label] = mk.pack_scene(sc)
+        k_out = mk.mega_default_frame(41, cam, *tables[label], small2,
+                                      n_small, 1)
         errs["B1"] = max(errs["B1"], equal_frames(
-            f"B1 torus room {label} 64x64 2spp",
-            mk.mega_default_frame(41, cam, *tables[label], small2, n_small,
-                                  1),
+            f"B1 torus room {label} 64x64 2spp", k_out,
             mk.mega_default_frame_plain(41, cam, *tables[label], small2,
                                         n_small, 1), small2))
+        c_out = mk.mega_default_frame(41, cam, *tables[label], small2,
+                                      n_small, 1,
+                                      bv.build_bvh(tables[label][0]))
+        for n, a, b in zip(("rad", "path_sum", "iters"), c_out, k_out):
+            check(torch.equal(a, b), f"culled B1 torus room {label}: {n} "
+                                     f"differs from the sweep kernel's")
+        log(f"  culled B1 torus room {label} 64x64 2spp: bit-equal to the "
+            f"sweep kernel")
     o_tris, o_mat = ip.pack_scene_mxu(obj)
     builds = []
     for _ in range(3):
@@ -1515,41 +1532,148 @@ def scene_phases(dev, out_dir: Path, drive, size: int = 720,
         "edge, vertex and grazing rays": (e_o, e_d, e_o.shape[0])})
     secs["OBJ import and twins"] = time.perf_counter() - t_part
 
-    # ---- 18d: the generated OBJ at full width -----------------------------
+    # ---- 18d: the culled B1 against the sweep kernel and its twin ---------
     t_part = time.perf_counter()
     tris, mat = tables["unsorted"]
     kern = {}
+    log(f"[18] the culled B1 (a BVH walk in the slot loop) against the sweep "
+        f"kernel at {size}x{size}, 80 bounces, 1 and 32 spp (one launch "
+        f"each by CUDA events, in turns sweep, culled, culled, sweep), and "
+        f"at 1 spp against its twin (the plain walk in the slot loop; "
+        f"{size}x{size} on the OBJ, 128x128 on the clutter): rad, path_sum "
+        f"and iters bit-equal; bound counted from the walks' box and "
+        f"triangle tests (the count-only build, equal to the twin's counts)")
 
-    def b1_frame(spp):
-        ms, out = event_ms(lambda: mk.mega_default_frame(
-            51, cam, tris, mat, full(spp), n_full, mk.PIX_MUX))
-        bound, by = frame_bound("B1", out, n_tris)
-        _, aux = mk.assemble(*out, full(spp))
-        iters = out[2]
-        kern[f"B1 {spp} spp"] = {
-            "ms": ms, "bound_ms": bound, "bound_by": by,
-            "share": bound / ms, "avg_path": float(aux["avg_path_length"]),
-            "max_iterations": int(iters.max()),
-            "warp_efficiency": lane_efficiency(iters, 32),
-            "block_efficiency": lane_efficiency(iters, 128)}
-        k = kern[f"B1 {spp} spp"]
-        log(f"[18] B1 torus room {size}x{size} {spp} spp: {ms:.4f} ms (one "
-            f"launch, CUDA events), bound {bound:.4f} ms ({by}; "
-            f"{float(out[1].double().sum()):.0f} segments), share "
-            f"{k['share']:.4f}; avg path {k['avg_path']:.4f}, longest slot "
-            f"{k['max_iterations']} iterations, lane efficiency warp "
-            f"{k['warp_efficiency']:.3f} block {k['block_efficiency']:.3f}")
+    def culled_b1(label, c_tris, c_mat, seed, twin_size):
+        """The culled kernel on one table against the sweep kernel and,
+        at twin_size x twin_size, 1 spp, the twin (the plain walk steps
+        one torch op at a time: 10-40 s at 720x720 on the card); returns
+        its figures and fills kern for the OBJ."""
+        builds = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            tree = bv.build_bvh(c_tris)
+            torch.cuda.synchronize()
+            builds.append(time.perf_counter() - t0)
+        t = c_tris.shape[0]
+        fig = {"triangles": t, "nodes": tree.nodes.shape[0],
+               "depth": tree.depth, "build_seconds": builds}
+        log(f"[18] {label}: {t} triangles, tree of {tree.nodes.shape[0]} "
+            f"inner nodes, depth {tree.depth}; build (host numpy, the "
+            f"table copied from the card) "
+            + ", ".join(f"{b:.4f}" for b in builds) + " s")
+        for spp in (1, 32):
+            args = (seed, cam, c_tris, c_mat, full(spp), n_full, mk.PIX_MUX)
+            ms = {"sweep": [], "culled": []}
+            outs = {}
+            for kind in ("sweep", "culled", "culled", "sweep"):
+                t_ms, out = event_ms(lambda: mk.mega_default_frame(
+                    *args, tree if kind == "culled" else None))
+                ms[kind].append(t_ms)
+                outs.setdefault(kind, []).append(out)
+            ref = outs["sweep"][0]
+            for out in outs["sweep"][1:] + outs["culled"]:
+                for n, a, b in zip(("rad", "path_sum", "iters"), out, ref):
+                    check(torch.equal(a, b), f"culled B1 {label} {spp} spp: "
+                                             f"{n} differs from the sweep's")
+            visits, tests = mk.walk_counts(*args, tree)
+            point = {"sweep_ms": ms["sweep"], "culled_ms": ms["culled"],
+                     "visits": visits, "tests": tests}
+            extra = ""
+            if spp == 1:
+                t_cfg = RenderConfig(width=twin_size, height=twin_size,
+                                     samples_per_pixel=1, max_ray_bounces=80)
+                t_args = (seed, cam, c_tris, c_mat, t_cfg, mk.n_slots_for(
+                    t_cfg.n_pixels, mk.R_TILE, mk.PIX_MUX), mk.PIX_MUX, tree)
+                k_out = (outs["culled"][0] if twin_size == size
+                         else mk.mega_default_frame(*t_args))
+                counts = {"visits": 0, "tests": 0}
+                plain_ms, p_out = host_ms(lambda: mk.mega_default_frame_plain(
+                    *t_args, counts))
+                for n, a, b in zip(("rad", "path_sum", "iters"), p_out,
+                                   k_out):
+                    check(torch.equal(a, b), f"culled B1 {label}: the twin's "
+                                             f"{n} differs")
+                k_counts = mk.walk_counts(*t_args)
+                check((counts["visits"], counts["tests"]) == k_counts,
+                      f"culled B1 {label}: the count-only build counted "
+                      f"{k_counts}, the twin {counts}")
+                point["plain_ms"] = plain_ms
+                errs["B1 culled"] = max(errs["B1 culled"], float(
+                    (p_out[0] - k_out[0]).abs().max()))
+                extra = (f"; twin at {twin_size}x{twin_size} {plain_ms:.1f} "
+                         f"ms, bit-equal, its counts the count-only build's")
+            segments = float(ref[1].double().sum())
+            bound, by = walk_frame_bound(ref, tree, visits, tests)
+            brute, brute_by = frame_bound("B1", ref, t)
+            m_s, m_c = statistics.mean(ms["sweep"]), statistics.mean(
+                ms["culled"])
+            point.update(ms=m_c, bound_ms=bound, bound_by=by,
+                         share=bound / m_c, sweep_mean_ms=m_s,
+                         brute_bound_ms=brute, brute_bound_by=brute_by,
+                         segments=segments)
+            fig[f"{spp} spp"] = point
+            log(f"[18] {label} {size}x{size} {spp} spp: sweep "
+                + ", ".join(f"{x:.4f}" for x in ms["sweep"]) + " ms; culled "
+                + ", ".join(f"{x:.4f}" for x in ms["culled"])
+                + f" ms (sweep / culled {m_s / m_c:.2f}x), bit-equal; "
+                f"{segments:.0f} segments, {visits / segments:.3f} inner-node "
+                f"visits and {tests / segments:.3f} triangle tests a segment;"
+                f" counted bound {bound:.4f} ms ({by}), share "
+                f"{bound / m_c:.4f}; brute-force bound {brute:.4f} ms "
+                f"({brute_by}), the sweep's share {brute / m_s:.4f}" + extra)
+            if label == "torus room":
+                _, aux = mk.assemble(*ref, full(spp))
+                iters = ref[2]
+                kern[f"B1 {spp} spp"] = {
+                    "ms": m_s, "bound_ms": brute, "bound_by": brute_by,
+                    "share": brute / m_s,
+                    "avg_path": float(aux["avg_path_length"]),
+                    "max_iterations": int(iters.max()),
+                    "warp_efficiency": lane_efficiency(iters, 32),
+                    "block_efficiency": lane_efficiency(iters, 128)}
+                kern[f"B1 culled {spp} spp"] = point
+        return fig
 
-    drive("18", ("B1",), lambda: (b1_frame(1), b1_frame(32)))
-    img, aux, mega_s = drive("18", ("B1",), lambda: run_cli(
+    res["culled_b1"] = {
+        "clutter": culled_b1("clutter (Cornell + 250)",
+                             *mk.pack_scene(clutter_scene(dev)), 52, 128),
+        "torus_room": culled_b1("torus room", tris, mat, 51, size)}
+    secs["culled B1"] = time.perf_counter() - t_part
+
+    # ---- 18e: the generated OBJ at full width -----------------------------
+    t_part = time.perf_counter()
+    # --mode mega culls the OBJ by default; its image is the sweep's at the
+    # CLI's seed (render.py draws it from --seed as below)
+    img, aux, mega_s = drive("18", ("B1 culled",), lambda: run_cli(
         ["--mode", "mega", "--scene", preset.name, "--spp", "32", "--seed",
          "1984"]))
+    check(mk.KERNEL.launches == 0 and bv.BUILDS == 1,
+          f"--mode mega on the OBJ: {mk.KERNEL.launches} sweep launches, "
+          f"{bv.BUILDS} tree builds")
     check_image("torus room mega", img, size)
     check(float(aux["avg_path_length"]) > 2.0, "torus room: paths too short")
+    cli_seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=(
+        torch.Generator().manual_seed(1984))))
+
+    def swept():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = mk.render_default_mega(cli_seed, obj, Camera.create(
+            preset.camera_position), full(32), dev, cull=False)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (img_off, _), off_s = drive("18", ("B1",), swept)
+    check(torch.equal(img, img_off), "--mode mega on the OBJ: the culled "
+                                     "image differs from cull=False's")
     obj_mean = float(img.mean())
     write_png(str(out_dir / "torus_room-mega.png"), img.cpu())
-    log(f"[18] --mode mega --scene {preset.name} 32 spp: {mega_s:.4f} s, "
-        f"mean {obj_mean:.6f}, avg path {float(aux['avg_path_length']):.4f}")
+    log(f"[18] --mode mega --scene {preset.name} 32 spp (culled by "
+        f"default): {mega_s:.4f} s, mean {obj_mean:.6f}, avg path "
+        f"{float(aux['avg_path_length']):.4f}; render_default_mega("
+        f"cull=False) at the same seed {off_s:.4f} s: the same image bit "
+        f"for bit")
 
     # B4a through the walk against the sweep per 518,400 camera rays and
     # their bounce rays at this T; B4b and B4c (no rows) on the camera rays
@@ -1614,7 +1738,7 @@ def scene_phases(dev, out_dir: Path, drive, size: int = 720,
     check(abs(w_gap) <= 0.02, f"torus room wavefront off by {w_gap:+.2%}")
     secs["OBJ mega, B4, wavefront"] = time.perf_counter() - t_part
 
-    # ---- 18e: the fine map on the generated OBJ ---------------------------
+    # ---- 18f: the fine map on the generated OBJ ---------------------------
     t_part = time.perf_counter()
     area = 0.001
     f_img, f_aux, f_sec = drive("18", ("B4a",), lambda: run_cli(
@@ -1722,7 +1846,8 @@ def scene_phases(dev, out_dir: Path, drive, size: int = 720,
     res["torus_room"] = {
         "triangles": n_tris, "t_pad": o_pad, "parse_native_s": native_s,
         "parse_python_s": python_s, "mega_mean": obj_mean,
-        "mega_seconds": mega_s, "kernels": kern,
+        "mega_seconds": mega_s, "mega_cull_off_seconds": off_s,
+        "kernels": kern,
         "wavefront_seconds": w_sec, "wavefront_vs_mega": w_gap,
         "wavefront_b4a_device_seconds": w_b4a,
         "sarsa_fast_frame_seconds": l_sec,
@@ -1733,10 +1858,11 @@ def scene_phases(dev, out_dir: Path, drive, size: int = 720,
         "baked_b3_vs_mega": b3_gap}
     secs["OBJ fine map"] = time.perf_counter() - t_part
 
-    # ---- 18f: scene_bench rows ----------------------------------------------
+    # ---- 18g: scene_bench rows ----------------------------------------------
     t_part = time.perf_counter()
     log(f"[18] scene_bench rows ({size}x{size}, 1 spp, 80 bounces, 5 "
-        f"frames)")
+        f"frames; --cull both: an off and an on row for the OBJ, an off row "
+        f"for a one-chunk scene)")
     rows = []
 
     def bench_rows():
@@ -1744,11 +1870,15 @@ def scene_phases(dev, out_dir: Path, drive, size: int = 720,
                 ("cornell", presets.load_scene("cornell", dev), True),
                 ("test_room", room, True),
                 (preset.name, obj, False), (preset.name, obj, True)):
-            rows.append(bench_scene(name, sc, camera, full(1), dev,
-                                    frames=5, morton=morton))
-            log("[18] " + json.dumps(rows[-1]))
+            for cull in ([False, True] if mk.use_cull(sc.n_triangles)
+                         else [False]):
+                rows.append(bench_scene(name, sc, camera, full(1), dev,
+                                        frames=5, morton=morton, cull=cull))
+                log("[18] " + json.dumps(rows[-1]))
 
-    drive("18", ("B1",), bench_rows)
+    drive("18", ("B1", "B1 culled"), bench_rows)
+    check([r["cull"] for r in rows] == [False, False, False, True, False,
+                                        True], "scene_bench's cull rows")
     res["scene_bench"] = rows
     secs["scene_bench"] = time.perf_counter() - t_part
     res["seconds"] = secs
@@ -2727,15 +2857,16 @@ def main(argv=None) -> int:
                     f"graph time")
 
     # ---- the paths, each counted from zero ------------------------------
-    kernels = {"B1": mk.KERNEL, "B3": gm.KERNEL, "B2": gt.KERNEL,
-               "B4a": ip.KERNEL_MAT, "B4b": ip.KERNEL_F32,
+    kernels = {"B1": mk.KERNEL, "B1 culled": mk.KERNEL_CULL, "B3": gm.KERNEL,
+               "B2": gt.KERNEL, "B4a": ip.KERNEL_MAT, "B4b": ip.KERNEL_F32,
                "B4c": ip.KERNEL_MXU}
     launches = dict.fromkeys(kernels, 0)
 
     def drive(path: str, expect, fn):
         """fn() with every count at 0; the expected kernels must launch,
-        and the brute-force sweep (no path's kernel) must not.  bv.BUILDS
-        holds the run's BVH builds afterwards."""
+        and the brute-force sweep (no path's kernel) must not, nor the
+        culled B1 where it is not expected (a scene of one chunk sweeps).
+        bv.BUILDS holds the run's BVH builds afterwards."""
         for kern in (*kernels.values(), ip.KERNEL_SWEEP):
             kern.launches = 0
         bv.BUILDS = 0
@@ -2749,6 +2880,8 @@ def main(argv=None) -> int:
               f"{path}: a kernel of the path never launched: {counts}")
         check(ip.KERNEL_SWEEP.launches == 0,
               f"{path}: the brute-force sweep ran on a path")
+        check("B1 culled" in expect or counts["B1 culled"] == 0,
+              f"{path}: the culled B1 ran on a path that sweeps")
         for n in expect:
             launches[n] += counts[n]
         return out
@@ -2770,6 +2903,13 @@ def main(argv=None) -> int:
     rays_per_s = statistics.median(trials)
     log(f"[4] bench point rays/s (median of 5): {rays_per_s:.6g} "
         f"on {card}")
+    # JAX forces the cull off on a one-chunk scene: cull=True on Cornell
+    # launches the sweep kernel and builds no tree
+    drive("4", ("B1",), lambda: mk.render_default_mega(
+        5, scene, camera, bench, dev, cull=True))
+    check(bv.BUILDS == 0, f"cull=True on Cornell built {bv.BUILDS} trees")
+    log("[4] render_default_mega(cull=True) on Cornell: the sweep kernel, "
+        "no tree")
 
     # 5, 8, 9: the CLI at 720x720, 32 spp
     common = ["--width", "720", "--height", "720", "--spp", "32",
@@ -2906,25 +3046,39 @@ def main(argv=None) -> int:
     log("[timing] seconds per phase: " + ", ".join(
         f"[{t}] {s:.1f}" for t, s in seconds.items()))
 
+    cw = scenes["culled_b1"]["torus_room"]["1 spp"]
+    cw32 = scenes["culled_b1"]["torus_room"]["32 spp"]
     results = {"kernels": [
         {"name": "B1 mega_default", "route": "cuda",
          "source": "rlrpt_tpu_torch/csrc/mega_default.cu",
          "replaces": "rlrpt_tpu/ops/megakernel.py:247",
          "launches": launches["B1"], "max_abs_err": b1_err,
          "ms": b1_ms, "plain_ms": b1_plain_ms, "bound_ms": b1_bound,
-         "bound_by": b1_by, "library_ms": None},
+         "bound_by": b1_by, "library_ms": None, "share": b1_bound / b1_ms},
+        {"name": "B1 mega_default_bvh (culled)", "route": "cuda",
+         "source": "rlrpt_tpu_torch/csrc/mega_default.cu",
+         "replaces": "rlrpt_tpu/ops/megakernel.py:411",
+         "launches": launches["B1 culled"],
+         "max_abs_err": scenes["max_abs_err"]["B1 culled"],
+         "ms": cw["ms"], "plain_ms": cw["plain_ms"],
+         "bound_ms": cw["bound_ms"], "bound_by": cw["bound_by"],
+         "library_ms": None, "share": cw["share"],
+         "point": "generated OBJ, 4,980 triangles, 720x720, 1 spp, 80 "
+                  "bounces", "sweep_ms": cw["sweep_mean_ms"],
+         "ms_32_spp": cw32["ms"], "sweep_ms_32_spp": cw32["sweep_mean_ms"],
+         "bound_ms_32_spp": cw32["bound_ms"]},
         {"name": "B3 mega_guided", "route": "cuda",
          "source": "rlrpt_tpu_torch/csrc/mega_guided.cu",
          "replaces": "rlrpt_tpu/ops/guided_mega.py:137",
          "launches": launches["B3"], "max_abs_err": b3_err,
          "ms": b3_ms, "plain_ms": b3_plain_ms, "bound_ms": b3_bound,
-         "bound_by": b3_by, "library_ms": None},
+         "bound_by": b3_by, "library_ms": None, "share": b3_bound / b3_ms},
         {"name": "B2 mega_train", "route": "cuda",
          "source": "rlrpt_tpu_torch/csrc/mega_train.cu",
          "replaces": "rlrpt_tpu/ops/guided_mega_train.py:101",
          "launches": launches["B2"], "max_abs_err": b2_err,
          "ms": b2_ms, "plain_ms": b2_plain_ms, "bound_ms": b2_bound,
-         "bound_by": b2_by, "library_ms": None},
+         "bound_by": b2_by, "library_ms": None, "share": b2_bound / b2_ms},
     ] + [
         {"name": f"{n} {fn}", "route": "cuda",
          "source": "rlrpt_tpu_torch/csrc/closest_hit.cu",
@@ -2932,7 +3086,8 @@ def main(argv=None) -> int:
          "launches": launches[n], "max_abs_err": b4_err[n],
          "ms": b4_ms[n], "plain_ms": b4_plain_ms[n],
          "bound_ms": b4_bound[n][0], "bound_by": b4_bound[n][1],
-         "library_ms": None, "graph_ms": b4_graph_ms[n],
+         "library_ms": None, "share": b4_bound[n][0] / b4_ms[n],
+         "graph_ms": b4_graph_ms[n],
          **({"walk_vs_sweep_graph_ms": {
              k: [b4_walk["cornell"][k]["ms"]["walk"],
                  b4_walk["cornell"][k]["ms"]["sweep"]]

@@ -17,7 +17,8 @@
 // triangle loads, over a few inner nodes and leaves a ray.
 //
 // What the design does about it: each thread walks one ray through the
-// hierarchy of ops/bvh.py (layout and link encoding there), nearer child
+// hierarchy of ops/bvh.py (layout and link encoding there; the walk is
+// rlrpt::walk in path_common.cuh, which the culled B1 shares), nearer child
 // first, with its own stack of (link, near) entries, and skips a box only
 // when its near distance is above the best t so far or its far one below
 // 0, on the robust slab test of Ize (JCGT 2013: the far distance scaled by
@@ -42,103 +43,6 @@
 #include "path_common.cuh"
 
 namespace {
-
-constexpr int kTopNodes = 256;   // inner nodes kept in shared memory
-constexpr int kStack = 64;       // per-thread stack (ops/bvh.py STACK)
-constexpr int kEmpty = -1;       // the link of no child (ops/bvh.py EMPTY)
-constexpr float kTiny = 1e-30f;  // ops/bvh.py TINY
-// 1 + 2 gamma_3, gamma_n = n u / (1 - n u), u = 2^-24 (ops/bvh.py FAR_SCALE)
-constexpr float kFarScale = static_cast<float>(
-    1.0 + 2.0 * (3.0 * 0x1p-24) / (1.0 - 3.0 * 0x1p-24));
-
-struct Ray {
-  float ox, oy, oz, dx, dy, dz, ivx, ivy, ivz;
-};
-
-// Slab test of box [lo, hi]; returns near and sets far
-// (ops/bvh.py:_slab, operation for operation).
-__device__ __forceinline__ float box_near(const float4 lo, const float4 hi,
-                                          const Ray& r, float& far) {
-  const float t1x = (lo.x - r.ox) * r.ivx, t2x = (hi.x - r.ox) * r.ivx;
-  const float t1y = (lo.y - r.oy) * r.ivy, t2y = (hi.y - r.oy) * r.ivy;
-  const float t1z = (lo.z - r.oz) * r.ivz, t2z = (hi.z - r.oz) * r.ivz;
-  far = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z)) *
-        kFarScale;
-  return fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
-}
-
-// Pops the next stacked link whose near distance is within t into link;
-// false when none is left.
-__device__ __forceinline__ bool pop(const int* st_link, const float* st_near,
-                                    int& sp, float t, int& link) {
-  while (sp > 0) {
-    --sp;
-    if (st_near[sp] <= t) {
-      link = st_link[sp];
-      return true;
-    }
-  }
-  return false;
-}
-
-// The closest hit of one ray: the walk of ops/bvh.py:closest_hit_bvh_plain.
-// While-while order (Aila and Laine, HPG 2009): a lane steps through inner
-// nodes until it holds a leaf, and only then tests triangles, so the lanes
-// of a warp test their leaves together; each lane's own sequence of
-// visits is the plain walk's.
-__device__ __forceinline__ rlrpt::Hit walk(
-    const float4* __restrict__ s_nodes, int n_top,
-    const float4* __restrict__ nodes, const float4* __restrict__ tris,
-    const int* __restrict__ order, float ox, float oy, float oz, float dx,
-    float dy, float dz) {
-  Ray r{ox, oy, oz, dx, dy, dz, 0.f, 0.f, 0.f};
-  r.ivx = 1.f / (fabsf(dx) < kTiny ? kTiny : dx);
-  r.ivy = 1.f / (fabsf(dy) < kTiny ? kTiny : dy);
-  r.ivz = 1.f / (fabsf(dz) < kTiny ? kTiny : dz);
-  rlrpt::Hit h{rlrpt::kInf, -1, 0.f, 0.f, 0.f};
-  int st_link[kStack];
-  float st_near[kStack];
-  int sp = 0;
-  int link = 0;   // the root
-  while (true) {
-    while (link >= 0) {
-      float4 a, b, c, e;
-      if (link < n_top) {
-        const float4* p = s_nodes + 4 * link;
-        a = p[0];
-        b = p[1];
-        c = p[2];
-        e = p[3];
-      } else {
-        const float4* p = nodes + 4 * static_cast<size_t>(link);
-        a = __ldg(p);
-        b = __ldg(p + 1);
-        c = __ldg(p + 2);
-        e = __ldg(p + 3);
-      }
-      const int ll = __float_as_int(a.w), lr = __float_as_int(c.w);
-      float fl, fr;
-      const float nl = box_near(a, b, r, fl), nr = box_near(c, e, r, fr);
-      const bool ok_l = ll != kEmpty && nl <= fl && fl >= 0.f && nl <= h.t;
-      const bool ok_r = lr != kEmpty && nr <= fr && fr >= 0.f && nr <= h.t;
-      if (ok_l && ok_r) {
-        const bool r_first = nr < nl;
-        st_link[sp] = r_first ? ll : lr;
-        st_near[sp] = r_first ? nl : nr;
-        ++sp;
-        link = r_first ? lr : ll;
-      } else if (ok_l || ok_r) {
-        link = ok_l ? ll : lr;
-      } else if (!pop(st_link, st_near, sp, h.t, link)) {
-        return h;
-      }
-    }
-    const int code = ~link;
-    rlrpt::hit_tris_mapped(tris, order, code >> 3, code & 7, ox, oy, oz, dx,
-                           dy, dz, h);
-    if (!pop(st_link, st_near, sp, h.t, link)) return h;
-  }
-}
 
 __device__ __forceinline__ void store(int i, const rlrpt::Hit& h,
                                       const float4* __restrict__ mat,
@@ -169,13 +73,14 @@ __global__ void __launch_bounds__(rlrpt::kBlock) closest_hit_bvh_kernel(
   const int live = max(min(__ldg(count), n_rays), 0);
   rlrpt::Hit h{rlrpt::kInf, -1, 0.f, 0.f, 0.f};
   if (static_cast<int>(blockIdx.x * blockDim.x) < live) {
-    const int n_top = min(n_nodes, kTopNodes);
+    const int n_top = min(n_nodes, rlrpt::kTopNodes);
     for (int j = threadIdx.x; j < 4 * n_top; j += blockDim.x)
       s_nodes[j] = __ldg(nodes + j);
     __syncthreads();
     if (i < live)
-      h = walk(s_nodes, n_top, nodes, tris, order, o[3 * i], o[3 * i + 1],
-               o[3 * i + 2], d[3 * i], d[3 * i + 1], d[3 * i + 2]);
+      h = rlrpt::walk(s_nodes, n_top, nodes, tris, order, o[3 * i],
+                      o[3 * i + 1], o[3 * i + 2], d[3 * i], d[3 * i + 1],
+                      d[3 * i + 2]);
   }
   if (i >= n_rays) return;
   store(i, h, mat, t_out, idx_out, mat_out);
@@ -229,7 +134,7 @@ extern "C" int rlrpt_closest_hit(int n_rays, int n_nodes, const void* count,
   if (n_rays <= 0) return 0;
   // shared memory sized to the tree's top: a small scene's blocks use
   // little of it, and more of them fit on an SM
-  const size_t smem = sizeof(float4) * 4 * std::min(n_nodes, kTopNodes);
+  const size_t smem = sizeof(float4) * 4 * std::min(n_nodes, rlrpt::kTopNodes);
   const int blocks = (n_rays + rlrpt::kBlock - 1) / rlrpt::kBlock;
   closest_hit_bvh_kernel<<<blocks, rlrpt::kBlock, smem,
                            static_cast<cudaStream_t>(stream)>>>(

@@ -24,6 +24,16 @@
 // without FMA contraction, so it matches its torch twin bit for bit, for
 // about 16% more kernel time (_cuda.py).  wgmma, TMA and warp-level tuning
 // are later work.
+//
+// The culled B1 (rlrpt_mega_default_bvh) replaces the JAX kernel's AABB
+// chunk cull (megakernel.py:411-472, on by default for a scene of more
+// than one 256-triangle chunk): where the TPU skipped a whole chunk that
+// no live lane could hit closer than its best hit, each thread here walks
+// its own ray through the frame's bounding-volume hierarchy
+// (rlrpt::walk, shared with B4), so a segment costs a few box and
+// triangle tests in place of T triangle tests.  Everything else (slots,
+// RNG keys, regeneration, outputs) is the sweep kernel's, and the walk
+// returns the sweep's hit, so the two frames are bit-equal.
 #include "path_common.cuh"
 
 namespace {
@@ -46,6 +56,44 @@ __global__ void __launch_bounds__(rlrpt::kBlock)
                         int* __restrict__ next) {
   rlrpt::run_slots(p, tris, mat, UniformSampler{}, rad, path_sum, iters,
                    next);
+}
+
+// The culled B1: the same slot loop with its closest hit by the walk of
+// the frame's tree (path_common.cuh:run_slots_walk).  kCount: the
+// count-only build, which also sums the walks' visits and tests.
+template <bool kCount>
+__global__ void __launch_bounds__(rlrpt::kBlock) mega_default_bvh_kernel(
+    rlrpt::MegaParams p, int n_nodes, const float4* __restrict__ nodes,
+    const float4* __restrict__ tris, const int* __restrict__ order,
+    const float* __restrict__ mat, float* __restrict__ rad,
+    float* __restrict__ path_sum, int* __restrict__ iters,
+    int* __restrict__ next, unsigned long long* __restrict__ counts) {
+  extern __shared__ float4 s_nodes[];   // the top min(n_nodes, kTopNodes)
+  rlrpt::run_slots_walk<kCount>(p, s_nodes, n_nodes, nodes, tris, order, mat,
+                                UniformSampler{}, rad, path_sum, iters, next,
+                                counts);
+}
+
+template <bool kCount>
+int launch_bvh(const rlrpt::MegaParams& p, int n_nodes, const void* nodes,
+               const void* tris, const void* order, const void* mat,
+               void* rad, void* path_sum, void* iters, void* next,
+               void* counts, void* stream) {
+  // the occupancy query is told of the top nodes' shared memory
+  const size_t smem =
+      sizeof(float4) * 4 * std::min(n_nodes, rlrpt::kTopNodes);
+  int blocks = 0;
+  const int err = rlrpt::slot_grid(mega_default_bvh_kernel<kCount>,
+                                   p.n_slots, rlrpt::kBlock, smem, blocks);
+  if (err != 0) return err;
+  mega_default_bvh_kernel<kCount><<<blocks, rlrpt::kBlock, smem,
+                                    static_cast<cudaStream_t>(stream)>>>(
+      p, n_nodes, static_cast<const float4*>(nodes),
+      static_cast<const float4*>(tris), static_cast<const int*>(order),
+      static_cast<const float*>(mat), static_cast<float*>(rad),
+      static_cast<float*>(path_sum), static_cast<int*>(iters),
+      static_cast<int*>(next), static_cast<unsigned long long*>(counts));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -71,4 +119,24 @@ extern "C" int rlrpt_mega_default(rlrpt::MegaParams p, const void* tris,
       static_cast<float*>(rad), static_cast<float*>(path_sum),
       static_cast<int*>(iters), static_cast<int*>(next));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The culled B1 over the tree of ops/bvh.py built from B1's tris: nodes
+// (n_nodes, 16) f32, tris (p.n_tris, 12) f32 in its leaf order, order
+// (p.n_tris,) i32; mat (p.n_tris, 16) f32 unpermuted; rad, path_sum,
+// iters and next as rlrpt_mega_default's, and the same frame bit for bit.
+// counts: null, or (2,) uint64 zeros for the count-only build, which adds
+// the walks' inner-node visits and triangle tests there.  Returns the
+// first CUDA error of the grid query and the launch, or 0.
+extern "C" int rlrpt_mega_default_bvh(rlrpt::MegaParams p, int n_nodes,
+                                      const void* nodes, const void* tris,
+                                      const void* order, const void* mat,
+                                      void* rad, void* path_sum, void* iters,
+                                      void* next, void* counts,
+                                      void* stream) {
+  return counts == nullptr
+             ? launch_bvh<false>(p, n_nodes, nodes, tris, order, mat, rad,
+                                 path_sum, iters, next, counts, stream)
+             : launch_bvh<true>(p, n_nodes, nodes, tris, order, mat, rad,
+                                path_sum, iters, next, counts, stream);
 }

@@ -1,10 +1,11 @@
 // Shared device code of the path-tracing kernels (mega_default.cu,
 // mega_guided.cu, mega_train.cu, closest_hit.cu): the counter PRNG, the
 // camera-ray generator, one exact f32 Moller-Trumbore closest-hit routine,
-// its shared-memory sweep and its variant over a BVH leaf, the two
-// hemisphere frames, the guided CDF sampler, the per-slot step of the
-// regenerative slot loop, and that loop on a persistent, work-pulling grid
-// (B1, B3).
+// its shared-memory sweep and its variant over a BVH leaf, the BVH walk
+// (B4, the culled B1), the two hemisphere frames, the guided CDF sampler,
+// the per-slot step of the regenerative slot loop, and that loop on a
+// persistent, work-pulling grid over the sweep (B1, B3) or the walk (the
+// culled B1).
 //
 // Every formula keeps the operation order of the JAX reference
 // (rlrpt_tpu/ops/megakernel.py, rlrpt_tpu/ops/guided_mega.py) and of the
@@ -159,6 +160,123 @@ __device__ __forceinline__ void hit_tris_mapped(
         h.det = det;
       }
     }
+  }
+}
+
+// ---- the BVH walk (B4a-c, culled B1) --------------------------------------
+// The hierarchy's layout and link encoding are ops/bvh.py's.  Each thread
+// walks one ray, nearer child first, with its own stack of (link, near)
+// entries, and skips a box only when its near distance is above the best
+// t so far or its far one below 0, on the robust slab test of Ize (JCGT
+// 2013: the far distance scaled by 1 + 2 gamma_3; zero direction
+// components clamped as rlrpt_tpu/ops/megakernel.py:424-428).  Leaves run
+// hit_tris_mapped, so the answer is the brute-force sweep's bit for bit.
+
+constexpr int kTopNodes = 256;   // inner nodes kept in shared memory
+constexpr int kStack = 64;       // per-thread stack (ops/bvh.py STACK)
+constexpr int kEmpty = -1;       // the link of no child (ops/bvh.py EMPTY)
+constexpr float kTiny = 1e-30f;  // ops/bvh.py TINY
+// 1 + 2 gamma_3, gamma_n = n u / (1 - n u), u = 2^-24 (ops/bvh.py FAR_SCALE)
+constexpr float kFarScale = static_cast<float>(
+    1.0 + 2.0 * (3.0 * 0x1p-24) / (1.0 - 3.0 * 0x1p-24));
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz, ivx, ivy, ivz;
+};
+
+// Slab test of box [lo, hi]; returns near and sets far (ops/bvh.py:_slab,
+// the same operations; its min and max of three are exact in any order).
+__device__ __forceinline__ float box_near(const float4 lo, const float4 hi,
+                                          const Ray& r, float& far) {
+  const float t1x = (lo.x - r.ox) * r.ivx, t2x = (hi.x - r.ox) * r.ivx;
+  const float t1y = (lo.y - r.oy) * r.ivy, t2y = (hi.y - r.oy) * r.ivy;
+  const float t1z = (lo.z - r.oz) * r.ivz, t2z = (hi.z - r.oz) * r.ivz;
+  far = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z)) *
+        kFarScale;
+  return fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
+}
+
+// Pops the next stacked link whose near distance is within t into link;
+// false when none is left.
+__device__ __forceinline__ bool pop(const int* st_link, const float* st_near,
+                                    int& sp, float t, int& link) {
+  while (sp > 0) {
+    --sp;
+    if (st_near[sp] <= t) {
+      link = st_link[sp];
+      return true;
+    }
+  }
+  return false;
+}
+
+// What a walk did, for a count-only build (walk<true>): inner nodes
+// visited (two box tests each) and ray-triangle tests, the counts that
+// ops/bvh.py:closest_hit_bvh_plain returns.
+struct WalkCount {
+  uint32_t visits, tests;
+};
+
+// The closest hit of one ray: the walk of ops/bvh.py:closest_hit_bvh_plain.
+// While-while order (Aila and Laine, HPG 2009): a lane steps through inner
+// nodes until it holds a leaf, and only then tests triangles, so the lanes
+// of a warp test their leaves together; each lane's own sequence of
+// visits is the plain walk's.  walk<true> also adds its visits and tests
+// to *count; walk<false> (the default) compiles the counting out.
+template <bool kCount = false>
+__device__ __forceinline__ Hit walk(
+    const float4* __restrict__ s_nodes, int n_top,
+    const float4* __restrict__ nodes, const float4* __restrict__ tris,
+    const int* __restrict__ order, float ox, float oy, float oz, float dx,
+    float dy, float dz, WalkCount* count = nullptr) {
+  Ray r{ox, oy, oz, dx, dy, dz, 0.f, 0.f, 0.f};
+  r.ivx = 1.f / (fabsf(dx) < kTiny ? kTiny : dx);
+  r.ivy = 1.f / (fabsf(dy) < kTiny ? kTiny : dy);
+  r.ivz = 1.f / (fabsf(dz) < kTiny ? kTiny : dz);
+  Hit h{kInf, -1, 0.f, 0.f, 0.f};
+  int st_link[kStack];
+  float st_near[kStack];
+  int sp = 0;
+  int link = 0;   // the root
+  while (true) {
+    while (link >= 0) {
+      float4 a, b, c, e;
+      if (link < n_top) {
+        const float4* p = s_nodes + 4 * link;
+        a = p[0];
+        b = p[1];
+        c = p[2];
+        e = p[3];
+      } else {
+        const float4* p = nodes + 4 * static_cast<size_t>(link);
+        a = __ldg(p);
+        b = __ldg(p + 1);
+        c = __ldg(p + 2);
+        e = __ldg(p + 3);
+      }
+      if constexpr (kCount) ++count->visits;
+      const int ll = __float_as_int(a.w), lr = __float_as_int(c.w);
+      float fl, fr;
+      const float nl = box_near(a, b, r, fl), nr = box_near(c, e, r, fr);
+      const bool ok_l = ll != kEmpty && nl <= fl && fl >= 0.f && nl <= h.t;
+      const bool ok_r = lr != kEmpty && nr <= fr && fr >= 0.f && nr <= h.t;
+      if (ok_l && ok_r) {
+        const bool r_first = nr < nl;
+        st_link[sp] = r_first ? ll : lr;
+        st_near[sp] = r_first ? nl : nr;
+        ++sp;
+        link = r_first ? lr : ll;
+      } else if (ok_l || ok_r) {
+        link = ok_l ? ll : lr;
+      } else if (!pop(st_link, st_near, sp, h.t, link)) {
+        return h;
+      }
+    }
+    const int code = ~link;
+    if constexpr (kCount) count->tests += code & 7;
+    hit_tris_mapped(tris, order, code >> 3, code & 7, ox, oy, oz, dx, dy,
+                    dz, h);
+    if (!pop(st_link, st_near, sp, h.t, link)) return h;
   }
 }
 
@@ -500,6 +618,50 @@ __device__ __forceinline__ uint32_t lanes_below() {
   return m;
 }
 
+// The closest hit of slot_loop by the brute-force sweep: every thread of
+// the block takes part in every call (the tile loads are block barriers),
+// so the loop's condition is block-wide and idle threads still reach the
+// barriers.  `resident`: the scene is one tile, loaded once.
+struct SweepHits {
+  const float4* __restrict__ tris;
+  float4* __restrict__ s_tri;
+  int n_tris;
+  bool resident;
+
+  __device__ __forceinline__ bool more(bool have) const {
+    return __syncthreads_or(have);
+  }
+  __device__ __forceinline__ Hit operator()(bool act, const Slot& s) const {
+    return sweep(tris, s_tri, n_tris, resident, act, s.ox, s.oy, s.oz, s.dx,
+                 s.dy, s.dz);
+  }
+};
+
+// The closest hit of slot_loop by the BVH walk (the culled B1): only `act`
+// lanes walk, each on its own.  No barrier follows the load of the top
+// nodes, so the loop's condition is per warp (its refill is warp-wide): a
+// block-wide one would hold every warp at each iteration until the
+// block's longest walk ended, and walks differ 8-9x in length.  With
+// kCount each thread keeps its walks' WalkCount.
+template <bool kCount>
+struct WalkHits {
+  const float4* __restrict__ s_nodes;   // the top n_top inner nodes
+  int n_top;
+  const float4* __restrict__ nodes;
+  const float4* __restrict__ tris;      // in the tree's leaf order
+  const int* __restrict__ order;
+  WalkCount count;
+
+  __device__ __forceinline__ bool more(bool have) const {
+    return __any_sync(0xffffffffu, have);
+  }
+  __device__ __forceinline__ Hit operator()(bool act, const Slot& s) {
+    if (!act) return Hit{kInf, -1, 0.f, 0.f, 0.f};
+    return walk<kCount>(s_nodes, n_top, nodes, tris, order, s.ox, s.oy,
+                        s.oz, s.dx, s.dy, s.dz, &count);
+  }
+};
+
 // The whole-frame regenerative slot loop of megakernel.py:_mega_kernel on
 // a persistent grid (slot_grid): a thread runs one slot at a time from
 // start_slot to its end, `advance` once per iteration on the slot's own
@@ -509,27 +671,19 @@ __device__ __forceinline__ uint32_t lanes_below() {
 // lane taking base + its rank among the lanes that asked.  Every output
 // belongs to one slot and every RNG key to (slot's pixel, slot's
 // iteration), so the order in which slots run changes no bit of the frame.
-// A scene of one triangle tile is loaded once; the loop's condition is
-// block-wide so that idle threads still reach the tile barriers of a
-// larger scene.  Outputs: rad (pix_mux, n_slots, 3) per-pixel RGB sums,
-// path_sum (n_slots,) and iters (n_slots,), the slot's count of active
-// iterations.
-template <class Sampler>
-__device__ __forceinline__ void run_slots(const MegaParams& p,
-                                          const float4* __restrict__ tris,
+// `hits` (SweepHits, WalkHits) gives each iteration's closest hit and the
+// loop's condition; the hit is all that differs between a sweep and a
+// walk, and the walk returns the sweep's hit.  Outputs: rad (pix_mux,
+// n_slots, 3) per-pixel RGB sums, path_sum (n_slots,) and iters
+// (n_slots,), the slot's count of active iterations.
+template <class Sampler, class Hits>
+__device__ __forceinline__ void slot_loop(const MegaParams& p,
                                           const float* __restrict__ mat,
-                                          const Sampler& sample,
+                                          const Sampler& sample, Hits& hits,
                                           float* __restrict__ rad,
                                           float* __restrict__ path_sum,
                                           int* __restrict__ iters,
                                           int* __restrict__ next) {
-  __shared__ float4 s_tri[3 * kTileTris];
-  const bool resident = p.n_tris <= kTileTris;
-  if (resident) {
-    load_tile(s_tri, tris, 0, p.n_tris);
-    __syncthreads();
-  }
-
   const int first_pulled = gridDim.x * blockDim.x;
   int slot = blockIdx.x * blockDim.x + threadIdx.x;
   bool have = slot < p.n_slots;
@@ -538,9 +692,8 @@ __device__ __forceinline__ void run_slots(const MegaParams& p,
   if (have) s = start_slot(p, slot);
   float ar = 0.f, ag = 0.f, ab = 0.f, psum = 0.f;
   uint32_t it = 0;
-  while (__syncthreads_or(have)) {
-    const Hit h = sweep(tris, s_tri, p.n_tris, resident, have && s.act, s.ox,
-                        s.oy, s.oz, s.dx, s.dy, s.dz);
+  while (hits.more(have)) {
+    const Hit h = hits(have && s.act, s);
     if (have) {
       if (s.act) {
         it += 1;
@@ -585,6 +738,52 @@ __device__ __forceinline__ void run_slots(const MegaParams& p,
         }
       }
     }
+  }
+}
+
+
+// slot_loop over the brute-force sweep of tris (n_tris, 12) in index
+// order (B1, B3).
+template <class Sampler>
+__device__ __forceinline__ void run_slots(const MegaParams& p,
+                                          const float4* __restrict__ tris,
+                                          const float* __restrict__ mat,
+                                          const Sampler& sample,
+                                          float* __restrict__ rad,
+                                          float* __restrict__ path_sum,
+                                          int* __restrict__ iters,
+                                          int* __restrict__ next) {
+  __shared__ float4 s_tri[3 * kTileTris];
+  SweepHits hits{tris, s_tri, p.n_tris, p.n_tris <= kTileTris};
+  if (hits.resident) {
+    load_tile(s_tri, tris, 0, p.n_tris);
+    __syncthreads();
+  }
+  slot_loop(p, mat, sample, hits, rad, path_sum, iters, next);
+}
+
+// slot_loop over the walk of ops/bvh.py's tree (the culled B1): nodes
+// (n_nodes, 16), tris (n_tris, 12) in its leaf order and order (n_tris,);
+// the top min(n_nodes, kTopNodes) nodes are copied into s_nodes (dynamic
+// shared memory of that size) once per block.  With kCount the walks'
+// visits and tests are added to counts[0] and counts[1].
+template <bool kCount, class Sampler>
+__device__ __forceinline__ void run_slots_walk(
+    const MegaParams& p, float4* __restrict__ s_nodes, int n_nodes,
+    const float4* __restrict__ nodes, const float4* __restrict__ tris,
+    const int* __restrict__ order, const float* __restrict__ mat,
+    const Sampler& sample, float* __restrict__ rad,
+    float* __restrict__ path_sum, int* __restrict__ iters,
+    int* __restrict__ next, unsigned long long* __restrict__ counts) {
+  const int n_top = min(n_nodes, kTopNodes);
+  for (int j = threadIdx.x; j < 4 * n_top; j += blockDim.x)
+    s_nodes[j] = __ldg(nodes + j);
+  __syncthreads();
+  WalkHits<kCount> hits{s_nodes, n_top, nodes, tris, order, {0u, 0u}};
+  slot_loop(p, mat, sample, hits, rad, path_sum, iters, next);
+  if constexpr (kCount) {
+    atomicAdd(counts, static_cast<unsigned long long>(hits.count.visits));
+    atomicAdd(counts + 1, static_cast<unsigned long long>(hits.count.tests));
   }
 }
 

@@ -1,14 +1,19 @@
-"""The bounding-volume hierarchy that kernel B4 (closest hit, B4a-c) walks.
+"""The bounding-volume hierarchy that kernel B4 (closest hit, B4a-c) and
+the culled kernel B1 walk.
 
 ``build_bvh`` builds one hierarchy per triangle table (the (T, 12) f32
-rows of ``pack_triangles``), on the host with numpy and deterministically,
-so the CPU tests and the card get the same tree.  The kernel,
-``csrc/closest_hit.cu``, walks it one ray a thread and returns what the
+rows of ``pack_triangles`` and ``megakernel.pack_scene``), on the host
+with numpy and deterministically, so the CPU tests and the card get the
+same tree.  The kernels walk it one ray a thread (``rlrpt::walk`` in
+``csrc/path_common.cuh``: B4 in ``csrc/closest_hit.cu``, the culled B1
+inside its slot loop in ``csrc/mega_default.cu``) and return what the
 brute-force sweep returns: the same t, triangle index and material row.
 ``closest_hit_bvh_plain`` is the same walk in vectorised torch, for the
-tests and chip_smoke.py.  The JAX package has no counterpart: on the TPU
-the megakernel culls whole 256-triangle chunks instead
-(``rlrpt_tpu/ops/megakernel.py:411-422``), since a TPU cannot walk a tree.
+tests, chip_smoke.py and B1's culled twin (``megakernel.walk_hit``).
+This is the port's form of the JAX megakernel's AABB cull
+(``rlrpt_tpu/ops/megakernel.py:411-472``), which skips whole
+256-triangle chunks, since a TPU cannot walk a tree; the JAX closest-hit
+kernels (B4) cull nothing.
 
 Layout, decoded the same way by the kernel and by closest_hit_bvh_plain:
 
@@ -35,7 +40,7 @@ from rlrpt_tpu_torch.ops.megakernel import INF, hit_rows, mt_terms
 
 BINS = 16          # SAH bins over the centroids, per axis
 LEAF_MAX = 4       # triangles a leaf holds at most
-STACK = 64         # the kernel's per-thread stack (csrc/closest_hit.cu kStack)
+STACK = 64         # the kernels' per-thread stack (path_common.cuh kStack)
 EMPTY = -1         # the link of no child
 TINY = 1e-30       # |d| below this is clamped to TINY (megakernel.py:424-428)
 # Ize, "Robust BVH Ray Traversal" (JCGT 2(2), 2013): the far distance
@@ -77,6 +82,13 @@ class Bvh:
     def n_tris(self) -> int:
         return self.order.shape[0]
 
+    def check_source(self, tris: torch.Tensor) -> None:
+        """Raises ValueError unless ``tris`` is the table this tree was
+        built from (the launchers take no other)."""
+        if self.source is not tris:
+            raise ValueError("bvh was built from another triangle table: "
+                             "pass the table given to build_bvh")
+
 
 def _leaf(first, count):
     return ~((first << 3) | count)
@@ -107,9 +119,12 @@ def _split(cen, tlo, thi, starts, counts):
     cnt = np.bincount(key.ravel(), minlength=n_keys).reshape(k, 3, BINS)
     blo = np.full((n_keys, 3), np.inf)
     bhi = np.full((n_keys, 3), -np.inf)
-    for a in range(3):
-        np.minimum.at(blo, key[:, a], tlo)
-        np.maximum.at(bhi, key[:, a], thi)
+    for a in range(3):   # per-bin bounds: a sort and a segmented min/max
+        by = np.argsort(key[:, a], kind="stable")
+        k_by = key[by, a]
+        first = np.flatnonzero(np.r_[True, k_by[1:] != k_by[:-1]])
+        blo[k_by[first]] = np.minimum.reduceat(tlo[by], first)
+        bhi[k_by[first]] = np.maximum.reduceat(thi[by], first)
     blo, bhi = blo.reshape(k, 3, BINS, 3), bhi.reshape(k, 3, BINS, 3)
 
     def area(lo, hi):
@@ -208,15 +223,13 @@ def build_bvh(tris: torch.Tensor) -> Bvh:
                depth=len(levels), source=tris)
 
 
-def _slab(lo, hi, ox, oy, oz, ivx, ivy, ivz):
-    """(near, far) of the rays' slab test against (R, 3) boxes: the
-    kernel's box_near, operation for operation."""
-    t1x, t2x = (lo[:, 0] - ox) * ivx, (hi[:, 0] - ox) * ivx
-    t1y, t2y = (lo[:, 1] - oy) * ivy, (hi[:, 1] - oy) * ivy
-    t1z, t2z = (lo[:, 2] - oz) * ivz, (hi[:, 2] - oz) * ivz
-    mn, mx = torch.minimum, torch.maximum
-    near = mx(mx(mn(t1x, t2x), mn(t1y, t2y)), mn(t1z, t2z))
-    far = mn(mn(mx(t1x, t2x), mx(t1y, t2y)), mx(t1z, t2z)) * FAR_SCALE
+def _slab(lo, hi, o, iv):
+    """(near, far) of the rays' slab tests against boxes [lo, hi] (the
+    last axis xyz): the kernel's box_near, whose min and max of three are
+    exact in any order."""
+    t1, t2 = (lo - o) * iv, (hi - o) * iv
+    near = torch.minimum(t1, t2).amax(dim=-1)
+    far = torch.maximum(t1, t2).amin(dim=-1) * FAR_SCALE
     return near, far
 
 
@@ -232,7 +245,8 @@ def closest_hit_bvh_plain(o: torch.Tensor, d: torch.Tensor, bvh: Bvh,
     tests (R,) int32): closest_hit_plain's outputs, which these equal bit
     for bit, then each ray's inner-node visits (two box tests each) and
     ray-triangle tests.  Rays at index >= active_count are misses with no
-    visits.  Used by the tests and chip_smoke.py only."""
+    visits.  Used by the tests, chip_smoke.py and B1's culled twin
+    (megakernel.walk_hit)."""
     r = o.shape[0]
     live = max(min(int(active_count), r), 0)
     dev = o.device
@@ -243,14 +257,14 @@ def closest_hit_bvh_plain(o: torch.Tensor, d: torch.Tensor, bvh: Bvh,
     tests = torch.zeros((r,), **i32)
     ox, oy, oz = (o[:live, j] for j in range(3))
     dx, dy, dz = (d[:live, j] for j in range(3))
-    ivx, ivy, ivz = (1.0 / torch.where(c.abs() < TINY, TINY, c)
-                     for c in (dx, dy, dz))
+    o3 = o[:live, None, :]
+    iv3 = 1.0 / torch.where(d[:live].abs() < TINY, TINY, d[:live])[:, None]
     nodes = bvh.nodes
     links = nodes[:, [3, 11]].contiguous().view(torch.int32).long()
     order, rows_t = bvh.order.long(), bvh.tris_sorted
     n_tris = bvh.n_tris
 
-    lane = torch.arange(live, device=dev)
+    depth = torch.arange(STACK, device=dev)
     link = torch.zeros((live,), dtype=torch.int64, device=dev)
     at_link = torch.ones((live,), dtype=torch.bool, device=dev)
     st_link = torch.zeros((live, STACK), dtype=torch.int64, device=dev)
@@ -263,14 +277,12 @@ def closest_hit_bvh_plain(o: torch.Tensor, d: torch.Tensor, bvh: Bvh,
 
     while bool(at_link.any()):
         inner = at_link & (link >= 0)
-        nd = nodes[link.clamp(min=0)]
+        nd = nodes[link.clamp(min=0)].view(-1, 2, 8)   # the two children
         ln = links[link.clamp(min=0)]
-        nl, fl = _slab(nd[:, 0:3], nd[:, 4:7], ox, oy, oz, ivx, ivy, ivz)
-        nr, fr = _slab(nd[:, 8:11], nd[:, 12:15], ox, oy, oz, ivx, ivy, ivz)
-        ok_l = inner & (ln[:, 0] != EMPTY) & (nl <= fl) & (fl >= 0) & (
-            nl <= best_t)
-        ok_r = inner & (ln[:, 1] != EMPTY) & (nr <= fr) & (fr >= 0) & (
-            nr <= best_t)
+        near, far = _slab(nd[..., 0:3], nd[..., 4:7], o3, iv3)
+        ok = (inner[:, None] & (ln != EMPTY) & (near <= far) & (far >= 0)
+              & (near <= best_t[:, None]))
+        (nl, nr), (ok_l, ok_r) = near.unbind(1), ok.unbind(1)
         vis += inner.int()
         both = ok_l & ok_r
         r_first = nr < nl
@@ -283,35 +295,44 @@ def closest_hit_bvh_plain(o: torch.Tensor, d: torch.Tensor, bvh: Bvh,
                           torch.where(ok_l, ln[:, 0], ln[:, 1]))
 
         leaf = at_link & (link < 0)
-        if n_tris:
-            code = torch.where(leaf, ~link, 0)
+        li = leaf.nonzero()[:, 0]
+        if n_tris and li.numel():
+            # the rays at a leaf test its (up to LEAF_MAX) triangles at once
+            # (the others wait); the kernel's running rule, t < best or an
+            # equal t at a lower index, keeps the (t, index) minimum
+            code = ~link[li]
             first, count = code >> 3, code & 7
-            for j in range(LEAF_MAX):
-                on = leaf & (count > j)
-                pos = torch.where(on, first + j, 0)
-                rows = rows_t[pos]
-                tp, det, _, _, valid = mt_terms(ox, oy, oz, dx, dy, dz,
-                                                lambda c: rows[:, c])
-                t = tp / det
-                orig = order[pos]
-                take = on & valid & ((t < best_t) | ((t == best_t)
-                                                     & (orig < best)))
-                best_t = torch.where(take, t, best_t)
-                best = torch.where(take, orig, best)
-                tst += on.int()
+            on = torch.arange(LEAF_MAX, device=dev) < count[:, None]
+            pos = torch.where(on, first[:, None] + torch.arange(
+                LEAF_MAX, device=dev), 0)                     # (L, LEAF_MAX)
+            rows = rows_t[pos]
+            tp, det, _, _, valid = mt_terms(
+                *(a[li][:, None] for a in (ox, oy, oz, dx, dy, dz)),
+                lambda c: rows[..., c])
+            t = torch.where(on & valid, tp / det, INF)
+            t_min = t.min(dim=1).values
+            orig = torch.where(t == t_min[:, None], order[pos],
+                               torch.iinfo(torch.int64).max).min(dim=1).values
+            bt, bi = best_t[li], best[li]
+            take = (t_min < INF) & ((t_min < bt) | ((t_min == bt)
+                                                     & (orig < bi)))
+            best_t[li] = torch.where(take, t_min, bt)
+            best[li] = torch.where(take, orig, bi)
+            tst[li] += count.int()
         link = torch.where(ok_l | ok_r, nxt, link)
         popping = leaf | (inner & ~(ok_l | ok_r))
         at_link = at_link & ~popping
-        # pop until an entry's near is within the best t, or none is left
-        while bool(popping.any()):
-            has = popping & (sp > 0)
-            sp = sp - has.long()
-            top = sp.clamp(min=0)
-            c_link, c_near = st_link[lane, top], st_near[lane, top]
-            take = has & (c_near <= best_t)
-            link = torch.where(take, c_link, link)
-            at_link = at_link | take
-            popping = has & ~take
+        # pop until an entry's near is within the best t, or none is left:
+        # the topmost such entry is taken and those above it dropped
+        pl = popping.nonzero()[:, 0]
+        if pl.numel():
+            ok = (depth < sp[pl, None]) & (st_near[pl] <= best_t[pl, None])
+            top = torch.where(ok, depth, -1).max(dim=1).values
+            found = top >= 0
+            top = top.clamp(min=0)
+            link[pl] = torch.where(found, st_link[pl, top], link[pl])
+            sp[pl] = top
+            at_link[pl] = found
 
     hit = best_t < INF
     t_out[:live] = best_t

@@ -152,9 +152,8 @@ def _closest_hit(kernel: _cuda.Kernel, o, d, tris, active_count, mat=None,
                  bvh: Bvh | None = None):
     """The launchers' body."""
     _check(o, d, tris, mat)
-    if bvh is not None and bvh.source is not tris:
-        raise ValueError("bvh was built from another triangle table: pass "
-                         "the table given to build_bvh")
+    if bvh is not None:
+        bvh.check_source(tris)
     if o.device.type == "cpu":
         return closest_hit_plain(o, d, tris, active_count, mat)
     if o.device.type != "cuda":

@@ -20,11 +20,20 @@ Two implementations of one frame function:
   algebra, vectorised over slots.  The CPU tests and chip_smoke.py hold
   the kernel against it.
 
+The JAX launcher's AABB chunk cull (``cull``: on by default for a scene
+of more than one 256-triangle chunk, and forced off for one chunk) is
+here a walk of the frame's bounding-volume hierarchy (``ops/bvh.py``)
+inside the kernel's slot loop, with its own entry point
+(``rlrpt_mega_default_bvh``) and twin (``run_slots_plain`` with the
+plain walk as its closest hit).  Both cull conservatively: the frames
+equal the sweep's bit for bit.
+
 The TPU-only parts of the JAX kernel do not carry over: the
 (4T, 16) @ (16, R) MXU reformulation of Moller-Trumbore and its
-compensated-bf16 operands, the one-hot material fetch, the AABB chunk
-cull and the VMEM-driven tile sizes.  A hit here is exact f32
-Moller-Trumbore, and a material row is a load.
+compensated-bf16 operands, the one-hot material fetch, the grouping of
+chunks under one cull branch (``cull_group``) and the VMEM-driven tile
+sizes.  A hit here is exact f32 Moller-Trumbore, and a material row is a
+load.
 """
 
 from __future__ import annotations
@@ -41,7 +50,7 @@ from rlrpt_tpu_torch.scene.scene import Scene
 
 INF = 3.0e38
 PI = math.pi
-T_CHUNK = 256      # the JAX kernel's triangle chunk; fixes t_pad only
+T_CHUNK = 256      # the JAX kernel's triangle chunk: fixes t_pad and use_cull
 
 # Slot geometry.  n_slots = ceil(n_pix / pix_mux / r_tile) * r_tile fixes
 # which pixels share a slot (pixel = slot + k*n_slots), so r_tile and
@@ -62,6 +71,15 @@ def _t_pad(n_tris: int) -> int:
     t8 = max(8, int(math.ceil(n_tris / 8) * 8))
     return min(T_CHUNK, t8) if t8 <= T_CHUNK else int(
         math.ceil(n_tris / T_CHUNK) * T_CHUNK)
+
+
+def use_cull(n_tris: int, cull: bool | None = None) -> bool:
+    """Whether a render culls: the JAX launcher's rule
+    (megakernel.py:687-689).  None means on exactly when the padded table
+    spans more than one T_CHUNK chunk; True on a one-chunk scene is forced
+    off."""
+    multi = _t_pad(n_tris) > T_CHUNK
+    return multi if cull is None else bool(cull) and multi
 
 
 def n_slots_for(n_pix: int, r_tile: int, pix_mux: int) -> int:
@@ -221,17 +239,47 @@ def hit_rows(mat: torch.Tensor, t: torch.Tensor, idx: torch.Tensor):
     return rows
 
 
+def walk_hit(bvh, counts: dict | None = None):
+    """A closest hit for run_slots_plain through the plain walk of
+    ``bvh`` (ops/bvh.py:closest_hit_bvh_plain), on the active slots only,
+    as the culled kernel walks only its active lanes.  Returns (t, tri)
+    per slot: the brute force's, bit for bit; INF and 0 elsewhere.  With
+    ``counts``, adds the walks' inner-node visits and triangle tests to
+    counts["visits"] and counts["tests"]."""
+    from rlrpt_tpu_torch.ops.bvh import closest_hit_bvh_plain
+
+    def hit(ox, oy, oz, dx, dy, dz, act):
+        lanes = act.nonzero()[:, 0]
+        o = torch.stack([ox, oy, oz], dim=1)[lanes]
+        d = torch.stack([dx, dy, dz], dim=1)[lanes]
+        t_l, idx_l, visits, tests = closest_hit_bvh_plain(o, d, bvh,
+                                                          lanes.numel())
+        t = torch.full_like(ox, INF)
+        tri = torch.zeros(ox.shape, dtype=torch.int64, device=ox.device)
+        t[lanes] = t_l
+        tri[lanes] = idx_l.long()
+        if counts is not None:
+            counts["visits"] += int(visits.sum())
+            counts["tests"] += int(tests.sum())
+        return t, tri
+    return hit
+
+
 def run_slots_plain(seed: int, cam: tuple, tris: torch.Tensor,
                     mat: torch.Tensor, cfg: RenderConfig, n_slots: int,
-                    pix_mux: int, sample, on_step=None):
+                    pix_mux: int, sample, on_step=None, closest_hit=None):
     """The regenerative slot loop of the kernels (csrc/path_common.cuh:
-    run_slots, advance), vectorised over slots: every step advances every
+    slot_loop, advance), vectorised over slots: every step advances every
     active slot by one bounce.  ``sample(pix, it1, u1, u2, hit, nx, ny,
     nz)`` returns (dx, dy, dz, scale, info) for surface hits, ``info``
     whatever the sampler reports of its draw.  ``on_step(act, m, missed,
     hit_light, survive, info)``, if given, sees every step after
     the bounce cap and Russian roulette (``survive``: the path goes on);
-    it must not change the path state.
+    it must not change the path state.  ``closest_hit(ox, oy, oz, dx, dy,
+    dz, act)`` gives each step's hit, a tuple that opens with t and the
+    triangle index and is handed to ``sample`` whole; the default is
+    closest_hit_mt's brute force over ``tris`` (the sweep), ``walk_hit``
+    the culled kernel's walk.
 
     Returns rad (pix_mux, n_slots, 3), path_sum (n_slots,) f32 and iters
     (n_slots,) i32: per slot, the iteration at which it went idle.
@@ -257,11 +305,14 @@ def run_slots_plain(seed: int, cam: tuple, tris: torch.Tensor,
     kmx = torch.zeros_like(slot)
     rad = torch.zeros((pix_mux, n_slots, 3), **f32)
     iters = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
+    if closest_hit is None:
+        def closest_hit(ox, oy, oz, dx, dy, dz, act):
+            return closest_hit_mt(ox, oy, oz, dx, dy, dz, tris)
     it = 0
     while bool(act.any()):
         it1 = it + 1
         u1, u2, u3, u4 = (_uniform(seed, pix, it1, s) for s in range(4))
-        hit = closest_hit_mt(ox, oy, oz, dx, dy, dz, tris)
+        hit = closest_hit(ox, oy, oz, dx, dy, dz, act)
         best_t, tri = hit[0], hit[1]
         m = mat[tri]
         missed = act & (best_t >= INF)
@@ -349,16 +400,24 @@ def _uniform_sampler(pix, it1, u1, u2, hit, nx, ny, nz):
 
 def mega_default_frame_plain(seed: int, cam: tuple, tris: torch.Tensor,
                              mat: torch.Tensor, cfg: RenderConfig,
-                             n_slots: int, pix_mux: int):
-    """Plain torch twin of kernel B1 on the same inputs."""
+                             n_slots: int, pix_mux: int, bvh=None,
+                             counts: dict | None = None):
+    """Plain torch twin of kernel B1 on the same inputs: the sweep, or
+    with ``bvh`` (build_bvh(tris)) the culled kernel's walk, whose visits
+    and tests it adds to ``counts`` if given (walk_hit)."""
+    hit = None if bvh is None else walk_hit(bvh, counts)
     return run_slots_plain(seed, cam, tris, mat, cfg, n_slots, pix_mux,
-                           _uniform_sampler)
+                           _uniform_sampler, closest_hit=hit)
 
 
 # ---- the CUDA wrapper -----------------------------------------------------
 
 KERNEL = _cuda.Kernel("rlrpt_mega_default",
                       [_cuda.MegaParams] + [ctypes.c_void_p] * 7)
+_BVH_ARGS = [_cuda.MegaParams, ctypes.c_int] + [ctypes.c_void_p] * 10
+KERNEL_CULL = _cuda.Kernel("rlrpt_mega_default_bvh", _BVH_ARGS)
+# the count-only build of the culled kernel (walk_counts), counted apart
+KERNEL_COUNT = _cuda.Kernel("rlrpt_mega_default_bvh", _BVH_ARGS)
 
 
 def check_tables(tris: torch.Tensor, mat: torch.Tensor) -> None:
@@ -401,18 +460,39 @@ def frame_outputs(n_slots: int, pix_mux: int, device):
             torch.zeros((1,), dtype=torch.int32, device=device))
 
 
+def _launch_bvh(kernel: _cuda.Kernel, seed, cam, tris, mat, cfg, n_slots,
+                pix_mux, bvh, counts):
+    rad, path_sum, iters, nxt = frame_outputs(n_slots, pix_mux, tris.device)
+    with torch.cuda.device(tris.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        kernel.launch(mega_params(seed, cam, tris.shape[0], cfg, n_slots,
+                                  pix_mux), bvh.nodes.shape[0],
+                      bvh.nodes.data_ptr(), bvh.tris_sorted.data_ptr(),
+                      bvh.order.data_ptr(), mat.data_ptr(), rad.data_ptr(),
+                      path_sum.data_ptr(), iters.data_ptr(), nxt.data_ptr(),
+                      0 if counts is None else counts.data_ptr(), stream)
+    return rad, path_sum, iters
+
+
 def mega_default_frame(seed: int, cam: tuple, tris: torch.Tensor,
                        mat: torch.Tensor, cfg: RenderConfig, n_slots: int,
-                       pix_mux: int):
+                       pix_mux: int, bvh=None):
     """One frame of kernel B1.  Returns (rad (pix_mux, n_slots, 3),
     path_sum (n_slots,), iters (n_slots,)); pixel p's RGB sum is
-    rad.reshape(-1, 3)[p].  CPU tensors take the plain twin."""
+    rad.reshape(-1, 3)[p].  ``bvh``: build_bvh(tris), the culled kernel's
+    tree; the frame is the sweep's bit for bit.  CPU tensors take the
+    plain twin."""
     check_tables(tris, mat)
+    if bvh is not None:
+        bvh.check_source(tris)
     if tris.device.type == "cpu":
         return mega_default_frame_plain(seed, cam, tris, mat, cfg, n_slots,
-                                        pix_mux)
+                                        pix_mux, bvh)
     if tris.device.type != "cuda":
         raise ValueError(f"no kernel for device {tris.device}")
+    if bvh is not None:
+        return _launch_bvh(KERNEL_CULL, seed, cam, tris, mat, cfg, n_slots,
+                           pix_mux, bvh, None)
     rad, path_sum, iters, nxt = frame_outputs(n_slots, pix_mux, tris.device)
     with torch.cuda.device(tris.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -422,6 +502,27 @@ def mega_default_frame(seed: int, cam: tuple, tris: torch.Tensor,
                       path_sum.data_ptr(), iters.data_ptr(), nxt.data_ptr(),
                       stream)
     return rad, path_sum, iters
+
+
+def walk_counts(seed: int, cam: tuple, tris: torch.Tensor,
+                mat: torch.Tensor, cfg: RenderConfig, n_slots: int,
+                pix_mux: int, bvh) -> tuple[int, int]:
+    """(inner-node visits, ray-triangle tests) of the culled frame's
+    walks: the work a bound counts.  On the card the count-only build of
+    the culled kernel (KERNEL_COUNT, which no path launches); on the CPU
+    the plain twin's counts."""
+    check_tables(tris, mat)
+    bvh.check_source(tris)
+    if tris.device.type == "cpu":
+        counts = {"visits": 0, "tests": 0}
+        mega_default_frame_plain(seed, cam, tris, mat, cfg, n_slots,
+                                 pix_mux, bvh, counts)
+        return counts["visits"], counts["tests"]
+    out = torch.zeros((2,), dtype=torch.int64, device=tris.device)
+    _launch_bvh(KERNEL_COUNT, seed, cam, tris, mat, cfg, n_slots, pix_mux,
+                bvh, out)
+    visits, tests = out.tolist()
+    return visits, tests
 
 
 def assemble(rad, path_sum, iters, cfg: RenderConfig):
@@ -439,17 +540,26 @@ def assemble(rad, path_sum, iters, cfg: RenderConfig):
 
 def render_default_mega(seed: int, scene: Scene, camera: Camera,
                         cfg: RenderConfig, device, r_tile: int = R_TILE,
-                        pix_mux: int = PIX_MUX):
+                        pix_mux: int = PIX_MUX, cull: bool | None = None):
     """Render a frame with the default megakernel; returns (image, aux).
 
     ``seed`` is the kernel's int seed: the JAX launcher draws it from its
     key as ``jax.random.randint(key, (1,), 0, 2**31 - 1)``.  Same
     estimator as integrators.default_tracer.render_default
     (ref: default_path_tracing.cu:36-88).
+
+    ``cull``: the JAX launcher's (use_cull): by default on exactly when
+    the scene spans more than one T_CHUNK chunk, forced off for one.  On,
+    the frame walks a tree built here (build_bvh, once per call, on the
+    host) in the culled kernel; the image is the sweep's bit for bit.
     """
     device = torch.device(device)
     tris, mat = pack_scene(scene.to(device))
     n_slots = n_slots_for(cfg.n_pixels, r_tile, pix_mux)
+    bvh = None
+    if use_cull(tris.shape[0], cull):
+        from rlrpt_tpu_torch.ops.bvh import build_bvh
+        bvh = build_bvh(tris)
     out = mega_default_frame(seed, camera_vector(camera), tris, mat, cfg,
-                             n_slots, pix_mux)
+                             n_slots, pix_mux, bvh)
     return assemble(*out, cfg)

@@ -62,7 +62,7 @@ SEGMENT_OPS = {   # f32 operations of a step besides the hit test
 APPLY_OPS = 10    # f32 operations per (sector, column) cell per iteration
 BOX_OPS = 26      # f32 operations of one slab test in the BVH walk: 6
 #                 # subtracts, 6 multiplies, 10 min/max, the far scale, 3
-#                 # compares (csrc/closest_hit.cu:box_near and its callers);
+#                 # compares (csrc/path_common.cuh:box_near and its callers);
 #                 # a visited inner node tests its two children's boxes
 # (spp, pix_mux, r_tile); r_tile 1024 / pix_mux 32 is the JAX bench.py choice
 B1_POINTS = [(spp, pm, 128) for spp in (1, 32) for pm in (1, 2, 4, 8)]
@@ -100,6 +100,22 @@ def frame_bound(kernel: str, out, n_tris: int, table_bytes: int = 0,
     ops = segments * (MT_OPS * n_tris + SEGMENT_OPS[kernel]) + extra_ops
     nbytes = (n_tris * (48 + 64) + table_bytes + rad.numel() * 4
               + path_sum.numel() * 4 + iters.numel() * 4)
+    return bound_ms(ops, nbytes)
+
+
+def walk_frame_bound(out, bvh, visits: int, tests: int) -> tuple[float,
+                                                                   str]:
+    """bound_ms of a culled B1 frame (the walk in the slot loop), counted
+    as B4's: its walks' inner-node visits (two box tests each) and
+    triangle tests (megakernel.walk_counts), plus each segment's own step;
+    bytes = the tree, the permuted table, its order and the material rows
+    read once, and rad, path_sum, iters written."""
+    rad, path_sum, iters = out[:3]
+    segments = float(path_sum.double().sum())
+    ops = (visits * 2 * BOX_OPS + tests * MT_OPS
+           + segments * SEGMENT_OPS["B1"])
+    nbytes = (bvh.nodes.numel() * 4 + bvh.n_tris * (48 + 4 + 64)
+              + rad.numel() * 4 + path_sum.numel() * 4 + iters.numel() * 4)
     return bound_ms(ops, nbytes)
 
 

@@ -3,24 +3,35 @@
 
 The megakernel's sweep tests every triangle at every path segment: it is
 O(T) per segment, as the reference's hot loop is (GPU_Rendering_Engine/
-Source/rays/ray.cu:17-36).  This records, per scene, the frame time of
-``render_default_mega`` (kernel B1) so the cost of T is measured, not
-argued.
+Source/rays/ray.cu:17-36); the culled kernel walks a bounding-volume
+hierarchy instead (``render_default_mega(cull=...)``).  This records, per
+scene, the frame time of ``render_default_mega`` (kernel B1) so the cost
+of T is measured, not argued.
 
     python -m rlrpt_tpu_torch.tools.scene_bench [--scenes cornell,bunny]
         [--spp 1] [--size 720] [--bounces 80] [--frames 3] [--r-tile 128]
-        [--pix-mux 1] [--no-morton] [--json PATH] [--device cuda]
+        [--pix-mux 1] [--no-morton] [--cull on|off|both] [--json PATH]
+        [--device cuda]
 
-One JSON line per scene: triangles, morton, sec_per_frame (host clock
-around render_default_mega, packing and assembly included, fenced by a
-synchronize), avg_path_length, rays_per_sec, ray_tri_tests_per_sec and,
-on the card, kernel_ms (CUDA events around B1's launches on the same
-tables) and bound_share: B1's operations bound (``mega_sweep.frame_bound``:
-50 f32 operations per ray-triangle test plus the segment's own, at 67
-TFLOP/s) over kernel_ms.  On the CPU kernel_ms and bound_share are null:
-the twin's time is no device metric.  The card's name and power limit are
-printed first.  ``bench_scene`` times one Scene and camera, so callers can
-bench a scene that is no preset.
+One JSON line per scene and cull setting (the JAX tool's rows: ``both``
+gives an off and an on row for a scene of more than one 256-triangle
+chunk, an off row alone for one chunk): triangles, cull, morton,
+sec_per_frame (host clock around render_default_mega, packing, the
+tree's build and assembly included, fenced by a synchronize),
+avg_path_length, rays_per_sec, ray_tri_tests_per_sec (the brute force's
+tests a second: rays x T, culled or not) and, on the card, kernel_ms
+(CUDA events around B1's launches on the same tables and tree) and
+bound_share: bound_ms over kernel_ms.  bound_ms is the sweep's operations
+bound (``mega_sweep.frame_bound``: 50 f32 operations per ray-triangle
+test plus the segment's own, at 67 TFLOP/s) on an off row, and on an on
+row the counted bound of the walks (``mega_sweep.walk_frame_bound``: 26
+f32 operations a box test and 50 a triangle test, counted by the
+count-only build of the culled kernel, plus the segment's own; or the
+bytes at 3.35 TB/s, whichever is larger).  On the CPU kernel_ms,
+bound_ms and bound_share are null: the twin's time is no device metric.
+The card's name and power limit are printed first.  ``bench_scene``
+times one Scene and camera, so callers can bench a scene that is no
+preset.
 """
 
 from __future__ import annotations
@@ -36,19 +47,24 @@ from rlrpt_tpu_torch.config import RenderConfig
 from rlrpt_tpu_torch.ops import megakernel as mk
 from rlrpt_tpu_torch.scene import presets
 from rlrpt_tpu_torch.scene.scene import Scene, morton_sort_surfaces
-from rlrpt_tpu_torch.tools.mega_sweep import card_state, frame_bound, kernel_ms
+from rlrpt_tpu_torch.ops.bvh import build_bvh
+from rlrpt_tpu_torch.tools.mega_sweep import (card_state, frame_bound,
+                                              kernel_ms, walk_frame_bound)
 
 
 def bench_scene(name: str, scene: Scene, camera: Camera, cfg: RenderConfig,
                 device, frames: int = 3, morton: bool = True,
                 r_tile: int = mk.R_TILE, pix_mux: int = mk.PIX_MUX,
-                seed: int = 1984) -> dict:
-    """One row: ``frames`` timed frames after 3 warm-up frames."""
+                seed: int = 1984, cull: bool = False) -> dict:
+    """One row: ``frames`` timed frames after 3 warm-up frames, culled
+    when ``cull`` and the scene spans more than one chunk
+    (megakernel.use_cull)."""
     device = torch.device(device)
     if morton:
         scene = morton_sort_surfaces(scene)
     scene = scene.to(device)
     cuda = device.type == "cuda"
+    cull = mk.use_cull(scene.n_triangles, cull)
 
     def fence():
         if cuda:
@@ -56,7 +72,8 @@ def bench_scene(name: str, scene: Scene, camera: Camera, cfg: RenderConfig,
 
     def run(i):
         return mk.render_default_mega(seed + i, scene, camera, cfg, device,
-                                      r_tile=r_tile, pix_mux=pix_mux)
+                                      r_tile=r_tile, pix_mux=pix_mux,
+                                      cull=cull)
 
     for i in range(3):
         run(900 + i)
@@ -68,7 +85,8 @@ def bench_scene(name: str, scene: Scene, camera: Camera, cfg: RenderConfig,
     plen = float(sum(float(p) for p in paths) / frames)
     rays = plen * cfg.n_pixels * cfg.samples_per_pixel
     n_tris = scene.n_triangles
-    row = {"scene": name, "triangles": n_tris, "morton": morton,
+    row = {"scene": name, "triangles": n_tris, "cull": cull,
+           "morton": morton,
            "sec_per_frame": dt, "avg_path_length": plen,
            "rays_per_sec": rays / dt,
            "ray_tri_tests_per_sec": rays * n_tris / dt,
@@ -79,11 +97,15 @@ def bench_scene(name: str, scene: Scene, camera: Camera, cfg: RenderConfig,
         tris, mat = mk.pack_scene(scene)
         cam = mk.camera_vector(camera)
         n_slots = mk.n_slots_for(cfg.n_pixels, r_tile, pix_mux)
-        out = mk.mega_default_frame(seed, cam, tris, mat, cfg, n_slots,
-                                    pix_mux)
-        bound, _ = frame_bound("B1", out, n_tris)
-        ms = kernel_ms(lambda: mk.mega_default_frame(
-            seed, cam, tris, mat, cfg, n_slots, pix_mux), frames)
+        args = (seed, cam, tris, mat, cfg, n_slots, pix_mux)
+        tree = build_bvh(tris) if cull else None
+        out = mk.mega_default_frame(*args, tree)
+        if cull:
+            bound, _ = walk_frame_bound(out, tree,
+                                        *mk.walk_counts(*args, tree))
+        else:
+            bound, _ = frame_bound("B1", out, n_tris)
+        ms = kernel_ms(lambda: mk.mega_default_frame(*args, tree), frames)
         row.update(kernel_ms=ms, bound_ms=bound, bound_share=bound / ms)
     return row
 
@@ -100,10 +122,12 @@ def main(argv=None) -> int:
     ap.add_argument("--pix-mux", type=int, default=mk.PIX_MUX)
     ap.add_argument("--morton", action="store_true", default=True,
                     help="Morton-sort the surfaces (scene."
-                         "morton_sort_surfaces; the default).  The JAX "
-                         "tool's --cull is not offered: the kernels here "
-                         "sweep every triangle and cull nothing")
+                         "morton_sort_surfaces; the default)")
     ap.add_argument("--no-morton", dest="morton", action="store_false")
+    ap.add_argument("--cull", choices=("on", "off", "both"), default="both",
+                    help="the culled kernel B1, a BVH walk (multi-chunk "
+                         "scenes only; 'both' records an off/on row pair "
+                         "per such scene)")
     ap.add_argument("--json", default=None, help="also write the rows here")
     ap.add_argument("--device", default="cuda",
                     help="torch device; cuda times kernel B1, cpu its twin")
@@ -117,12 +141,16 @@ def main(argv=None) -> int:
     rows = []
     for name in args.scenes.split(","):
         p = presets.get(name)
-        row = bench_scene(name, p.load(device=device),
-                          Camera.create(p.camera_position), cfg, device,
-                          args.frames, args.morton, args.r_tile,
-                          args.pix_mux)
-        rows.append(row)
-        print(json.dumps(row), flush=True)
+        scene = p.load(device=device)
+        multi = mk.use_cull(scene.n_triangles)
+        modes = {"on": [True], "off": [False],
+                 "both": [False, True] if multi else [False]}[args.cull]
+        for cull in modes:
+            row = bench_scene(name, scene, Camera.create(p.camera_position),
+                              cfg, device, args.frames, args.morton,
+                              args.r_tile, args.pix_mux, cull=cull)
+            rows.append(row)
+            print(json.dumps(row), flush=True)
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"config": {"size": args.size, "spp": args.spp,

@@ -49,8 +49,10 @@ def test_twin_matches_jax_cornell(rr):
 
 
 def test_twin_matches_jax_multichunk():
-    """288 triangles pad to 512: the JAX launcher streams two chunks (with
-    its AABB cull); the port sweeps every triangle, first-tested wins."""
+    """288 triangles pad to 512: the JAX launcher streams two chunks with
+    its AABB cull, and the port walks the frame's BVH (both launchers'
+    default there; tests/test_torch_mega_cull.py holds the walk to the
+    sweep bit for bit)."""
     scene = cornell_plus_clutter()
     assert jmk._t_pad(scene.n_triangles) == 2 * jmk.T_CHUNK
     (img_t, aux_t), (img_j, aux_j) = _both(
