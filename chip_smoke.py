@@ -31,26 +31,28 @@ set to 0 just before it and read just after:
   batch: no integrator of either package calls it, so its public launcher
   is its path;
 * the fine-map expected-SARSA stack: ``--mode sarsa-fast`` at 720x720,
-  20 learning frames of 8 spp (phase 19 runs the EVAL protocol's 40),
+  10 learning frames of 8 spp (phase 19 runs the EVAL protocol's 40),
   with V = 24,526 volumes and the class table (B4a, its class column
   live; B4a held against its twin on the path's own rays; the visit
   invariant in every frame; a 32-spp test render within 2% of
   ``--mode mega``), the other fine-map modes at 128x128 (B4b), and the
   learned map baked into B3's table and rendered at 720x720 (B3);
 * the deep-Q family, kernel B4a under cuBLAS f32 matmuls (TF32 off):
-  ``--mode neural-q --impl wavefront`` at 720x720, 3 frames of 1 spp,
+  ``--mode neural-q --impl wavefront`` at 720x720, 2 frames of 1 spp,
   pix_mux 8, the full 342-200-300-200-144 net (epsilon exact, weights
-  finite and moved, zclp not rising, B4a bit-equal to its twin on the
-  path's rays, no host sync inside a minibatch loop in a profiled window
-  of iterations, which also gives kernels per iteration and the device's
-  idle share), one ``train_batching="fused"`` frame, the MLP's forward
-  against its f32 bound; ``--mode pretrained`` from the saved model at
-  16 spp in f32 and bf16 (bf16 within 3x the f32 seed-to-seed noise per
+  finite and moved, zclp not rising, B4a bit-equal to its twins on three
+  of the frames' calls, no host sync inside a minibatch loop in a
+  profiled window of iterations, ended after them, which also gives
+  kernels per iteration, the device's idle share and the Adam and
+  forward_relative device time), one ``train_batching="fused"`` frame,
+  the MLP's forward against its f32 bound; ``--mode pretrained`` from
+  the saved model at 4 spp in f32 and bf16 (bf16 within 3x the f32
+  seed-to-seed noise per
   pixel, and its frame and block means within the standard errors that
   seed pairs give; the f32 frame means within -8% to -2% of
   ``--mode mega``'s, the reference estimator's darkening); the lockstep
   ``neural-q`` and ``pretrained`` at
-  256x256 (the wavefront held to the lockstep in the same ways);
+  128x128 (the wavefront held to the lockstep in the same ways);
   ``--mode distill`` of the phase-11 map (test MSE falls) and
   ``--mode q-probe`` (rows sum to 1);
 * the new scenes (phase 18): the test room (B1, B3, B2, B4a/b bit-equal
@@ -60,14 +62,31 @@ set to 0 just before it and read just after:
   to the Python one; B1, B3 with a baked per-triangle table and B4a/b
   bit-equal to their twins; B1, B3 and B4a-c timed against their bounds
   at 720x720; ``--mode wavefront`` and ``--mode sarsa-fast`` through the
-  CLI, means within 2%); the culled B1 (``render_default_mega(cull=...)``,
-  a BVH walk in the slot loop) on the OBJ and on the 288-triangle
-  clutter scene at 720x720: bit-equal to the sweep kernel at 1 and 32
-  spp, each timed in turns, and to its twin (the plain walk) at 1 spp,
+  CLI, means within 2%, the fine map saved for phase 22); the culled B1
+  (``render_default_mega(cull=...)``, a BVH walk in the slot loop) on
+  the OBJ and on the 288-triangle clutter scene at 720x720: bit-equal to
+  the sweep kernel at 1 and 32 spp, each timed in turns, and to its twin
+  (the plain walk) at 1 spp, 720x720 on the OBJ and 128x128 on the clutter,
   its counted bound from the count-only build (equal to the twin's
   counts); ``--mode mega`` on the OBJ, culled by default, bit-equal to
   ``cull=False`` at its seed; and scene_bench rows with ``--cull both``
   for Cornell, the test room and the OBJ, Morton-sorted and not;
+* the deep-Q family on that OBJ (phase 22, run after 18; the
+  relative-vertex input 44,820 wide): ``--mode neural-q`` at 720x720, 2
+  frames of 1 spp, then ``--save-model`` (the checks of phase 14, every
+  layer moved, the first layer (200, 44,820), peak device memory; B4a
+  bit-equal to both twins on three of the frames' calls), a profiled
+  window of full-width iterations beside phase 14's, the DyNet file's
+  save and load seconds (the load bit for bit), ``--mode pretrained`` at
+  4 spp in f32 (two seeds, above -10% of ``--mode mega``'s mean at the
+  same spp and not 4 standard errors above it) and bf16 (held to f32 as
+  in phase 15), the zero-Q share, the lockstep tracers at 128x128 (held
+  to the wavefront as in phase 16), ``--mode distill`` of phase 18's OBJ
+  map for 2 epochs (finite losses, the input 44,820 wide) and ``--mode
+  q-probe`` of the distilled net (the net's rows; each sums to 1 or, as
+  in phase 17, stays 0 where the output ReLU zeroes every sector: at this
+  width the reference's distillation zeroes nearly all of them), and of
+  the trained neural-q net at the same volumes (every row sums to 1);
 * the thesis MAPE protocol (phase 19, ``tools/evaluate.py``) on Cornell
   at 720x720, 128 spp: the port's own 4096-spp GT (B1) within 0.5% of
   the cached GT's mean, then every row but neural_q against the cached
@@ -87,10 +106,10 @@ set to 0 just before it and read just after:
   ``render_guided_mega_dp`` (B2, B3; each frame's image and visits
   bit-equal to the launcher's with the rank-0 seed, q within rtol 1e-4,
   the visit invariant exact), ``render_frame_sarsa_wavefront_dp`` on
-  phase 11's volumes and the pretrained and neural-Q wavefront dp frames
-  (B4a; bit-equal to the single-process frames), ``render_frame_sarsa_dp``
-  at 128x128 (B4b), ``neural_q_train_step_dp``
-  at 256x256 (B4a), ``render_multiscene_dp`` and
+  phase 11's volumes and the pretrained (4 spp) and neural-Q (360x360)
+  wavefront dp frames (B4a; bit-equal to the single-process frames),
+  ``render_frame_sarsa_dp`` at 128x128 (B4b), ``neural_q_train_step_dp``
+  at 128x128 (B4a), ``render_multiscene_dp`` and
   ``train_multiscene_deep_dp`` on Cornell and the test room at 256x256,
   and the scaling bench's rows for sizes 1 and 2 (2 skipped: one card);
   then two spawned ranks sharing the card over gloo
@@ -139,9 +158,10 @@ ROOT = Path(__file__).resolve().parent
 CAM = (0.0, 0.0, -3.0)
 TOL = "99% of pixels within atol 1e-4 rtol 1e-3; mean 0.5%; avg path 1%"
 # a pretrained f32 frame's mean relative to --mode mega's ([15]), and its
-# spp (32 before phase 21 came; 16 keeps the script near 600 s)
+# spp (32 before phase 21 came, 16 before phase 22; at 4 the frame mean's
+# standard error is still ~0.1%, against a band 6% wide)
 PRETRAINED_BAND = (-0.08, -0.02)
-PRETRAINED_SPP = 16
+PRETRAINED_SPP = 4
 
 PHASE_START: dict = {}   # phase tag -> perf_counter at its first line
 
@@ -162,6 +182,11 @@ def phase_seconds(end: float) -> dict:
     tags = sorted(PHASE_START, key=PHASE_START.get)
     ends = [PHASE_START[t] for t in tags[1:]] + [end]
     return {t: e - PHASE_START[t] for t, e in zip(tags, ends)}
+
+
+def log_timing(seconds: dict, note: str = "") -> None:
+    log(f"[timing] seconds per phase{note}: " + ", ".join(
+        f"[{t}] {s:.1f}" for t, s in seconds.items()))
 
 
 def kernel_name(symbol: str) -> str:
@@ -518,8 +543,9 @@ class HitRecorder:
     copies of the inputs of the calls numbered in ``at`` and of the last
     two calls (the last may be an idle one after the frame drained), so
     the kernel can be held against its twin on the path's own rays
-    afterwards.  It records one extra, untimed frame: the copies would
-    add three clones to every timed iteration."""
+    afterwards.  The copies add three clones to every iteration: phase 11
+    records an extra, untimed frame (315 kernels an iteration); the deep
+    phases record their timed frames (~4,000 kernels an iteration)."""
 
     def __init__(self, fn, at):
         self.fn, self.at, self.n, self.calls = fn, set(at), 0, {}
@@ -536,7 +562,7 @@ class HitRecorder:
 
 
 def fine_map_phases(dev, out_dir: Path, drive, mega_mean: float,
-                    size: int = 720, learn_frames: int = 20,
+                    size: int = 720, learn_frames: int = 10,
                     area: float = 0.001, small: int = 128,
                     nn_queries: int = 100_000, keep: dict | None = None
                     ) -> dict:
@@ -579,9 +605,9 @@ def fine_map_phases(dev, out_dir: Path, drive, mega_mean: float,
     # ---- 11: sarsa-fast at full width -----------------------------------
     log(f"[11] sarsa-fast: Cornell {size}x{size}, 80 bounces, area_per_sample"
         f" {area}, class table, pix_mux 4, hit_mode mxu; {learn_frames} "
-        f"learning frames x 8 spp (half the EVAL protocol's training, "
-        f"which phase 19 runs whole), then a 32-spp test render that keeps "
-        f"learning")
+        f"learning frames x 8 spp (a quarter of the EVAL protocol's "
+        f"training, which phase 19 runs whole), then a 32-spp test render "
+        f"that keeps learning")
     img, aux, sec = drive("11", ("B4a",), lambda: run_cli([
         "--mode", "sarsa-fast", "--frames", str(learn_frames),
         "--spp", "8", "--width", str(size), "--height", str(size),
@@ -638,14 +664,7 @@ def fine_map_phases(dev, out_dir: Path, drive, mega_mean: float,
     # phase 17 distills the learned map, and probes 16 of the volumes
     # whose largest Q is above the median (those that gathered light)
     map_io.save_q_vals_to_file(t_vols, str(out_dir / "q_fine_map.txt"))
-    q_max = t_vols.q.max(dim=1).values
-    lit = torch.nonzero(q_max > q_max.median())[:, 0].cpu().numpy()
-    pick = np.random.default_rng(17).choice(lit, 16, replace=False)
-    p_pos, p_nrm = (t_vols.position[pick].cpu().numpy(),
-                    t_vols.normal[pick].cpu().numpy())
-    (out_dir / "probes.txt").write_text("".join(
-        " ".join(f"{float(x):.6g}" for x in (*p, *n)) + "\n"
-        for p, n in zip(p_pos, p_nrm)))
+    write_probes(t_vols, out_dir / "probes.txt", 17)
     log(f"[11] test render 32 spp: {t_sec:.4f} s, "
         f"{int(t_aux['wavefront_iterations'])} iterations, avg path "
         f"{float(t_aux['avg_path_length']):.4f}, zclp "
@@ -696,9 +715,9 @@ def fine_map_phases(dev, out_dir: Path, drive, mega_mean: float,
         "test_avg_path": float(t_aux["avg_path_length"])}
 
     # ---- 12: the rest of the slice at a smaller size --------------------
-    log(f"[12] the rest of the slice at {small}x{small}, 8 spp, "
+    log(f"[12] the rest of the slice at {small}x{small}, 4 spp, "
         f"area_per_sample 0.01")
-    sm = ["--width", str(small), "--height", str(small), "--spp", "8",
+    sm = ["--width", str(small), "--height", str(small), "--spp", "4",
           "--bounces", "80", "--area-per-sample", "0.01", "--seed", "7"]
     small_s = {}
 
@@ -738,7 +757,7 @@ def fine_map_phases(dev, out_dir: Path, drive, mega_mean: float,
 
     small_rl = RadianceVolumeConfig(area_per_sample=0.01)
     s_vols = build_radiance_volumes(scene, small_rl)
-    s_cfg = RenderConfig(width=small, height=small, samples_per_pixel=8,
+    s_cfg = RenderConfig(width=small, height=small, samples_per_pixel=4,
                          max_ray_bounces=80)
     f_img, f_vols, f_aux = drive("12", ("B4b",), lambda: (
         sw.render_frame_sarsa_wavefront(
@@ -810,14 +829,34 @@ def fine_map_phases(dev, out_dir: Path, drive, mega_mean: float,
     return res
 
 
+def write_probes(vols, path: Path, seed: int) -> None:
+    """16 probe points (``x y z nx ny nz``) at volumes whose largest Q is
+    above the median (those that gathered light), drawn with numpy's
+    ``seed``."""
+    q_max = vols.q.max(dim=1).values
+    lit = torch.nonzero(q_max > q_max.median())[:, 0].cpu().numpy()
+    pick = np.random.default_rng(seed).choice(lit, 16, replace=False)
+    p_pos, p_nrm = (vols.position[pick].cpu().numpy(),
+                    vols.normal[pick].cpu().numpy())
+    path.write_text("".join(
+        " ".join(f"{float(x):.6g}" for x in (*p, *n)) + "\n"
+        for p, n in zip(p_pos, p_nrm)))
+
+
+class StopFrame(Exception):
+    """Raised by IterationHook to end a frame after a profiled window."""
+
+
 class IterationHook:
     """Stands in for deep_wavefront's closest_hit_mat_mxu, which each
     wavefront iteration calls once: records a CUDA event before every
-    call (the iterations' spans on the device timeline) and steps a
-    profiler if it is given one."""
+    call (the iterations' spans on the device timeline), steps a profiler
+    if it is given one, and with ``stop_at`` raises StopFrame at that
+    call, after its event (the frame's later iterations are not needed)."""
 
-    def __init__(self, fn, prof=None, sync_at=None):
+    def __init__(self, fn, prof=None, sync_at=None, stop_at=None):
         self.fn, self.prof, self.sync_at, self.events = fn, prof, sync_at, []
+        self.stop_at = stop_at
 
     def __call__(self, *args):
         if len(self.events) == self.sync_at:
@@ -829,6 +868,8 @@ class IterationHook:
         self.events.append(ev)
         if self.prof is not None:
             self.prof.step()
+        if len(self.events) - 1 == self.stop_at:
+            raise StopFrame
         return self.fn(*args)
 
     def spans_ms(self, first: int, n: int) -> list:
@@ -837,65 +878,236 @@ class IterationHook:
         return [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
 
 
+def stopped(fn):
+    """fn() until an IterationHook ends it; None then."""
+    try:
+        return fn()
+    except StopFrame:
+        return None
+
+
 def profile_deep_window(dw, frame, first: int, n: int) -> dict:
-    """frame() (one training frame of deep_wavefront, returning what
-    render_frame_neural_q_wavefront returns) under torch.profiler,
-    recording only iterations first..first+n-1 (the closest-hit call that
-    opens each iteration steps the profiler), with every
-    train_on_batches call marked "minibatch_loop".  Returns the frame's
-    iterations, the device kernels (memsets and copies included) of those
-    iterations, their busy time (union of intervals), the cuBLAS kernels'
-    time, and the host synchronisations and device-to-host copies issued
-    inside a minibatch loop."""
+    """frame() (one training frame of deep_wavefront) under
+    torch.profiler, recording only iterations first..first+n-1 (the
+    closest-hit call that opens each iteration steps the profiler) and
+    ending the frame there, with every train_on_batches call marked
+    "minibatch_loop", every Adam step "adam" and every forward_relative
+    call "forward_relative" (the sampler's forward and the minibatches';
+    their backward runs under autograd.grad, outside it).  Returns the
+    device kernels (memsets and copies included) of those iterations,
+    their busy time (union of intervals), the cuBLAS kernels' time, the
+    device time of the kernels launched inside each marked range, and
+    the host synchronisations and device-to-host copies issued inside a
+    minibatch loop."""
     from torch.profiler import (ProfilerActivity, profile, record_function,
                                 schedule)
+    from rlrpt_tpu_torch.deep import neural_q as nq
+    from rlrpt_tpu_torch.nn.dq_network import DQNetwork
     from rlrpt_tpu_torch.tools.sarsa_fast_profile import (busy_us,
                                                           device_events,
                                                           trace_events)
     hit, train = dw.closest_hit_mat_mxu, dw.train_on_batches
+    adam, fwd = nq.adam_update, DQNetwork.forward_relative
 
-    def minibatch_loop(*a, **k):
-        with record_function("minibatch_loop"):
-            return train(*a, **k)
+    def marked(name, fn):
+        def run(*a, **k):
+            with record_function(name):
+                return fn(*a, **k)
+        return run
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=first, warmup=1, active=n,
                                    repeat=1)) as prof:
-        dw.closest_hit_mat_mxu = IterationHook(hit, prof, first + n)
-        dw.train_on_batches = minibatch_loop
+        dw.closest_hit_mat_mxu = IterationHook(hit, prof, first + n,
+                                               first + n)
+        dw.train_on_batches = marked("minibatch_loop", train)
+        nq.adam_update = marked("adam", adam)
+        DQNetwork.forward_relative = marked("forward_relative", fwd)
         try:
-            aux = frame()[4]
+            stopped(frame)
             torch.cuda.synchronize()
         finally:
             dw.closest_hit_mat_mxu, dw.train_on_batches = hit, train
+            nq.adam_update, DQNetwork.forward_relative = adam, fwd
     events = trace_events(prof)
     dev = device_events(events)
-    loops = [(e["ts"], e["ts"] + e["dur"]) for e in events
-             if e.get("cat") == "user_annotation"
-             and e.get("name") == "minibatch_loop"]
-    inside = lambda ts: any(s <= ts <= t for s, t in loops)  # noqa: E731
+    ranges = {k: [(e["ts"], e["ts"] + e["dur"]) for e in events
+                  if e.get("cat") == "user_annotation" and e.get("name") == k]
+              for k in ("minibatch_loop", "adam", "forward_relative")}
+    inside = lambda k, ts: any(s <= ts <= t for s, t in ranges[k])  # noqa: E731
     host_ts = {e["args"]["correlation"]: e["ts"] for e in events
                if e.get("cat") in ("cuda_runtime", "cuda_driver")
                and "correlation" in e.get("args", {})}
+    launched = lambda e: host_ts.get(  # noqa: E731
+        e.get("args", {}).get("correlation"), -1.0)
     syncs = [e["name"] for e in events
              if ((e.get("cat") in ("cuda_runtime", "cuda_driver")
                   and "Synchronize" in e["name"])
                  or (e.get("cat") == "cpu_op" and e["name"] in (
                      "aten::item", "aten::_local_scalar_dense")))
-             and inside(e["ts"])]
+             and inside("minibatch_loop", e["ts"])]
     d2h = [e for e in dev if "DtoH" in e["name"]]
-    d2h_in = [e for e in d2h if inside(host_ts.get(
-        e.get("args", {}).get("correlation"), -1.0))]
+    d2h_in = [e for e in d2h if inside("minibatch_loop", launched(e))]
     gemm = [e for e in dev if re.search("gemm|gemv", e["name"], re.I)]
-    return {"iterations": int(aux["wavefront_iterations"]),
-            "kernels": len(dev), "loops": len(loops),
+    in_range = {k: [e for e in dev if inside(k, launched(e))]
+                for k in ("adam", "forward_relative")}
+    return {"kernels": len(dev), "loops": len(ranges["minibatch_loop"]),
             "busy_us": busy_us((e["ts"], e["ts"] + e["dur"]) for e in dev),
             "gemm_us": sum(e["dur"] for e in gemm), "gemm_kernels": len(gemm),
+            "adam_us": sum(e["dur"] for e in in_range["adam"]),
+            "adam_kernels": len(in_range["adam"]),
+            "forward_us": sum(e["dur"] for e in in_range["forward_relative"]),
+            "forward_kernels": len(in_range["forward_relative"]),
             "syncs_in_loop": syncs, "d2h": len(d2h), "d2h_in_loop": len(d2h_in)}
 
 
+def deep_window(dw, net, opt_state, frame, first: int, n: int) -> dict:
+    """Iterations first..first+n-1 of frame() (a training frame), run twice
+    from the same weights and Adam state, each ended after the window:
+    with a CUDA event before each iteration (the spans on the device
+    timeline), then under torch.profiler (profile_deep_window).  Returns
+    the profile's figures with the spans and the idle share (1 - busy /
+    span per iteration)."""
+    state = list(net.parameters()) + [opt_state.count, *opt_state.mu,
+                                       *opt_state.nu]
+    saved = [t.detach().clone() for t in state]
+    clock = IterationHook(dw.closest_hit_mat_mxu, stop_at=first + n)
+    dw.closest_hit_mat_mxu = clock
+    try:
+        stopped(frame)
+    finally:
+        dw.closest_hit_mat_mxu = clock.fn
+    spans = clock.spans_ms(first, n)
+    with torch.no_grad():
+        for t, s in zip(state, saved):
+            t.copy_(s)
+    prof = profile_deep_window(dw, frame, first, n)
+    busy_it = prof["busy_us"] / n
+    span_it = statistics.mean(spans) * 1e3
+    return dict(prof, spans_ms=spans, busy_us_per_iteration=busy_it,
+                span_us_per_iteration=span_it, idle=1.0 - busy_it / span_it,
+                per_iteration={k: prof[k] / n for k in (
+                    "kernels", "gemm_us", "adam_us", "adam_kernels",
+                    "forward_us", "forward_kernels")})
+
+
+def window_line(prof: dict, n: int) -> str:
+    """The log text of deep_window's figures."""
+    it = prof["per_iteration"]
+    return (f"{it['kernels']:.1f} device kernels per iteration, device busy "
+            f"{prof['busy_us_per_iteration']:.2f} us per iteration under the "
+            f"profiler against {prof['span_us_per_iteration']:.2f} us per "
+            f"iteration on the device timeline of the unprofiled run ("
+            + ", ".join(f"{s:.3f}" for s in prof["spans_ms"])
+            + f" ms): idle share {prof['idle']:.4f}; cuBLAS kernels "
+            f"{prof['gemm_kernels']} ({it['gemm_us']:.2f} us per iteration); "
+            f"Adam {it['adam_us']:.2f} us ({it['adam_kernels']:.0f} kernels) "
+            f"and forward_relative {it['forward_us']:.2f} us "
+            f"({it['forward_kernels']:.0f} kernels) of device time per "
+            f"iteration; {prof['loops']} minibatch loops profiled over {n} "
+            f"iterations, host syncs inside them {prof['syncs_in_loop']}, "
+            f"device-to-host copies {prof['d2h']} ({prof['d2h_in_loop']} "
+            f"issued inside them)")
+
+
+def window_figures(prof: dict) -> dict:
+    """deep_window's figures for results.json."""
+    keys = ("per_iteration", "busy_us_per_iteration", "span_us_per_iteration",
+            "idle", "spans_ms", "loops", "gemm_kernels", "d2h")
+    return {k: prof[k] for k in keys}
+
+
+def check_learning(tag: str, frames, net, dl) -> None:
+    """Logs each neural-q learning frame the CLI ran and holds them:
+    epsilon at its closed form after the frames, every frame moved the
+    net, finite weights and loss, zclp not rising."""
+    for i, fr in enumerate(frames):
+        log(f"{tag} learning frame {i}: {fr['seconds']:.4f} s, "
+            f"{fr['iterations']} iterations, phases "
+            + " ".join(f"{n}@{w}" for w, n in zip(fr["phase_widths"],
+                                                 fr["phase_iterations"]))
+            + f", avg path {fr['avg_path']:.4f}, zclp {fr['zclp']}, loss "
+            f"{fr['loss']:.6g}, loss_rel {fr['loss_rel']:.6g}, epsilon "
+            f"{fr['epsilon']!r}, largest weight change {fr['moved']:.4g}")
+    eps = np.float32(dl.epsilon_start)
+    for _ in frames:
+        eps = max(eps - np.float32(dl.epsilon_decay * 1),
+                  np.float32(dl.epsilon_min))
+    check(frames[-1]["epsilon"] == float(eps),
+          f"{tag} epsilon {frames[-1]['epsilon']!r} != closed form "
+          f"{float(eps)!r}")
+    check(all(fr["moved"] > 0 for fr in frames), f"{tag} the net did not "
+                                                  f"move")
+    check(all(bool(torch.isfinite(p).all()) for p in net.parameters()),
+          f"{tag} non-finite weights")
+    check(all(np.isfinite(fr["loss"]) and np.isfinite(fr["loss_rel"])
+              for fr in frames), f"{tag} loss not finite")
+    check(frames[-1]["zclp"] <= frames[0]["zclp"],
+          f"{tag} zclp rose: {frames[0]['zclp']} -> {frames[-1]['zclp']}")
+
+
+def hold_recorded(tag: str, rec) -> None:
+    """B4a on a deep loop's own rays: each call a HitRecorder kept, held
+    bit for bit against the brute-force twin (closest_hit_plain) and the
+    plain BVH walk (closest_hit_bvh_plain)."""
+    from rlrpt_tpu_torch.ops import intersect_pallas as ip
+    from rlrpt_tpu_torch.ops.bvh import closest_hit_bvh_plain
+    for key, (o, d, tris, mat, m, bvh) in rec.calls.items():
+        k_out = ip.closest_hit_mat_mxu(o, d, tris, mat, m, bvh)
+        torch.cuda.synchronize()
+        for twin, p_out in (
+                ("brute-force twin", ip.closest_hit_plain(o, d, tris, int(m),
+                                                          mat)),
+                ("plain walk", closest_hit_bvh_plain(o, d, bvh, int(m),
+                                                     mat)[:3])):
+            for a, b in zip(k_out, p_out):
+                check(torch.equal(a, b), f"{tag} B4a call {key}: kernel and "
+                                         f"{twin} differ on the path's rays")
+        log(f"{tag} B4a call {key} ({o.shape[0]} slots, active_count "
+            f"{int(m)}, {tris.shape[0]} triangles): t, index and material "
+            f"rows bit-equal to the brute-force twin and the plain walk, "
+            f"{float((k_out[0] < 1e38).float().mean()):.4f} hit")
+    check(any(o.shape[0] >= 64_800 for o, *_ in rec.calls.values()),
+          f"{tag}: no full-width B4a call recorded")
+
+
+def noise_gap(a, b, c) -> tuple:
+    """(mean |a - b|, mean |c - a|): a frame's seed-to-seed noise and
+    another estimator's distance from it."""
+    return (float((a - b).abs().mean()), float((c - a).abs().mean()))
+
+def hold_means(label: str, img, ref, pairs, grid: int) -> dict:
+    """Holds img's frame mean and its grid x grid block means to ref's,
+    each in standard errors of the difference.  Pixels are independent,
+    so the variance of a mean over pixels is the sum of the pixels'
+    variances over the count squared; a pixel's variance in one frame
+    is (a - b)^2 / 2 for a seed pair (a, b) of one estimator.  pairs:
+    ref's estimator's pair (img's variance taken as the same), or
+    ref's and then img's.  Fails if the frame mean lies 4 or more
+    standard errors off, or the blocks' mean squared z is 2 or more
+    (about 1 for frames of one estimator)."""
+    lum = lambda x: x.double().mean(-1)  # noqa: E731
+    var = [(lum(a) - lum(b)) ** 2 / 2 for a, b in pairs]
+    var = 2 * var[0] if len(var) == 1 else var[0] + var[1]
+    d = lum(img) - lum(ref)
+    h = d.shape[0] // grid
+    blocks = lambda x: x.reshape(grid, h, grid, h).sum((1, 3))  # noqa: E731
+    z = float(d.sum() / var.sum().sqrt())
+    zb = blocks(d) / blocks(var).sqrt()
+    # a block that no seed changes (inside the light) must not change
+    zb = torch.where(zb.isnan(), 0.0, zb)
+    chi2, zmax = float((zb ** 2).mean()), float(zb.abs().max())
+    rel = float(lum(img).mean() / lum(ref).mean() - 1.0)
+    log(f"{label}: frame mean {rel:+.4%} off, z {z:+.3f} (limit 4); "
+        f"{grid}x{grid} block means: mean squared z {chi2:.4f} (limit "
+        f"2), largest |z| {zmax:.3f}")
+    check(abs(z) < 4.0 and chi2 < 2.0,
+          f"{label}: frame or block means apart (z {z}, chi2 {chi2})")
+    return {"rel": rel, "z": z, "block_chi2": chi2, "block_zmax": zmax}
+
+
 def deep_phases(dev, out_dir: Path, drive, mega_mean: float,
-                size: int = 720, small: int = 256) -> dict:
+                size: int = 720, small: int = 128) -> dict:
     """Phases 14-17, the deep-Q family; returns their figures.  ``drive``
     runs a path with every launch count at 0 and fails it if an expected
     kernel never launched; ``mega_mean`` is the mean of a ``--mode mega``
@@ -928,82 +1140,39 @@ def deep_phases(dev, out_dir: Path, drive, mega_mean: float,
         sync(dev)
         return img, aux, time.perf_counter() - t0
 
-    def noise_gap(a, b, c) -> tuple:
-        """(mean |a - b|, mean |c - a|): a frame's seed-to-seed noise and
-        another estimator's distance from it."""
-        return (float((a - b).abs().mean()), float((c - a).abs().mean()))
-
-    def hold_means(label: str, img, ref, pairs, grid: int) -> dict:
-        """Holds img's frame mean and its grid x grid block means to ref's,
-        each in standard errors of the difference.  Pixels are independent,
-        so the variance of a mean over pixels is the sum of the pixels'
-        variances over the count squared; a pixel's variance in one frame
-        is (a - b)^2 / 2 for a seed pair (a, b) of one estimator.  pairs:
-        ref's estimator's pair (img's variance taken as the same), or
-        ref's and then img's.  Fails if the frame mean lies 4 or more
-        standard errors off, or the blocks' mean squared z is 2 or more
-        (about 1 for frames of one estimator)."""
-        lum = lambda x: x.double().mean(-1)  # noqa: E731
-        var = [(lum(a) - lum(b)) ** 2 / 2 for a, b in pairs]
-        var = 2 * var[0] if len(var) == 1 else var[0] + var[1]
-        d = lum(img) - lum(ref)
-        h = d.shape[0] // grid
-        blocks = lambda x: x.reshape(grid, h, grid, h).sum((1, 3))  # noqa: E731
-        z = float(d.sum() / var.sum().sqrt())
-        zb = blocks(d) / blocks(var).sqrt()
-        # a block that no seed changes (inside the light) must not change
-        zb = torch.where(zb.isnan(), 0.0, zb)
-        chi2, zmax = float((zb ** 2).mean()), float(zb.abs().max())
-        rel = float(lum(img).mean() / lum(ref).mean() - 1.0)
-        log(f"{label}: frame mean {rel:+.4%} off, z {z:+.3f} (limit 4); "
-            f"{grid}x{grid} block means: mean squared z {chi2:.4f} (limit "
-            f"2), largest |z| {zmax:.3f}")
-        check(abs(z) < 4.0 and chi2 < 2.0,
-              f"{label}: frame or block means apart (z {z}, chi2 {chi2})")
-        return {"rel": rel, "z": z, "block_chi2": chi2, "block_zmax": zmax}
-
     # ---- 14: neural-q on the wavefront at full width --------------------
     model = out_dir / "neural_q.model"
+    n_learn = 2
     log(f"[14] neural-q wavefront: Cornell {size}x{size}, 80 bounces, pix_mux "
-        f"8, 3 learning frames x 1 spp, the 342-200-300-200-144 net trained "
-        f"online (Adam per 4096-ray minibatch), then --save-model; TF32 off "
-        f"(allow_tf32 {torch.backends.cuda.matmul.allow_tf32})")
-    img, aux, sec = drive("14", ("B4a",), lambda: run_cli([
-        "--mode", "neural-q", "--impl", "wavefront", "--frames", 3,
-        "--spp", 1, "--width", size, "--height", size, "--bounces", 80,
-        "--pix-mux", 8, "--seed", 1984, "--save-model", model]))
+        f"8, {n_learn} learning frames x 1 spp, the 342-200-300-200-144 net "
+        f"trained online (Adam per 4096-ray minibatch), then --save-model; "
+        f"TF32 off (allow_tf32 {torch.backends.cuda.matmul.allow_tf32})")
+    # B4a on the path's own rays: the frames' calls 12 (width 64,800) and
+    # the last two are kept (three clones an iteration, against ~4,000
+    # kernels)
+    rec = HitRecorder(dw.closest_hit_mat_mxu, at=(12,))
+    dw.closest_hit_mat_mxu = rec
+    try:
+        img, aux, sec = drive("14", ("B4a",), lambda: run_cli([
+            "--mode", "neural-q", "--impl", "wavefront", "--frames",
+            n_learn, "--spp", 1, "--width", size, "--height", size,
+            "--bounces", 80, "--pix-mux", 8, "--seed", 1984,
+            "--save-model", model]))
+    finally:
+        dw.closest_hit_mat_mxu = rec.fn
     b4a_learn = ip.KERNEL_MAT.launches
     frames, net, opt_state = aux["frames"], aux["net"], aux["opt_state"]
     trained = [p.detach().clone() for p in net.parameters()]
     check_image("neural-q frame", img, size)
-    for i, fr in enumerate(frames):
-        log(f"[14] learning frame {i}: {fr['seconds']:.4f} s, "
-            f"{fr['iterations']} iterations, phases "
-            + " ".join(f"{n}@{w}" for w, n in zip(fr["phase_widths"],
-                                                 fr["phase_iterations"]))
-            + f", avg path {fr['avg_path']:.4f}, zclp {fr['zclp']}, loss "
-            f"{fr['loss']:.6g}, loss_rel {fr['loss_rel']:.6g}, epsilon "
-            f"{fr['epsilon']!r}, largest weight change {fr['moved']:.4g}")
-    eps = np.float32(dl.epsilon_start)
-    for _ in frames:
-        eps = max(eps - np.float32(dl.epsilon_decay * 1),
-                  np.float32(dl.epsilon_min))
-    check(frames[-1]["epsilon"] == float(eps),
-          f"epsilon {frames[-1]['epsilon']!r} != closed form {float(eps)!r}")
-    check(all(fr["moved"] > 0 for fr in frames), "the net did not move")
-    check(all(bool(torch.isfinite(p).all()) for p in net.parameters()),
-          "non-finite weights")
-    check(all(np.isfinite(fr["loss_rel"]) for fr in frames),
-          "loss_rel not finite")
-    check(frames[-1]["zclp"] <= frames[0]["zclp"],
-          f"zclp rose: {frames[0]['zclp']} -> {frames[-1]['zclp']}")
+    check_learning("[14]", frames, net, dl)
     check(model.exists(), "--save-model wrote nothing")
     learn_s = [fr["seconds"] for fr in frames]
     iters = [fr["iterations"] for fr in frames]
-    log(f"[14] {b4a_learn} B4a launches in 3 frames; "
+    log(f"[14] {b4a_learn} B4a launches in {n_learn} frames; "
         f"{statistics.median(learn_s):.4f} s per learning frame (median), "
         f"{sum(learn_s) / sum(iters) * 1e3:.4f} ms per iteration; epsilon "
         f"{frames[-1]['epsilon']!r} == the closed form; CLI {sec:.4f} s")
+    hold_recorded("[14]", rec)
 
     cfg = RenderConfig(width=size, height=size, samples_per_pixel=1,
                        max_ray_bounces=80)
@@ -1014,62 +1183,16 @@ def deep_phases(dev, out_dir: Path, drive, mega_mean: float,
             torch.Generator(device=dev).manual_seed(seed), scene, camera, net,
             opt_state, eps, cfg, rl, dl, pix_mux=8, **kw)
 
-    # B4a on the path's own rays (an extra, untimed frame keeps the inputs
-    # of call 12 and the last two)
+    # the idle share of iterations 10-14 (full width) of a frame, seed 2002
+    # from the same weights and Adam state, run twice and ended after them
     first, n_win = 10, 5
-    rec = HitRecorder(dw.closest_hit_mat_mxu, at=(12,))
-    dw.closest_hit_mat_mxu = rec
-    try:
-        train_frame(2001)
-    finally:
-        dw.closest_hit_mat_mxu = rec.fn
-    for key, (o, d, tris, mat, m, bvh) in rec.calls.items():
-        k_out = ip.closest_hit_mat_mxu(o, d, tris, mat, m, bvh)
-        sync(dev)
-        p_out = ip.closest_hit_plain(o, d, tris, int(m), mat)
-        for a, b in zip(k_out, p_out):
-            check(torch.equal(a, b), f"B4a deep call {key}: kernel and twin "
-                                     "differ on the path's rays")
-        log(f"[14] B4a call {key} ({o.shape[0]} slots, active_count "
-            f"{int(m)}): t, index and material rows bit-equal to the twin, "
-            f"{float((k_out[0] < 1e38).float().mean()):.4f} hit")
-
-    # the idle share of iterations 10-14 (full width) of one frame, seed
-    # 2002 from the same weights and Adam state, run twice: with a CUDA
-    # event before each iteration (the spans on the device timeline), then
-    # under torch.profiler (the device busy time)
-    state = list(net.parameters()) + [opt_state.count, *opt_state.mu,
-                                       *opt_state.nu]
-    saved = [t.detach().clone() for t in state]
-    clock = IterationHook(dw.closest_hit_mat_mxu)
-    dw.closest_hit_mat_mxu = clock
-    try:
-        clean_aux = train_frame(2002)[4]
-    finally:
-        dw.closest_hit_mat_mxu = clock.fn
-    spans = clock.spans_ms(first, n_win)
-    with torch.no_grad():
-        for t, s in zip(state, saved):
-            t.copy_(s)
-    prof = profile_deep_window(dw, lambda: train_frame(2002), first, n_win)
-    busy_it = prof["busy_us"] / n_win
-    span_it = statistics.mean(spans) * 1e3
-    idle = 1.0 - busy_it / span_it
+    prof = deep_window(dw, net, opt_state, lambda: train_frame(2002), first,
+                       n_win)
     width = cfg.n_pixels // 8
     log(f"[14] iterations {first}-{first + n_win - 1} of a learning frame "
         f"(width {width}, {-(-width // dl.batch_size)} minibatches each), "
-        f"seed 2002 run twice from the same state "
-        f"({int(clean_aux['wavefront_iterations'])} and "
-        f"{prof['iterations']} iterations): "
-        f"{prof['kernels'] / n_win:.1f} device kernels per iteration, "
-        f"device busy {busy_it:.2f} us per iteration under the profiler "
-        f"against {span_it:.2f} us per iteration on the device timeline of "
-        f"the unprofiled run ({', '.join(f'{s:.3f}' for s in spans)} ms): "
-        f"idle share {idle:.4f}; cuBLAS kernels {prof['gemm_kernels']} "
-        f"({prof['gemm_us'] / n_win:.2f} us per iteration); "
-        f"{prof['loops']} minibatch loops profiled, host syncs inside them "
-        f"{prof['syncs_in_loop']}, device-to-host copies {prof['d2h']} "
-        f"({prof['d2h_in_loop']} issued inside them)")
+        f"seed 2002 run twice from the same state, each ended after them: "
+        + window_line(prof, n_win))
     check(prof["loops"] >= n_win and prof["kernels"] > 0,
           "the profiled window holds no minibatch loop or kernel")
     check(not prof["syncs_in_loop"] and not prof["d2h_in_loop"],
@@ -1093,7 +1216,7 @@ def deep_phases(dev, out_dir: Path, drive, mega_mean: float,
         f"{2 * rows * macs / 1e9:.4f} GFLOP): {fwd_ms:.4f} ms, f32 bound "
         f"{fwd_bound:.4f} ms ({fwd_by}); a training iteration at that "
         f"width: bound {4 * fwd_bound:.4f} ms, cuBLAS device time "
-        f"{prof['gemm_us'] / n_win / 1e3:.4f} ms")
+        f"{prof['per_iteration']['gemm_us'] / 1e3:.4f} ms")
 
     def fused():
         sync(dev)
@@ -1117,9 +1240,7 @@ def deep_phases(dev, out_dir: Path, drive, mega_mean: float,
     res["neural_q"] = {
         "frames": frames, "b4a_launches": b4a_learn, "cli_seconds": sec,
         "window_iterations": [first, first + n_win - 1],
-        "kernels_per_iteration": prof["kernels"] / n_win,
-        "busy_us_per_iteration": busy_it, "span_us_per_iteration": span_it,
-        "idle_share": idle, "gemm_us_per_iteration": prof["gemm_us"] / n_win,
+        "window": window_figures(prof),
         "forward_ms": fwd_ms, "forward_bound_ms": fwd_bound,
         "fused_seconds": f_sec,
         "fused_iterations": int(f_aux["wavefront_iterations"])}
@@ -1267,6 +1388,348 @@ def deep_phases(dev, out_dir: Path, drive, mega_mean: float,
     return res
 
 
+def obj_deep_phase(dev, out_dir: Path, drive, preset, cornell_window: dict,
+                   size: int = 720, small: int = 128, spp: int = 4) -> dict:
+    """Phase 22: the deep-Q family on phase 18's generated OBJ (its preset,
+    registered for --scene; 4,980 triangles, so the relative-vertex input
+    is 44,820 wide), through the CLI at size x size, 80 bounces, pix_mux
+    8, TF32 off: two 1-spp learning frames of the 44,820-200-300-200-144
+    net and --save-model (B4a held to both twins on three of the frames'
+    calls; every layer moved), a profiled window of full-width iterations
+    (Adam and forward_relative device time beside ``cornell_window``,
+    phase 14's), the DyNet file's save and load (bit for bit), pretrained
+    frames at ``spp`` in f32 (two seeds, within the band below
+    ``--mode mega``'s mean at the same spp) and bf16 (held to f32), the
+    zero-Q share, the lockstep tracers at small x small (held to the
+    wavefront), distill and q-probe of phase 18's OBJ fine map (the
+    q-probe rows those of the net, summing to 1 or all 0), and q-probe of
+    the trained net at the same volumes (every row sums to 1).
+    ``drive`` runs a path with every launch count at 0 and fails it if an
+    expected kernel never launched.  Returns the phase's figures."""
+    from rlrpt_tpu_torch.camera import Camera
+    from rlrpt_tpu_torch.config import (DeepLearningConfig,
+                                        RadianceVolumeConfig, RenderConfig)
+    from rlrpt_tpu_torch.deep import deep_wavefront as dw
+    from rlrpt_tpu_torch.deep import neural_q as nq
+    from rlrpt_tpu_torch.deep.q_probe import probe_q_values
+    from rlrpt_tpu_torch.nn import dynet_io
+    from rlrpt_tpu_torch.radiance.map_io import load_radiance_map_data
+    from rlrpt_tpu_torch.scene.geometry import sample_points_on_triangles
+    from rlrpt_tpu_torch.scene.scene import (save_vertices_to_file,
+                                             surface_areas)
+    from rlrpt_tpu_torch.tools import render
+    from rlrpt_tpu_torch.utils.image import write_png
+
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "float32 matmuls would run in TF32")
+    obj = preset.load(device=dev)
+    camera = Camera.create(preset.camera_position)
+    rl, dl = RadianceVolumeConfig(), DeepLearningConfig()
+    n_in, res = obj.vertices_count, {}
+
+    def run_cli(argv):
+        sync(dev)
+        t0 = time.perf_counter()
+        img, aux = render.render(render.build_parser().parse_args(
+            [str(a) for a in argv] + ["--scene", preset.name, "--device",
+                                      dev.type, "--bounces", "80"]))
+        sync(dev)
+        return img, aux, time.perf_counter() - t0
+
+    wide = ["--width", size, "--height", size]
+    log(f"[22] deep-Q on the generated OBJ {preset.name}: {obj.n_triangles} "
+        f"triangles, the {n_in}-200-300-200-144 net; {size}x{size}, 80 "
+        f"bounces, pix_mux 8; TF32 off (allow_tf32 "
+        f"{torch.backends.cuda.matmul.allow_tf32})")
+    check(n_in == 9 * obj.n_triangles, "the input is not 9T wide")
+
+    # the reference frames: --mode mega (culled) at the pretrained spp,
+    # a seed pair for the standard error of their mean
+    mega = []
+    for seed in (1984, 1985):
+        img, _, _ = drive("22", ("B1 culled",), lambda: run_cli(
+            ["--mode", "mega", "--spp", spp, "--seed", seed] + wide))
+        check_image("OBJ mega", img, size)
+        mega.append(img)
+    mega_mean = float(mega[0].mean())
+
+    # ---- learning: 2 frames through the CLI, then --save-model ----------
+    model = out_dir / "neural_q_torus_room.model"
+    n_learn = 2
+    init, saves = {}, []
+    init_fn, save_fn = nq.init_neural_q, dynet_io.save_dynet_model
+
+    def keep_init(*a, **k):
+        net, state = init_fn(*a, **k)
+        init["params"] = [p.detach().clone() for p in net.parameters()]
+        return net, state
+
+    def timed_save(net, path):
+        sync(dev)
+        t0 = time.perf_counter()
+        save_fn(net, path)
+        saves.append(time.perf_counter() - t0)
+
+    rec = HitRecorder(dw.closest_hit_mat_mxu, at=(12,))
+    torch.cuda.reset_peak_memory_stats()
+    nq.init_neural_q, dynet_io.save_dynet_model = keep_init, timed_save
+    dw.closest_hit_mat_mxu = rec
+    try:
+        img, aux, sec = drive("22", ("B4a",), lambda: run_cli([
+            "--mode", "neural-q", "--impl", "wavefront", "--frames",
+            n_learn, "--spp", 1, "--pix-mux", 8, "--seed", 1984,
+            "--save-model", model] + wide))
+    finally:
+        nq.init_neural_q, dynet_io.save_dynet_model = init_fn, save_fn
+        dw.closest_hit_mat_mxu = rec.fn
+    peak = torch.cuda.max_memory_allocated()
+    frames, net, opt_state = aux["frames"], aux["net"], aux["opt_state"]
+    trained = [p.detach().clone() for p in net.parameters()]
+    check_image("OBJ neural-q frame", img, size)
+    check_learning("[22]", frames, net, dl)
+    first_w = tuple(net.layers[0].weight.shape)
+    check(first_w == (200, n_in), f"the first layer is {first_w}")
+    moved = [float((p - q).abs().max())
+             for p, q in zip(trained, init["params"])]
+    check(all(m > 0 for m in moved), f"a layer did not move: {moved}")
+    check(model.exists() and len(saves) == n_learn,
+          "--save-model wrote nothing")
+    learn_s = [fr["seconds"] for fr in frames]
+    iters = [fr["iterations"] for fr in frames]
+    log(f"[22] {n_learn} learning frames: "
+        + ", ".join(f"{s:.4f} s ({n} iterations)"
+                    for s, n in zip(learn_s, iters))
+        + f", {sum(learn_s) / sum(iters) * 1e3:.4f} ms per iteration; first "
+        f"layer {first_w}; every layer moved (largest change per tensor "
+        + " ".join(f"{m:.3g}" for m in moved) + f"); epsilon "
+        f"{frames[-1]['epsilon']!r} == the closed form; peak "
+        f"torch.cuda.max_memory_allocated {peak / 2 ** 30:.3f} GiB; CLI "
+        f"{sec:.4f} s (the --save-model writes after each frame included)")
+    hold_recorded("[22]", rec)
+    del rec
+
+    # ---- a profiled window of full-width iterations -----------------------
+    cfg = RenderConfig(width=size, height=size, samples_per_pixel=1,
+                       max_ray_bounces=80)
+    eps = frames[-1]["epsilon"]
+    first, n_win = 10, 5
+    prof = deep_window(dw, net, opt_state, lambda: (
+        dw.render_frame_neural_q_wavefront(
+            torch.Generator(device=dev).manual_seed(2202), obj, camera, net,
+            opt_state, eps, cfg, rl, dl, pix_mux=8)), first, n_win)
+    log(f"[22] iterations {first}-{first + n_win - 1} of a learning frame "
+        f"(width {cfg.n_pixels // 8}), run twice from the same state, each "
+        f"ended after them: " + window_line(prof, n_win))
+    check(prof["loops"] >= n_win and prof["kernels"] > 0,
+          "the profiled window holds no minibatch loop or kernel")
+    check(not prof["syncs_in_loop"] and not prof["d2h_in_loop"],
+          f"the minibatch loop synchronised: {prof['syncs_in_loop']}")
+    it, cw = prof["per_iteration"], cornell_window["per_iteration"]
+    log(f"[22] per iteration against Cornell's 342-wide net (phase 14): "
+        f"Adam {it['adam_us']:.2f} us vs {cw['adam_us']:.2f} us "
+        f"({it['adam_us'] / cw['adam_us']:.2f}x), forward_relative "
+        f"{it['forward_us']:.2f} us vs {cw['forward_us']:.2f} us "
+        f"({it['forward_us'] / cw['forward_us']:.2f}x), cuBLAS "
+        f"{it['gemm_us']:.2f} us vs {cw['gemm_us']:.2f} us, device busy "
+        f"{prof['busy_us_per_iteration']:.2f} us vs "
+        f"{cornell_window['busy_us_per_iteration']:.2f} us, idle share "
+        f"{prof['idle']:.4f} vs {cornell_window['idle']:.4f}")
+
+    # ---- the DyNet file: save and load --------------------------------------
+    sync(dev)
+    t0 = time.perf_counter()
+    loaded = dynet_io.load_dynet_model(str(model), device=dev)
+    sync(dev)
+    load_s = time.perf_counter() - t0
+    check(all(torch.equal(a, b) for a, b in zip(loaded.parameters(),
+                                                 trained)),
+          "the DyNet file does not give back the trained weights")
+    n_bytes = model.stat().st_size
+    log(f"[22] {model.name}: {n_bytes} bytes, "
+        f"{sum(p.numel() for p in loaded.parameters())} weights; save "
+        + ", ".join(f"{s:.3f}" for s in saves) + f" s, load {load_s:.3f} s; "
+        f"load_dynet_model on the card gives back the trained weights bit "
+        f"for bit")
+    res["learning"] = {
+        "frames": frames, "cli_seconds": sec, "peak_bytes": peak,
+        "first_layer": first_w, "moved": moved, "window":
+        window_figures(prof), "save_seconds": saves, "load_seconds": load_s,
+        "model_bytes": n_bytes}
+
+    # ---- pretrained frames from the saved file --------------------------------
+    pre = {}
+    for label, argv in (("f32", ["--mlp-dtype", "f32", "--seed", 1984]),
+                        ("f32-seed2", ["--mlp-dtype", "f32", "--seed", 1985]),
+                        ("bf16", ["--mlp-dtype", "bf16", "--seed", 1986])):
+        img, p_aux, p_sec = drive("22", ("B4a",), lambda: run_cli([
+            "--mode", "pretrained", "--impl", "wavefront", "--model", model,
+            "--spp", spp, "--pix-mux", 8] + argv + wide))
+        check_image(f"OBJ pretrained {label}", img, size)
+        pre[label] = img
+        write_png(str(out_dir / f"torus_room-pretrained-{label}.png"),
+                  img.cpu())
+        mean = float(img.mean())
+        log(f"[22] pretrained {label} {spp} spp: {p_sec:.4f} s (the model's "
+            f"load included), {int(p_aux['wavefront_iterations'])} "
+            f"iterations, avg path {float(p_aux['avg_path_length']):.4f}, "
+            f"mean {mean:.6f} vs mega {mega_mean:.6f} "
+            f"({mean / mega_mean - 1:+.4%})")
+        res.setdefault("pretrained", {})[label] = {
+            "seconds": p_sec, "mean": mean,
+            "iterations": int(p_aux["wavefront_iterations"])}
+    # the band: below --mode mega's mean by less than 10%, and not above it
+    # by 4 standard errors (each estimator's pixel variance from its seed
+    # pair); the reference estimator's zero-Q sectors darken it (ROADMAP C)
+    lum = lambda x: x.double().mean(-1)  # noqa: E731
+    var = ((lum(pre["f32"]) - lum(pre["f32-seed2"])) ** 2 / 2
+           + (lum(mega[0]) - lum(mega[1])) ** 2 / 2).sum()
+    for label in ("f32", "f32-seed2"):
+        rel = res["pretrained"][label]["mean"] / mega_mean - 1.0
+        z = float((lum(pre[label]) - lum(mega[0])).sum() / var.sqrt())
+        log(f"[22] {label} frame mean vs mega at {spp} spp {rel:+.4%}, z "
+            f"{z:+.2f} (band: above -10%, z below 4)")
+        check(rel > -0.10 and z < 4.0, f"OBJ pretrained {label} mean "
+                                       f"{rel:+.4%} (z {z:+.2f}) from mega")
+        res["pretrained"][label].update(vs_mega=rel, z=z)
+    noise, err = noise_gap(pre["f32"], pre["f32-seed2"], pre["bf16"])
+    log(f"[22] bf16 vs f32: mean |diff| {err:.6f}, f32 seed-to-seed "
+        f"{noise:.6f} (limit 3x + 1e-3)")
+    res["pretrained"]["bf16_vs_f32"] = hold_means(
+        "[22] bf16 vs f32", pre["bf16"], pre["f32"],
+        [(pre["f32"], pre["f32-seed2"])], 8)
+    check(err < 3.0 * noise + 1e-3, f"bf16 frame off by {err} (noise "
+                                    f"{noise})")
+    # the zero-Q share at 20,000 surface points, as phase 15 counts it
+    ns = obj.n_surfaces
+    rng = np.random.default_rng(22)
+    s_area = surface_areas(obj)
+    host = lambda a: a[:ns].cpu().numpy().astype(np.float64)  # noqa: E731
+    pts, _ = sample_points_on_triangles(
+        rng, host(obj.v0), host(obj.v1), host(obj.v2),
+        rng.multinomial(20_000, s_area / s_area.sum()))
+    with torch.no_grad():
+        q = loaded.forward_relative(obj.vertices_flat, torch.as_tensor(
+            pts, dtype=torch.float32, device=dev))
+    zero_q = float((q == 0).float().mean())
+    log(f"[22] the trained net's Q at 20,000 surface points: {zero_q:.4f} "
+        f"of the entries are 0 (never sampled), "
+        f"{float((q.sum(-1) == 0).float().mean()):.4f} of the rows")
+    res["pretrained"]["zero_q_share"] = zero_q
+
+    # ---- the lockstep tracers at a smaller size -----------------------------
+    sm = ["--width", small, "--height", small, "--spp", 1]
+    img, l_aux, l_sec = drive("22", ("B4a",), lambda: run_cli(
+        ["--mode", "neural-q", "--impl", "lockstep", "--frames", 1,
+         "--seed", 7] + sm))
+    check_image("OBJ lockstep neural-q", img, small)
+    l_fr = l_aux["frames"][0]
+    check(np.isfinite(l_fr["loss"]) and l_fr["moved"] > 0,
+          "the lockstep frame did not train")
+    log(f"[22] lockstep neural-q {small}x{small} 1 spp: {l_sec:.4f} s, loss "
+        f"{l_fr['loss']:.6g}, avg path {l_fr['avg_path']:.4f}, zclp "
+        f"{l_fr['zclp']}")
+    lock = {}
+    for label, argv in (("lockstep", ["--impl", "lockstep", "--seed", 1984]),
+                        ("lockstep-seed2", ["--impl", "lockstep", "--seed",
+                                            1985]),
+                        ("wavefront", ["--impl", "wavefront", "--pix-mux", 8,
+                                       "--seed", 1984]),
+                        ("wavefront-seed2", ["--impl", "wavefront",
+                                             "--pix-mux", 8, "--seed",
+                                             1985])):
+        img, _, l_s = drive("22", ("B4a",), lambda: run_cli(
+            ["--mode", "pretrained", "--model", model] + argv + sm))
+        check_image(f"OBJ pretrained {label} {small}", img, small)
+        lock[label] = img
+        log(f"[22] pretrained {label} {small}x{small} 1 spp: {l_s:.4f} s, "
+            f"mean {float(img.mean()):.6f}")
+    noise, err = noise_gap(lock["lockstep"], lock["lockstep-seed2"],
+                           lock["wavefront"])
+    log(f"[22] wavefront vs lockstep: mean |diff| {err:.6f}, lockstep "
+        f"seed-to-seed {noise:.6f} (limit 3x + 1e-3)")
+    check(err < 3.0 * noise + 1e-3, f"OBJ lockstep and wavefront differ by "
+                                    f"{err} (noise {noise})")
+    res["lockstep"] = {"neural_q_seconds": l_sec, "err": err, "noise": noise,
+                       "wavefront_vs_lockstep": hold_means(
+                           "[22] wavefront vs lockstep", lock["wavefront"],
+                           lock["lockstep"],
+                           [(lock["lockstep"], lock["lockstep-seed2"]),
+                            (lock["wavefront"], lock["wavefront-seed2"])],
+                           4)}
+
+    # ---- distill phase 18's OBJ fine map, then probe it --------------------
+    q_table = out_dir / "q_torus_room.txt"
+    verts_path = out_dir / "vertices_torus_room.txt"
+    distilled = out_dir / "distilled_torus_room.model"
+    save_vertices_to_file(obj, str(verts_path))
+    _, d_aux, d_sec = drive("22", (), lambda: run_cli([
+        "--mode", "distill", "--load-q", q_table, "--vertices", verts_path,
+        "--epochs", 2, "--save-model", distilled]))
+    hist = d_aux["history"]
+    n_rows = len(q_table.read_text().splitlines()) - 1
+    d_in = d_aux["net"].layers[0].weight.shape[1]
+    log(f"[22] distill of phase 18's OBJ map ({n_rows} volume rows, 80/20 "
+        f"split, batch 128, input {d_in} wide): {d_sec:.4f} s for 2 epochs "
+        f"(the model's save included); train loss "
+        + " ".join(f"{h[1]:.6g}" for h in hist) + "; test MSE "
+        + " ".join(f"{h[2]:.6g}" for h in hist))
+    check(d_in == n_in and all(np.isfinite(h[1]) and np.isfinite(h[2])
+                               for h in hist) and len(hist) == 2,
+          "distill: the input width or a loss is wrong")
+    # the distilled net's output over every row of the map: a row whose
+    # ReLU outputs are all 0 has no distribution (ROADMAP C)
+    net_d = d_aux["net"]
+    m_pos, m_q, _ = load_radiance_map_data(str(q_table))
+    with torch.no_grad():
+        m_out = net_d.forward_relative(obj.vertices_flat, torch.as_tensor(
+            m_pos, device=dev))
+    dead = float((m_out.sum(-1) == 0).float().mean())
+    sel = out_dir / "selected_deep_torus_room.txt"
+    probes = out_dir / "probes_torus_room.txt"
+    drive("22", (), lambda: run_cli([
+        "--mode", "q-probe", "--model", distilled, "--probe", probes,
+        "--out-probe", sel]))
+    rows = np.loadtxt(sel)
+    sums = rows[:, 6:].sum(-1)
+    norm = np.abs(sums - 1.0) <= 1e-4
+    want = probe_q_values(net_d, obj, rows[:, :3])
+    log(f"[22] the distilled net over the map's {n_rows} rows: "
+        f"{dead:.4f} of them all 0 (the target rows' mean sum of squares "
+        f"{float((m_q.astype(np.float64) ** 2).sum(-1).mean()):.6g}); "
+        f"q-probe at 16 lit volumes: rows {rows.shape}, {int(norm.sum())} "
+        f"sum to 1 within 1e-4, {int((sums == 0).sum())} all 0; sums "
+        + " ".join(f"{x:.6f}" for x in sums))
+    # a row the output ReLU zeroes in every sector stays zero (the JAX
+    # writer's choice, as in phase 17); the rest sum to 1, and every row
+    # is probe_q_values' at the file's 6 digits
+    check(rows.shape == (16, 150) and bool(np.all(norm | (sums == 0)))
+          and np.allclose(rows[:, 6:], want, rtol=1e-5, atol=1e-6),
+          "q-probe rows do not sum to 1 or are not the net's")
+    # the trained 44,820-input net at the same volumes: its rows are live
+    # (none was all 0 at 20,000 surface points above), so each sums to 1
+    sel_t = out_dir / "selected_neural_q_torus_room.txt"
+    drive("22", (), lambda: run_cli([
+        "--mode", "q-probe", "--model", model, "--probe", probes,
+        "--out-probe", sel_t]))
+    rows_t = np.loadtxt(sel_t)
+    sums_t = rows_t[:, 6:].sum(-1)
+    norm_t = np.abs(sums_t - 1.0) <= 1e-4
+    want_t = probe_q_values(loaded, obj, rows_t[:, :3])
+    log(f"[22] q-probe of the trained neural-q net at the same volumes: "
+        f"rows {rows_t.shape}, {int(norm_t.sum())} sum to 1 within 1e-4; "
+        f"sums " + " ".join(f"{x:.6f}" for x in sums_t))
+    check(rows_t.shape == (16, 150) and bool(np.all(norm_t))
+          and np.allclose(rows_t[:, 6:], want_t, rtol=1e-5, atol=1e-6),
+          "the trained net's q-probe rows do not sum to 1 or are not the "
+          "net's")
+    res["distill"] = {"seconds": d_sec, "history": hist, "rows": n_rows,
+                      "all_zero_share": dead,
+                      "probe_rows_summing_to_1": int(norm.sum()),
+                      "trained_probe_rows_summing_to_1": int(norm_t.sum())}
+    return res
+
+
 def event_ms(fn):
     """(device time of one fn() call in ms by CUDA events, its result)."""
     torch.cuda.synchronize()
@@ -1326,6 +1789,7 @@ def scene_phases(dev, out_dir: Path, drive, size: int = 720,
     from rlrpt_tpu_torch.ops import intersect_pallas as ip
     from rlrpt_tpu_torch.ops import megakernel as mk
     from rlrpt_tpu_torch.ops.hemisphere import sector_cos_thetas
+    from rlrpt_tpu_torch.radiance import map_io
     from rlrpt_tpu_torch.radiance.bake import bake_tri_bin_cdf
     from rlrpt_tpu_torch.scene import generated, presets
     from rlrpt_tpu_torch.scene.obj_importer import (normalise_vertices,
@@ -1547,8 +2011,9 @@ def scene_phases(dev, out_dir: Path, drive, size: int = 720,
     def culled_b1(label, c_tris, c_mat, seed, twin_size):
         """The culled kernel on one table against the sweep kernel and,
         at twin_size x twin_size, 1 spp, the twin (the plain walk steps
-        one torch op at a time: 10-40 s at 720x720 on the card); returns
-        its figures and fills kern for the OBJ."""
+        one torch op at a time: 26-38 s at 720x720 on the OBJ on the
+        card, 18 s at 256x256); returns its figures and fills kern for
+        the OBJ."""
         builds = []
         for _ in range(3):
             t0 = time.perf_counter()
@@ -1742,7 +2207,7 @@ def scene_phases(dev, out_dir: Path, drive, size: int = 720,
     t_part = time.perf_counter()
     area = 0.001
     f_img, f_aux, f_sec = drive("18", ("B4a",), lambda: run_cli(
-        ["--mode", "sarsa-fast", "--scene", preset.name, "--frames", "4",
+        ["--mode", "sarsa-fast", "--scene", preset.name, "--frames", "2",
          "--spp", "8", "--area-per-sample", str(area), "--pix-mux", "4",
          "--seed", "1984"]))
     check_image("torus room sarsa-fast", f_img, size)
@@ -1769,7 +2234,7 @@ def scene_phases(dev, out_dir: Path, drive, size: int = 720,
         t0 = time.perf_counter()
         out = sw.render_frame_sarsa_wavefront(
             torch.Generator(device=dev).manual_seed(2018), obj, camera,
-            vols, table, full(32), rl, pix_mux=4)
+            vols, table, full(16), rl, pix_mux=4)
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
@@ -1783,7 +2248,10 @@ def scene_phases(dev, out_dir: Path, drive, size: int = 720,
         int(vols.visits.sum()))
     t_gap = (float(t_img.mean()) - obj_mean) / obj_mean
     write_png(str(out_dir / "torus_room-sarsa-fast.png"), t_img.cpu())
-    log(f"[18] sarsa-fast 32-spp test render (f32 CDF): {t_sec:.4f} s, "
+    # phase 22 distills this map and probes 16 of its lit volumes
+    map_io.save_q_vals_to_file(t_vols, str(out_dir / "q_torus_room.txt"))
+    write_probes(t_vols, out_dir / "probes_torus_room.txt", 22)
+    log(f"[18] sarsa-fast 16-spp test render (f32 CDF): {t_sec:.4f} s, "
         f"{ip.KERNEL_MAT.launches} B4a launches, mean "
         f"{float(t_img.mean()):.6f} vs mega {t_gap:+.4%}")
     check(abs(t_gap) <= 0.02, f"torus room sarsa-fast off by {t_gap:+.2%}")
@@ -1883,6 +2351,7 @@ def scene_phases(dev, out_dir: Path, drive, size: int = 720,
     secs["scene_bench"] = time.perf_counter() - t_part
     res["seconds"] = secs
     res["max_abs_err"] = errs
+    res["preset"] = preset
     log("[18] seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()))
     return res
 
@@ -2419,9 +2888,9 @@ def dp_phase(dev, out_dir: Path, drive, mega_mean: float,
         model = out_dir / "neural_q.model"
         net = (load_dynet_model(str(model), device=dev) if model.exists()
                else nq.init_neural_q(7, scene, dl, 12, device=dev)[0])
-        cfg = RenderConfig(samples_per_pixel=8, **full)
+        cfg = RenderConfig(samples_per_pixel=4, **full)
         (img, _), (img1, _) = both(
-            "render_frame_pretrained_wavefront_dp 8 spp",
+            "render_frame_pretrained_wavefront_dp 4 spp",
             lambda: dp.render_frame_pretrained_wavefront_dp(
                 1986, scene, camera, net, cfg, rl, dl, mesh),
             lambda: dw.render_frame_pretrained_wavefront(
@@ -2429,18 +2898,22 @@ def dp_phase(dev, out_dir: Path, drive, mega_mean: float,
                 pix_mux=4), ("B4a",))
         check_image("pretrained dp", img, size)
         check(torch.equal(img, img1), "pretrained dp: not the single frame")
-        cfg = RenderConfig(samples_per_pixel=1, **full)
+        # the training frame at half the width (phase 14 trains at full)
+        half = size // 2
+        cfg = RenderConfig(width=half, height=half, samples_per_pixel=1,
+                           max_ray_bounces=80)
         nets = [nq.init_neural_q(8, scene, dl, 12, device=dev)
                 for _ in range(2)]
         (img, net_dp, opt_dp, eps, aux), (img1, net1, opt1, eps1, _) = both(
-            "render_frame_neural_q_wavefront_dp 1 spp, pix_mux 8",
+            f"render_frame_neural_q_wavefront_dp {half}x{half} 1 spp, "
+            f"pix_mux 8",
             lambda: dp.render_frame_neural_q_wavefront_dp(
                 1987, scene, camera, *nets[0], dl.epsilon_start, cfg, rl,
                 dl, mesh, pix_mux=8),
             lambda: dw.render_frame_neural_q_wavefront(
                 rank_seed(1987, 0), scene, camera, *nets[1],
                 dl.epsilon_start, cfg, rl, dl, pix_mux=8), ("B4a",))
-        check_image("neural-q dp", img, size)
+        check_image("neural-q dp", img, half)
         check(torch.equal(img, img1) and eps == eps1
               == nq.decay_epsilon(dl.epsilon_start, 1, dl)
               and digest(*net_dp.parameters(), *opt_dp.mu)
@@ -2450,13 +2923,14 @@ def dp_phase(dev, out_dir: Path, drive, mega_mean: float,
             f"(the training frame's net and Adam state too), loss "
             f"{float(aux['loss']):.6g}, epsilon {eps}")
 
-        # the lockstep neural-Q training sample at the lockstep's size
-        cfg = RenderConfig(width=small, height=small, samples_per_pixel=1,
+        # the lockstep neural-Q training sample at half the lockstep's size
+        lock = small // 2
+        cfg = RenderConfig(width=lock, height=lock, samples_per_pixel=1,
                            max_ray_bounces=80)
         nets = [nq.init_neural_q(9, scene, dl, 12, device=dev)
                 for _ in range(2)]
         (tp, *_, loss), (img1, *_) = both(
-            f"neural_q_train_step_dp {small}x{small} (lockstep)",
+            f"neural_q_train_step_dp {lock}x{lock} (lockstep)",
             lambda: dp.neural_q_train_step_dp(
                 1988, scene, camera, *nets[0], 0.3, cfg, rl, dl, mesh),
             lambda: nq.render_frame_neural_q(
@@ -3032,6 +3506,9 @@ def main(argv=None) -> int:
     deep = deep_phases(dev, out_dir, drive, mm)
     # 18: the test room and a generated OBJ at bunny size
     scenes = scene_phases(dev, out_dir, drive)
+    # 22: the deep-Q family on that OBJ
+    deep_obj = obj_deep_phase(dev, out_dir, drive, scenes.pop("preset"),
+                              deep["neural_q"]["window"])
     b1_err = max(b1_err, scenes["max_abs_err"]["B1"])
     b3_err = max(b3_err, scenes["max_abs_err"]["B3"])
     b2_err = max(b2_err, scenes["max_abs_err"]["B2"])
@@ -3043,8 +3520,7 @@ def main(argv=None) -> int:
     # 21: the multi-device layer
     parallel = dp_phase(dev, out_dir, drive, mm, fine_state)
     seconds = phase_seconds(time.perf_counter())
-    log("[timing] seconds per phase: " + ", ".join(
-        f"[{t}] {s:.1f}" for t, s in seconds.items()))
+    log_timing(seconds)
 
     cw = scenes["culled_b1"]["torus_room"]["1 spp"]
     cw32 = scenes["culled_b1"]["torus_room"]["32 spp"]
@@ -3064,7 +3540,8 @@ def main(argv=None) -> int:
          "bound_ms": cw["bound_ms"], "bound_by": cw["bound_by"],
          "library_ms": None, "share": cw["share"],
          "point": "generated OBJ, 4,980 triangles, 720x720, 1 spp, 80 "
-                  "bounces", "sweep_ms": cw["sweep_mean_ms"],
+                  "bounces",
+         "sweep_ms": cw["sweep_mean_ms"],
          "ms_32_spp": cw32["ms"], "sweep_ms_32_spp": cw32["sweep_mean_ms"],
          "bound_ms_32_spp": cw32["bound_ms"]},
         {"name": "B3 mega_guided", "route": "cuda",
@@ -3102,7 +3579,8 @@ def main(argv=None) -> int:
         "b2_iterations": b2_iters, "b2_grid_blocks": grid_blocks,
         "grid_barrier_us": sync_us, "b2_frame_device_kernels": b2_kernels,
         "b4_walk": b4_walk,
-        **fine, **deep, "scenes": scenes, "evaluation": evaluation,
+        **fine, **deep, "scenes": scenes, "deep_obj": deep_obj,
+        "evaluation": evaluation,
         "tools": tools, "parallel": parallel, "phase_seconds": seconds},
         indent=1))
     print(card)
@@ -3113,5 +3591,14 @@ def main(argv=None) -> int:
     return 0
 
 
+def run(argv=None) -> int:
+    """main(), with each phase's seconds logged up to a failure too."""
+    try:
+        return main(argv)
+    except Exception:
+        log_timing(phase_seconds(time.perf_counter()), " (to the failure)")
+        raise
+
+
 if __name__ == "__main__":
-    raise SystemExit(main())
+    raise SystemExit(run())

@@ -26,7 +26,11 @@ def save_dynet_model(net: DQNetwork, path: str) -> None:
     with open(path, "w") as f:
         for i, arr in enumerate(arrays):
             dims = "{" + ",".join(str(d) for d in arr.shape) + "}"
-            data = "".join(f"{v:+.8e} " for v in arr.flatten(order="F"))
+            # one % operation over Python floats: the bytes of a per-value
+            # f"{v:+.8e} " (the same C formatting), in half the time at the
+            # 9 M weights of a 44,820-input net
+            vals = arr.flatten(order="F").tolist()
+            data = ("%+.8e " * len(vals)) % tuple(vals)
             f.write(f"#Parameter# /_{i} {dims} {len(data) + 1} ZERO_GRAD\n")
             f.write(data + "\n")
 

@@ -73,25 +73,88 @@ def init_bin_q(t_pad: int, uv_bins: int, sector_grid: int,
     return q, torch.zeros((s_pad, c), dtype=torch.float32, device=device)
 
 
+# The JAX package's rebuild runs under XLA, which sums the sector rows in
+# a fixed order: a reduction longer than SUM_WINDOW rows is padded (half
+# the pad before the rows) to whole windows, each window summed row by row,
+# then the windows' sums reduced the same way; a cumulative sum scans
+# blocks of SCAN_BLOCK rows row by row and adds each block's carry, the
+# inclusive scan of the earlier blocks' totals, found the same way.  The
+# two functions below sum in that order, so the bf16 table is JAX's bit
+# for bit (float32 rounding at a sector's CDF step can move a bf16 entry
+# by one unit in the last place).  They cost ~70 small ops a rebuild, so
+# rebuild_bin_cdf takes them on the CPU only.
+SUM_WINDOW = 32
+SCAN_BLOCK = 16
+
+
+def _padded_blocks(x: torch.Tensor, block: int, before: int) -> torch.Tensor:
+    """x (n, ...) with ``before`` zero rows ahead and zeros after, to whole
+    blocks, as (n_blocks, block, ...).  A zero added to these non-negative
+    sums changes no bit."""
+    n = x.shape[0]
+    after = -(n + before) % block
+    z = lambda k: x.new_zeros((k,) + x.shape[1:])  # noqa: E731
+    return torch.cat([z(before), x, z(after)]).reshape(
+        (-1, block) + x.shape[1:])
+
+
+def _rows_in_order(x: torch.Tensor) -> list:
+    """Running sums over dim 0, each row added in turn to the last."""
+    acc, out = torch.zeros_like(x[0]), []
+    for row in x.unbind(0):
+        acc = acc + row
+        out.append(acc)
+    return out
+
+
+def row_sum(x: torch.Tensor) -> torch.Tensor:
+    """torch.sum(x, dim=0) in the order the JAX package's sum takes."""
+    n = x.shape[0]
+    if n <= SUM_WINDOW:
+        return _rows_in_order(x)[-1]
+    blocks = _padded_blocks(x, SUM_WINDOW, (-n % SUM_WINDOW) // 2)
+    return row_sum(_rows_in_order(blocks.transpose(0, 1))[-1])
+
+
+def row_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """torch.cumsum(x, dim=0) in the order the JAX package's takes."""
+    n = x.shape[0]
+    if n <= SCAN_BLOCK:
+        return torch.stack(_rows_in_order(x))
+    local = torch.stack(_rows_in_order(
+        _padded_blocks(x, SCAN_BLOCK, 0).transpose(0, 1)), dim=1)
+    inclusive = row_cumsum(local[:, -1])
+    carry = torch.cat([torch.zeros_like(inclusive[:1]), inclusive[:-1]])
+    return (local + carry[:, None]).reshape((-1,) + x.shape[1:])[:n]
+
+
 def rebuild_bin_cdf(q: torch.Tensor, sector_grid: int, uv_bins: int,
                     t_pad: int, distribution_threshold: float = 0.0,
                     defensive_mix: float = 0.0,
-                    dtype: torch.dtype = torch.bfloat16) -> TriBinCDF:
+                    dtype: torch.dtype = torch.bfloat16,
+                    jax_order: bool | None = None) -> TriBinCDF:
     """Frame-boundary CDF rebuild from the binned Q (the reference's
     update_radiance_distribution, radiance_volume.cu:149-188, on the
     binned state space).  Returns a TriBinCDF for the next frame: bf16 as
     the kernels take it; ``dtype=torch.float32`` keeps the unrounded table
     for the plain twins (a bf16 CDF never draws a sector whose probability
-    is below its spacing, ROADMAP C)."""
+    is below its spacing, ROADMAP C).  With ``jax_order`` (the default on
+    the CPU) the sums take the JAX package's order (row_sum, row_cumsum)
+    and the bf16 table is JAX's bit for bit; else torch.sum and
+    torch.cumsum (the default on the card, where the ordered sums' ~70
+    launches cost a 32-spp learning frame ~9%, scripts/rebuild_timing.py).
+    The kernels and their twins take the same table either way."""
+    if jax_order is None:
+        jax_order = q.device.type == "cpu"
     s = sector_grid * sector_grid
     s_pad = q.shape[0]
     cos = hs.sector_cos_thetas(sector_grid, q.device)
     w = torch.clamp(q[:s] * cos[:, None], min=distribution_threshold)
-    total = 1e-10 + torch.sum(w, dim=0, keepdim=True)
-    p = w / total
+    total = 1e-10 + (row_sum(w) if jax_order else torch.sum(w, dim=0))
+    p = w / total[None, :]
     if defensive_mix:
         p = (1.0 - defensive_mix) * p + defensive_mix / s
-    cdf = torch.cumsum(p, dim=0)
+    cdf = row_cumsum(p) if jax_order else torch.cumsum(p, dim=0)
     cdf[s - 1] = 1.0
     out = torch.full((s_pad, q.shape[1]), 2.0, dtype=torch.float32,
                      device=q.device)

@@ -12,6 +12,8 @@ import torch
 
 from rlrpt_tpu.scene import build_scene as jax_build_scene
 from rlrpt_tpu.scene import cornell_box as jax_cornell_box
+from rlrpt_tpu.scene import obj_importer as jobj
+from rlrpt_tpu.scene import presets as jpresets
 from rlrpt_tpu_torch.utils.convert import scene_from_numpy
 
 
@@ -36,6 +38,18 @@ def torch_scene(jax_scene, device="cpu"):
                             jax_scene.normal, jax_scene.diffuse_c,
                             jax_scene.emission, jax_scene.luminance,
                             jax_scene.n_surfaces, device=device)
+
+
+def jax_preset(p):
+    """The JAX package's preset with the port preset's values."""
+    return jpresets.ScenePreset(
+        name=p.name, obj=p.obj, camera_position=p.camera_position,
+        default_rgb=p.default_rgb,
+        material_rules=tuple(jobj.MaterialRule(r.lo, r.hi, r.rgb)
+                             for r in p.material_rules),
+        light_specs=tuple(jobj.LightSpec(s.I, s.J, s.K, s.L)
+                          for s in p.light_specs),
+        light_power=p.light_power, flip_winding=p.flip_winding)
 
 
 def cornell_plus_clutter(n_extra: int = 250, seed: int = 7):
@@ -78,3 +92,49 @@ def assert_frame_parity(img_t, aux_t, img_j, aux_j):
     at, aj = float(aux_t["avg_path_length"]), float(aux_j["avg_path_length"])
     assert abs(at - aj) <= 0.01 * aj, (at, aj)
 
+
+def hold_to_jax(img, jax_frames):
+    """Hold a frame to K JAX frames of other seeds.  Pixels are
+    independent, so the variance of a mean over pixels is the sum of the
+    pixels' variances (each from the K frames) over the count squared; a
+    new frame spreads from the K frames' average by sqrt(1 + 1/K) of one
+    frame's deviation.  Ranges below are of test_torch_deep_q.py's six
+    Cornell cases, port frames of 4 seeds and JAX frames of 4 seeds
+    outside the K:
+
+    * the frame mean within 4 standard deviations of JAX's (port and JAX
+      within 2.3; a frame at half brightness lies 9.6-11 below, a black
+      one 19-23);
+    * the 3x3 block means' squared z, averaged, below 8 (port 0.4-4.3,
+      JAX 0.4-6.4, where a firefly lands in one block; half 16-19;
+      radiance banked into a slot's first pixel 34-40);
+    * the mean absolute pixel distance from JAX's average frame at most
+      1.3x the median of each JAX frame's distance from the others'
+      average (port 0.89-1.15, JAX 0.93-1.15; a frame three rows off
+      2.5-4.1x).
+    A per-bounce throughput 0.7x too small lies 2-5 standard deviations
+    low: at this size, the frame holds gross faults only; the per-bounce
+    factor is held by test_sample_directions_on_jax_uniforms."""
+    k = len(jax_frames)
+    grow = np.sqrt(1.0 + 1.0 / k)
+    js = np.stack([np.asarray(j).astype(np.float64) for j in jax_frames])
+    x = img.numpy().astype(np.float64)
+    var = js.mean(-1).var(0, ddof=1)           # per pixel, one frame's
+    b = var.shape[0] // 3
+
+    def blocks(a):
+        return a.mean(-1).reshape(a.shape[:-3] + (3, b, 3, b)).mean((-3, -1))
+
+    z = (x.mean() - js.mean()) / (np.sqrt(var.sum()) / var.size * grow)
+    block_var = var.reshape(3, b, 3, b).sum((1, 3)) / (b * b) ** 2
+    with np.errstate(divide="ignore", invalid="ignore"):
+        z2 = (blocks(x) - blocks(js).mean(0)) ** 2 / (block_var * grow ** 2)
+    chi2 = np.mean(np.where(np.isnan(z2), 0.0, z2))  # 0/0: a fixed block
+    total = js.sum(0)
+    own = np.median([np.abs(js[i] - (total - js[i]) / (k - 1)).mean()
+                     for i in range(k)])
+    dist = np.abs(x - total / k).mean() / own
+    assert x.max() > 0 and x.mean() > 0, "black frame"
+    assert abs(z) < 4.0, (z, x.mean(), js.mean())
+    assert chi2 < 8.0, chi2
+    assert dist <= 1.3, dist

@@ -7,8 +7,8 @@ CLI modes.
 The JAX frames run their Pallas hit kernel in interpret mode and draw
 from threefry, the port's from a torch.Generator through kernel B4a's
 exact-f32 twin, so a port frame is held to the spread of JAX frames of
-FRAME_SEEDS other seeds (_hold_to_jax): its mean, its 3x3 block means,
-and its mean absolute distance from JAX's average frame.  Sizes are the
+FRAME_SEEDS other seeds (_torch_parity.hold_to_jax): its mean, its 3x3
+block means, and its mean absolute distance from JAX's average frame.  Sizes are the
 JAX tests': 24x24, 8 bounces, a 6x6 sector grid, a 32-48-32 net,
 256-ray minibatches; the frames take 8 spp and an environment light of
 0.5 (so escaping paths add their throughput), where one frame's mean
@@ -44,7 +44,7 @@ from rlrpt_tpu_torch.scene import cornell_box
 from rlrpt_tpu_torch.tools import render
 from rlrpt_tpu_torch.utils.convert import dq_network_from_numpy
 from rlrpt_tpu_torch.utils.image import read_png
-from _torch_parity import one_torch_thread  # noqa: F401
+from _torch_parity import hold_to_jax, one_torch_thread  # noqa: F401
 
 A = np.asarray
 KW = dict(width=24, height=24, samples_per_pixel=4, max_ray_bounces=8,
@@ -252,57 +252,11 @@ def _jax_frame(lockstep, train, kw, key, params, opt_state, eps):
     return out[0], out[3]
 
 
-def _hold_to_jax(img, jax_frames):
-    """Hold a frame to K JAX frames of other seeds.  Pixels are
-    independent, so the variance of a mean over pixels is the sum of the
-    pixels' variances (each from the K frames) over the count squared; a
-    new frame spreads from the K frames' average by sqrt(1 + 1/K) of one
-    frame's deviation.  Ranges below are of the six cases, port frames of
-    4 seeds and JAX frames of 4 seeds outside the K:
-
-    * the frame mean within 4 standard deviations of JAX's (port and JAX
-      within 2.3; a frame at half brightness lies 9.6-11 below, a black
-      one 19-23);
-    * the 3x3 block means' squared z, averaged, below 8 (port 0.4-4.3,
-      JAX 0.4-6.4, where a firefly lands in one block; half 16-19;
-      radiance banked into a slot's first pixel 34-40);
-    * the mean absolute pixel distance from JAX's average frame at most
-      1.3x the median of each JAX frame's distance from the others'
-      average (port 0.89-1.15, JAX 0.93-1.15; a frame three rows off
-      2.5-4.1x).
-    A per-bounce throughput 0.7x too small lies 2-5 standard deviations
-    low: at this size, the frame holds gross faults only; the per-bounce
-    factor is held by test_sample_directions_on_jax_uniforms."""
-    k = len(jax_frames)
-    grow = np.sqrt(1.0 + 1.0 / k)
-    js = np.stack([A(j).astype(np.float64) for j in jax_frames])
-    x = img.numpy().astype(np.float64)
-    var = js.mean(-1).var(0, ddof=1)           # per pixel, one frame's
-    b = var.shape[0] // 3
-
-    def blocks(a):
-        return a.mean(-1).reshape(a.shape[:-3] + (3, b, 3, b)).mean((-3, -1))
-
-    z = (x.mean() - js.mean()) / (np.sqrt(var.sum()) / var.size * grow)
-    block_var = var.reshape(3, b, 3, b).sum((1, 3)) / (b * b) ** 2
-    with np.errstate(divide="ignore", invalid="ignore"):
-        z2 = (blocks(x) - blocks(js).mean(0)) ** 2 / (block_var * grow ** 2)
-    chi2 = np.mean(np.where(np.isnan(z2), 0.0, z2))  # 0/0: a fixed block
-    total = js.sum(0)
-    own = np.median([np.abs(js[i] - (total - js[i]) / (k - 1)).mean()
-                     for i in range(k)])
-    dist = np.abs(x - total / k).mean() / own
-    assert x.max() > 0 and x.mean() > 0, "black frame"
-    assert abs(z) < 4.0, (z, x.mean(), js.mean())
-    assert chi2 < 8.0, chi2
-    assert dist <= 1.3, dist
-
-
 @pytest.mark.parametrize("label,lockstep,train,kw", FRAMES,
                          ids=[f[0] for f in FRAMES])
 def test_frame_matches_jax(jax_net, label, lockstep, train, kw):
     """The port's frame from JAX's initial net held to JAX's frames of
-    FRAME_SEEDS other seeds (_hold_to_jax); B4a's twin ran and nothing
+    FRAME_SEEDS other seeds (hold_to_jax); B4a's twin ran and nothing
     else; a training frame returns JAX's epsilon exactly and moves every
     layer, finitely."""
     params, opt_state = jax_net
@@ -334,7 +288,7 @@ def test_frame_matches_jax(jax_net, label, lockstep, train, kw):
             **kw)
     assert ip.KERNEL_MAT.launches == launches     # the CPU ran the twin
     assert torch.isfinite(img).all() and (img >= 0).all()
-    _hold_to_jax(img, js)
+    hold_to_jax(img, js)
     assert float(torch.as_tensor(aux["avg_path_length"]).mean()) > 0
     moved = [not torch.equal(p, b) for p, b in zip(net.parameters(), before)]
     if train:

@@ -66,18 +66,31 @@ def test_rebuild_bin_cdf_bit_equal(sector_grid, mix):
                             defensive_mix=mix)
     assert tt.cdf.dtype == torch.bfloat16
     assert (tt.sector_grid, tt.uv_bins, tt.t_pad) == (sector_grid, 4, T_PAD)
-    # Every entry is positive, so bf16 bit patterns order as the values:
-    # at most 1 ulp apart, and rarely that (1 of 92,160 entries at 12x12,
-    # none elsewhere; 23 of 1,638,400 over 20 skewed tables).
-    ulps = np.abs(tt.cdf.view(torch.int16).numpy().astype(np.int32)
-                  - np.asarray(tj.cdf).view(np.int16).astype(np.int32))
-    assert ulps.max() <= 1
-    assert (ulps > 0).sum() <= 1e-4 * ulps.size, (ulps > 0).sum()
+    # the sums take XLA's order (row_sum, row_cumsum): every bit equal
+    np.testing.assert_array_equal(tt.cdf.view(torch.int16).numpy(),
+                                  np.asarray(tj.cdf).view(np.int16))
     # the numpy hand-over of a bf16 table is exact
     tc = tri_bin_cdf_from_numpy(np.asarray(tj.cdf, np.float32),
                                 sector_grid, 4, T_PAD)
     np.testing.assert_array_equal(tc.cdf.view(torch.int16).numpy(),
                                   np.asarray(tj.cdf).view(np.int16))
+
+
+@pytest.mark.parametrize("sector_grid", [11, 12])
+@pytest.mark.parametrize("mix", [0.0, 0.2])
+def test_rebuild_bin_cdf_torch_order_within_one_ulp(sector_grid, mix):
+    """jax_order=False, the card's default (torch.sum and torch.cumsum):
+    every entry positive, so bf16 bit patterns order as the values; at
+    most 1 ulp from JAX's table, on at most 1e-4 of the entries."""
+    q = _q(4, sector_grid, skew=3.0, seed=sector_grid)
+    tj = jgt.rebuild_bin_cdf(jnp.asarray(q), sector_grid, 4, T_PAD,
+                             defensive_mix=mix)
+    tt = gt.rebuild_bin_cdf(torch.from_numpy(q), sector_grid, 4, T_PAD,
+                            defensive_mix=mix, jax_order=False)
+    ulps = np.abs(tt.cdf.view(torch.int16).numpy().astype(np.int32)
+                  - np.asarray(tj.cdf).view(np.int16).astype(np.int32))
+    assert ulps.max() <= 1
+    assert (ulps > 0).sum() <= 1e-4 * ulps.size, (ulps > 0).sum()
 
 
 @pytest.mark.parametrize("uv_bins,skew", [(4, 0.0), (4, 3.0), (2, 3.0)],
@@ -158,3 +171,19 @@ def test_concentric_dir_matches_jax():
                              for a in (gx, gy, *n.T)))
     for a, b in zip(t, j):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6)
+
+
+@pytest.mark.parametrize("rows", [9, 33, 121, 144, 300])
+def test_row_sum_and_cumsum_take_jax_order(rows):
+    """row_sum and row_cumsum over sector rows of skewed non-negative
+    weights equal jnp.sum and jnp.cumsum over axis 0 bit for bit (one,
+    two and three levels of XLA's windows and blocks), where torch.sum
+    and torch.cumsum round some entries otherwise."""
+    w = (np.random.default_rng(rows).uniform(0, 1, (rows, 640)) ** 6
+         ).astype(np.float32)
+    t = torch.from_numpy(w)
+    np.testing.assert_array_equal(
+        gt.row_sum(t).numpy(), np.asarray(jnp.sum(jnp.asarray(w), axis=0)))
+    np.testing.assert_array_equal(
+        gt.row_cumsum(t).numpy(), np.asarray(jnp.cumsum(jnp.asarray(w),
+                                                        axis=0)))

@@ -150,3 +150,87 @@ def test_lane_efficiency_of_slot_iterations():
     assert int(iters.sum()) == int(path_sum.sum())
     warp, block = lane_efficiency(iters, 32), lane_efficiency(iters, 128)
     assert 0.0 < block <= warp <= 1.0
+
+
+def test_flipped_pixel_is_jax_expanded_hit(monkeypatch):
+    """At tests/test_megakernel.py's cull point (Cornell, PRNGKey 9, 32x32,
+    4 spp, 6 bounces, r_tile 256, pix_mux 2) the twin and JAX's interpret
+    kernel at precision "highest" differ in one pixel, 570: slot 58's
+    second pixel.  Recording the interpret kernel's per-step hit matmul
+    for slot 58 (jax.lax.dot_general wrapped here, rlrpt_tpu untouched)
+    and hitting each recorded ray with the twin's own Moller-Trumbore
+    (closest_hit_mt) and a float64 one: the two packages agree on every
+    step (the same triangle, t within 1e-5 relative) up to the first
+    step of pixel 570 where a ray leaves a wall 2e-5 from another one.
+    There JAX's expanded o_i d_j form (t' = o.(e1 x e2) - v0.(e1 x e2),
+    megakernel.py:85-134) cancels: its t is more than 10% from float64's,
+    while the twin's is within 1e-5 of it; the paths part there."""
+    (img_t, _), (img_j, _) = _both(
+        jax_cornell_box(), jax.random.PRNGKey(9), 256, 2, width=32,
+        height=32, samples_per_pixel=4, max_ray_bounces=6)
+    diff = np.abs(img_t.numpy() - np.asarray(img_j)).max(-1).reshape(-1)
+    assert np.nonzero(diff > 1e-3)[0].tolist() == [570]
+
+    calls, lane = [], 58
+    dot_general = jax.lax.dot_general
+
+    def recorded(lhs, rhs, *a, **k):
+        out = dot_general(lhs, rhs, *a, **k)
+        if lhs.shape[-1] == 16 and rhs.shape == (16, 256):   # the MT sweep
+            jax.debug.callback(lambda o, f, q: calls.append(
+                (np.array(o), np.array(f), np.array(q))), rhs[0:3],
+                rhs[:, lane], out[:, lane])
+        return out
+
+    jax.clear_caches()
+    monkeypatch.setattr(jax.lax, "dot_general", recorded)
+    jmk.render_default_mega(
+        jax.random.PRNGKey(9), jax_cornell_box(), JCamera.create(CAM),
+        jconfig.RenderConfig(width=32, height=32, samples_per_pixel=4,
+                             max_ray_bounces=6),
+        r_tile=256, pix_mux=2, interpret=True, precision="highest")
+    monkeypatch.undo()
+    jax.clear_caches()
+    # tile 0 runs first; tile 1 starts with every lane at the camera
+    cam = np.array(CAM, np.float32)
+    tile0 = next(i for i in range(1, len(calls))
+                 if np.all(calls[i][0] == cam[:, None]))
+
+    scene = cornell_box(device="cpu")
+    tris, _ = mk.pack_scene(scene)
+    v0 = scene.v0.double().numpy()
+    e1, e2 = (scene.v1.double().numpy() - v0, scene.v2.double().numpy() - v0)
+    samples = 0
+    for step in range(tile0):
+        _, f, q = calls[step]
+        o, d = f[0:3], f[3:6]
+        samples += bool(np.array_equal(o, cam))
+        # JAX's hit from its recorded [det | u' | v' | t'] rows
+        det, up, vp, tq = q.reshape(4, -1)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            valid = ((up * det >= 0) & (vp * det >= 0)
+                     & (up * det + vp * det <= det * det) & (tq * det > 0))
+            j_t = np.where(valid, tq / det, np.inf)
+        # the twin's, and float64 Moller-Trumbore's
+        t_t, t_i, *_ = mk.closest_hit_mt(*(torch.tensor([x]) for x in
+                                           (*o, *d)), tris)
+        p = np.cross(d.astype(np.float64), e2)
+        det64 = (e1 * p).sum(-1)
+        s = o.astype(np.float64) - v0
+        qv = np.cross(s, e1)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            u, v = (s * p).sum(-1) / det64, (d * qv).sum(-1) / det64
+            t64 = np.where((det64 != 0) & (u >= 0) & (v >= 0) & (u + v <= 1),
+                           (e2 * qv).sum(-1) / det64, np.inf)
+        t64 = np.where(t64 > 0, t64, np.inf)
+        if np.isinf(j_t.min()):
+            assert float(t_t[0]) >= mk.INF and np.isinf(t64.min())
+            continue
+        hit = int(np.argmin(j_t))
+        assert int(t_i[0]) == hit == int(np.argmin(t64)), step
+        rel = abs(float(t_t[0]) - j_t[hit]) / j_t[hit]
+        assert abs(float(t_t[0]) - t64[hit]) <= 1e-5 * t64[hit], step
+        if rel > 1e-5:
+            break
+    assert samples == 5 and 5e-6 < t64[hit] < 1e-4     # pixel 570's first
+    assert abs(j_t[hit] - t64[hit]) > 0.1 * t64[hit], (j_t[hit], t64[hit])

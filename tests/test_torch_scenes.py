@@ -34,8 +34,8 @@ from rlrpt_tpu_torch.scene import cornell, generated, obj_importer, presets
 from rlrpt_tpu_torch.scene.scene import morton_sort_surfaces
 from rlrpt_tpu_torch.utils import native
 from rlrpt_tpu_torch.utils.convert import tri_bin_cdf_from_numpy
-from _torch_parity import (assert_frame_parity, kernel_seed,  # noqa: F401
-                           one_torch_thread, torch_scene)
+from _torch_parity import (assert_frame_parity, jax_preset,  # noqa: F401
+                           kernel_seed, one_torch_thread, torch_scene)
 
 FIELDS = ("v0", "v1", "v2", "normal", "diffuse_c", "emission", "luminance")
 
@@ -104,18 +104,6 @@ def small_torus(tmp_path_factory):
     triangles, padded to 512 (two tiles)."""
     return generated.torus_room(
         tmp_path_factory.mktemp("torus") / "torus_12x12.obj", 12, 12)
-
-
-def jax_preset(p):
-    """The JAX package's preset with the port preset's values."""
-    return jpresets.ScenePreset(
-        name=p.name, obj=p.obj, camera_position=p.camera_position,
-        default_rgb=p.default_rgb,
-        material_rules=tuple(jobj.MaterialRule(r.lo, r.hi, r.rgb)
-                             for r in p.material_rules),
-        light_specs=tuple(jobj.LightSpec(s.I, s.J, s.K, s.L)
-                          for s in p.light_specs),
-        light_power=p.light_power, flip_winding=p.flip_winding)
 
 
 # ---- importer -------------------------------------------------------------
