@@ -62,15 +62,22 @@ set to 0 just before it and read just after:
   to the Python one; B1, B3 with a baked per-triangle table and B4a/b
   bit-equal to their twins; B1, B3 and B4a-c timed against their bounds
   at 720x720; ``--mode wavefront`` and ``--mode sarsa-fast`` through the
-  CLI, means within 2%, the fine map saved for phase 22); the culled B1
+  CLI, means within 2%, the fine map saved for phase 22); the BVH build
+  kernel (``csrc/bvh_build.cu``, which builds every tree of the card's
+  paths) bit-equal to the numpy build and to ``build_bvh_plain`` on
+  every scene table and edge case, timed by CUDA events on the OBJ beside
+  the host build, and the culled frame end to end at 1 and 32 spp with
+  the tree built on the card and on the host; the culled B1
   (``render_default_mega(cull=...)``, a BVH walk in the slot loop) on
   the OBJ and on the 288-triangle clutter scene at 720x720: bit-equal to
   the sweep kernel at 1 and 32 spp, each timed in turns, and to its twin
   (the plain walk) at 1 spp, 720x720 on the OBJ and 128x128 on the clutter,
   its counted bound from the count-only build (equal to the twin's
-  counts); ``--mode mega`` on the OBJ, culled by default, bit-equal to
-  ``cull=False`` at its seed; and scene_bench rows with ``--cull both``
-  for Cornell, the test room and the OBJ, Morton-sorted and not;
+  counts), which also gives the walk's SIMT efficiency (active lanes over
+  32 lanes a warp step); ``--mode mega`` on the OBJ, culled by default,
+  bit-equal to ``cull=False`` at its seed; and scene_bench rows with
+  ``--cull both`` for Cornell, the test room and the OBJ, Morton-sorted
+  and not;
 * the deep-Q family on that OBJ (phase 22, run after 18; the
   relative-vertex input 44,820 wide): ``--mode neural-q`` at 720x720, 2
   frames of 1 spp, then ``--save-model`` (the checks of phase 14, every
@@ -120,8 +127,9 @@ set to 0 just before it and read just after:
 
 Fails if a kernel of a path was never launched in it, if the brute-force
 sweep was, if the culled B1 was on a path that sweeps (Cornell, the test
-room: one chunk; ``cull=True`` on Cornell is forced off, as in JAX), or
-if a wavefront or sarsa-fast frame built more than one BVH.
+room: one chunk; ``cull=True`` on Cornell is forced off, as in JAX), if
+a tree of a path was built other than by the build kernel, or if a
+wavefront or sarsa-fast frame built more than one BVH.
 Prints one line per
 phase and, after the last, each phase's seconds; then the card line, one
 JSON line describing the kernels, and as the last line {"ok": true,
@@ -1771,6 +1779,171 @@ def equal_hits(name: str, fn, o, d, tables, count, bvh) -> float:
     return err
 
 
+# The build kernel's counted work (csrc/bvh_build.cu), float64 operations:
+# a triangle's corners, box, centroid and largest |corner| once; its bins
+# on three axes at every level it is in; a node's SAH (45 cuts of two
+# areas and a cost, and the 16-bin scans of counts and boxes on 3 axes).
+BUILD_TRI_OPS = 36
+BUILD_ITEM_OPS = 6
+BUILD_NODE_OPS = 1700
+PEAK_F64 = 34e12   # H100 SXM float64 outside the tensor cores (data sheet)
+
+
+def edge_tables() -> dict:
+    """CPU tables of the build's edge cases, tests/test_torch_bvh_build.py's
+    (T in {0, 1, 4, 5}, coincident centroids, zero areas, duplicates,
+    negative zeros) and seeded soups up to 20,000 triangles, some on a
+    coarse grid (ties in the bins and the SAH costs)."""
+    def rows(v0, v1, v2):
+        v0, v1, v2 = (np.asarray(a, np.float32).reshape(-1, 3)
+                      for a in (v0, v1, v2))
+        z = np.zeros((v0.shape[0], 1), np.float32)
+        return torch.from_numpy(np.concatenate(
+            [v0, z, v1 - v0, z, v2 - v0, z], axis=1))
+
+    rng = np.random.default_rng(5)
+    soup = rng.normal(size=(40, 3, 3))
+    out = {f"soup of {n}": rows(soup[:n, 0], soup[:n, 1], soup[:n, 2])
+           for n in (0, 1, 4, 5)}
+    for n, seed in ((5, 1), (40, 2)):   # centroids all at c, exactly
+        r = np.random.default_rng(seed)
+        a, b = (r.integers(-64, 64, (n, 3)) / 64.0 for _ in range(2))
+        c = np.array([0.25, -0.5, 0.125])
+        out[f"{n} coincident centroids"] = rows(c + a, c + b, c - a - b)
+    out["one triangle x 12"] = rows(*np.repeat(
+        soup[:1].transpose(1, 0, 2), 12, axis=1))
+    p, q = rng.normal(size=(20, 3)), rng.normal(size=(20, 3))
+    out["zero areas"] = rows(np.r_[p, p], np.r_[p, q],
+                             np.r_[p, 0.5 * (p + q)])
+    both = np.concatenate([soup, soup, soup[:7]])
+    out["duplicates"] = rows(both[:, 0], both[:, 1], both[:, 2])
+    z = np.zeros((9, 3), np.float32)
+    out["negative zeros"] = rows(-z, z, -z)
+    for n, grid in ((37, 0), (300, 8), (2000, 0), (20000, 16)):
+        c = np.random.default_rng(n).normal(size=(n, 3, 3))
+        if grid:
+            c = np.round(c * grid) / grid
+        out[f"soup of {n}" + (f" on a 1/{grid} grid" if grid else "")] = (
+            rows(c[:, 0], c[:, 1], c[:, 2]))
+    return out
+
+
+def same_tree(a, b) -> bool:
+    """The two trees are the same bits: nodes, order, tris_sorted, depth."""
+    return (a.nodes.shape == b.nodes.shape and a.depth == b.depth
+            and torch.equal(a.nodes.cpu().view(torch.int32),
+                            b.nodes.cpu().view(torch.int32))
+            and torch.equal(a.order.cpu(), b.order.cpu())
+            and torch.equal(a.tris_sorted.cpu().view(torch.int32),
+                            b.tris_sorted.cpu().view(torch.int32)))
+
+
+def build_part(dev, tables: dict, obj, camera, size: int) -> dict:
+    """Phase 18's build kernel (csrc/bvh_build.cu): its tree held bit for
+    bit to the numpy build and to build_bvh_plain on every scene table and
+    edge case; its time by CUDA events on the OBJ beside build_bvh's end
+    to end (the kernel and the read of the tree's size), the host build's
+    (the table copied to the host, numpy, the tree copied back: the build
+    the card's paths ran before the kernel) and the plain version's,
+    against its bound; and the culled
+    render_default_mega on the OBJ end to end at 1 and 32 spp with the
+    tree built on the card and on the host, in turns (host, card, card,
+    host), every image bit-equal."""
+    from rlrpt_tpu_torch.config import RenderConfig
+    from rlrpt_tpu_torch.ops import bvh as bv
+    from rlrpt_tpu_torch.ops import megakernel as mk
+    from rlrpt_tpu_torch.tools.mega_sweep import PEAK_BYTES, kernel_ms
+
+    fig, trees = {}, []
+    err = 0.0
+    for name, t in {**tables, **edge_tables()}.items():
+        cpu = t.detach().cpu().contiguous()
+        host, plain = bv.build_bvh(cpu), bv.build_bvh_plain(cpu)
+        kern = bv.build_bvh(cpu.to(dev))
+        check(same_tree(plain, host), f"build_bvh_plain {name}: not the "
+                                      f"numpy build's tree")
+        check(same_tree(kern, host), f"the build kernel {name}: not the "
+                                     f"numpy build's tree")
+        boxes = torch.cat([kern.nodes[:, 0:3], kern.nodes[:, 4:7],
+                           kern.nodes[:, 8:11], kern.nodes[:, 12:15]], 1)
+        ref = torch.cat([host.nodes[:, 0:3], host.nodes[:, 4:7],
+                         host.nodes[:, 8:11], host.nodes[:, 12:15]], 1)
+        err = max(err, float((boxes.cpu().double() - ref.double()).abs()
+                             .nan_to_num(0.0).max()) if len(ref) else 0.0)
+        trees.append(f"{name} ({cpu.shape[0]}: {host.nodes.shape[0]} "
+                     f"nodes, depth {host.depth})")
+    log(f"[18] the build kernel's tree is the numpy build's and "
+        f"build_bvh_plain's bit for bit (nodes, order, tris_sorted, depth) "
+        f"on {len(trees)} tables: " + "; ".join(trees))
+    fig["tables"] = len(trees)
+    fig["max_abs_err"] = err
+
+    o = tables["torus room"].to(dev).contiguous()
+    n = o.shape[0]
+    ms = kernel_ms(lambda: bv.launch_build(o), 20)
+    e2e, host_s = [], []
+    for _ in range(5):
+        t_ms, tree = host_ms(lambda: bv.build_bvh(o))
+        e2e.append(t_ms)
+    for _ in range(3):
+        t_ms, _ = host_ms(lambda: bv._build_host(o))
+        host_s.append(t_ms / 1e3)
+    levels = []
+    plain_ms, _ = host_ms(lambda: bv.build_bvh_plain(o.cpu(), levels))
+    ops = (n * BUILD_TRI_OPS + sum(m for _, m in levels) * BUILD_ITEM_OPS
+           + sum(k for k, _ in levels) * BUILD_NODE_OPS)
+    nbytes = n * 48 + tree.nodes.numel() * 4 + n * (4 + 48)
+    t_ops, t_bytes = ops / PEAK_F64 * 1e3, nbytes / PEAK_BYTES * 1e3
+    bound, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes,
+                                                                "bytes")
+    fig.update(triangles=n, nodes=tree.nodes.shape[0], depth=tree.depth,
+               levels=levels, ms=ms, build_bvh_ms=e2e, host_build_s=host_s,
+               plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+               share=bound / ms, f64_ops=ops, bytes=nbytes)
+    log(f"[18] build kernel on the OBJ ({n} triangles, {tree.depth} levels, "
+        f"{tree.nodes.shape[0]} nodes): {ms:.4f} ms by CUDA events (mean of "
+        f"20 launches); build_bvh end to end (the kernel and the read of "
+        f"the tree's size) " + ", ".join(f"{x:.4f}" for x in e2e)
+        + " ms; the host build (table to the host, numpy, tree back) "
+        + ", ".join(f"{x:.4f}" for x in host_s) + f" s; build_bvh_plain "
+        f"(CPU) {plain_ms:.1f} ms; bound {bound * 1e3:.4f} us ({by}: "
+        f"{nbytes} bytes, {ops} f64 operations), share {bound / ms:.5f}")
+
+    phases = bv.build_phase_ns(o)
+    fig["phase_ns"] = phases
+    log(f"[18] the build kernel's phases on the OBJ (its device clock after "
+        f"each grid barrier, summed over the {tree.depth} levels): "
+        + ", ".join(f"{k} {v / 1e3:.1f} us" for k, v in phases.items()))
+
+    e2e_fig = {}
+    for spp in (1, 32):
+        cfg = RenderConfig(width=size, height=size, samples_per_pixel=spp,
+                           max_ray_bounces=80)
+        secs, imgs = {"host": [], "card": []}, []
+        for where in ("host", "card", "card", "host"):
+            build = bv.build_bvh
+            if where == "host":
+                bv.build_bvh = bv._build_host
+            try:
+                t_ms, (img, _) = host_ms(lambda: mk.render_default_mega(
+                    77, obj, camera, cfg, dev))
+            finally:
+                bv.build_bvh = build
+            secs[where].append(t_ms / 1e3)
+            imgs.append(img)
+        check(all(torch.equal(i, imgs[0]) for i in imgs[1:]),
+              f"culled frame {spp} spp: the image depends on where the tree "
+              f"was built")
+        e2e_fig[f"{spp} spp"] = secs
+        log(f"[18] culled render_default_mega on the OBJ {size}x{size} {spp} "
+            f"spp end to end: tree built on the card "
+            + ", ".join(f"{x:.4f}" for x in secs["card"])
+            + " s, on the host " + ", ".join(f"{x:.4f}" for x in secs["host"])
+            + " s (in turns); the images bit-equal")
+    fig["culled_end_to_end_s"] = e2e_fig
+    return fig
+
+
 def scene_phases(dev, out_dir: Path, drive, size: int = 720,
                  torus: tuple = (46, 54)) -> dict:
     """Phase 18: the test room and a generated OBJ at bunny.obj's size
@@ -1975,8 +2148,9 @@ def scene_phases(dev, out_dir: Path, drive, size: int = 720,
         torch.cuda.synchronize()
         builds.append(time.perf_counter() - t0)
     log(f"[18] BVH of the {n_tris} triangles: {o_bvh.nodes.shape[0]} inner "
-        f"nodes, depth {o_bvh.depth}; build (host numpy, the table copied "
-        f"from the card) " + ", ".join(f"{b:.4f}" for b in builds) + " s")
+        f"nodes, depth {o_bvh.depth}; build_bvh (the build kernel and the "
+        f"read of the tree's size) " + ", ".join(f"{b:.4f}" for b in builds)
+        + " s")
     cam_o, cam_d, o, d = hit_rays(dev, o_tris, o_mat, gen, size=256)
     for name, fn, tabs in (("B4a", ip.closest_hit_mat_mxu, (o_tris, o_mat)),
                            ("B4b", ip.closest_hit_packed, (o_tris,))):
@@ -1995,6 +2169,16 @@ def scene_phases(dev, out_dir: Path, drive, size: int = 720,
                                                 f_o.shape[0] // 2),
         "edge, vertex and grazing rays": (e_o, e_d, e_o.shape[0])})
     secs["OBJ import and twins"] = time.perf_counter() - t_part
+
+    # ---- the build kernel against the numpy build and its plain version --
+    t_part = time.perf_counter()
+    res["bvh_build"] = build_part(dev, {
+        "Cornell": ip.pack_triangles(presets.load_scene("cornell", dev)),
+        "test room": h_tris, "clutter": mk.pack_scene(clutter_scene(dev))[0],
+        "torus room": o_tris,
+        "torus room, Morton-sorted": tables["Morton-sorted"][0]}, obj,
+        camera, size)
+    secs["BVH build"] = time.perf_counter() - t_part
 
     # ---- 18d: the culled B1 against the sweep kernel and its twin ---------
     t_part = time.perf_counter()
@@ -2024,8 +2208,7 @@ def scene_phases(dev, out_dir: Path, drive, size: int = 720,
         fig = {"triangles": t, "nodes": tree.nodes.shape[0],
                "depth": tree.depth, "build_seconds": builds}
         log(f"[18] {label}: {t} triangles, tree of {tree.nodes.shape[0]} "
-            f"inner nodes, depth {tree.depth}; build (host numpy, the "
-            f"table copied from the card) "
+            f"inner nodes, depth {tree.depth}; build_bvh on the card "
             + ", ".join(f"{b:.4f}" for b in builds) + " s")
         for spp in (1, 32):
             args = (seed, cam, c_tris, c_mat, full(spp), n_full, mk.PIX_MUX)
@@ -2041,9 +2224,13 @@ def scene_phases(dev, out_dir: Path, drive, size: int = 720,
                 for n, a, b in zip(("rad", "path_sum", "iters"), out, ref):
                     check(torch.equal(a, b), f"culled B1 {label} {spp} spp: "
                                              f"{n} differs from the sweep's")
-            visits, tests = mk.walk_counts(*args, tree)
+            visits, tests, w_steps, w_lanes = mk.walk_counts(
+                *args, tree, simt=True)
+            simt = w_lanes / (32 * w_steps)
             point = {"sweep_ms": ms["sweep"], "culled_ms": ms["culled"],
-                     "visits": visits, "tests": tests}
+                     "visits": visits, "tests": tests,
+                     "warp_steps": w_steps, "active_lanes": w_lanes,
+                     "simt_efficiency": simt}
             extra = ""
             if spp == 1:
                 t_cfg = RenderConfig(width=twin_size, height=twin_size,
@@ -2083,7 +2270,9 @@ def scene_phases(dev, out_dir: Path, drive, size: int = 720,
                 + ", ".join(f"{x:.4f}" for x in ms["culled"])
                 + f" ms (sweep / culled {m_s / m_c:.2f}x), bit-equal; "
                 f"{segments:.0f} segments, {visits / segments:.3f} inner-node "
-                f"visits and {tests / segments:.3f} triangle tests a segment;"
+                f"visits and {tests / segments:.3f} triangle tests a segment,"
+                f" the walk's SIMT efficiency {simt:.4f} ({w_lanes} active "
+                f"lanes over {w_steps} warp steps);"
                 f" counted bound {bound:.4f} ms ({by}), share "
                 f"{bound / m_c:.4f}; brute-force bound {brute:.4f} ms "
                 f"({brute_by}), the sweep's share {brute / m_s:.4f}" + extra)
@@ -2110,9 +2299,10 @@ def scene_phases(dev, out_dir: Path, drive, size: int = 720,
     t_part = time.perf_counter()
     # --mode mega culls the OBJ by default; its image is the sweep's at the
     # CLI's seed (render.py draws it from --seed as below)
-    img, aux, mega_s = drive("18", ("B1 culled",), lambda: run_cli(
-        ["--mode", "mega", "--scene", preset.name, "--spp", "32", "--seed",
-         "1984"]))
+    img, aux, mega_s = drive("18", ("B1 culled", "BVH build"),
+                             lambda: run_cli(["--mode", "mega", "--scene",
+                                              preset.name, "--spp", "32",
+                                              "--seed", "1984"]))
     check(mk.KERNEL.launches == 0 and bv.BUILDS == 1,
           f"--mode mega on the OBJ: {mk.KERNEL.launches} sweep launches, "
           f"{bv.BUILDS} tree builds")
@@ -3333,13 +3523,14 @@ def main(argv=None) -> int:
     # ---- the paths, each counted from zero ------------------------------
     kernels = {"B1": mk.KERNEL, "B1 culled": mk.KERNEL_CULL, "B3": gm.KERNEL,
                "B2": gt.KERNEL, "B4a": ip.KERNEL_MAT, "B4b": ip.KERNEL_F32,
-               "B4c": ip.KERNEL_MXU}
+               "B4c": ip.KERNEL_MXU, "BVH build": bv.KERNEL_BUILD}
     launches = dict.fromkeys(kernels, 0)
 
     def drive(path: str, expect, fn):
         """fn() with every count at 0; the expected kernels must launch,
         and the brute-force sweep (no path's kernel) must not, nor the
-        culled B1 where it is not expected (a scene of one chunk sweeps).
+        culled B1 where it is not expected (a scene of one chunk sweeps);
+        every tree the path built must come from the build kernel.
         bv.BUILDS holds the run's BVH builds afterwards."""
         for kern in (*kernels.values(), ip.KERNEL_SWEEP):
             kern.launches = 0
@@ -3356,7 +3547,9 @@ def main(argv=None) -> int:
               f"{path}: the brute-force sweep ran on a path")
         check("B1 culled" in expect or counts["B1 culled"] == 0,
               f"{path}: the culled B1 ran on a path that sweeps")
-        for n in expect:
+        check(counts["BVH build"] == bv.BUILDS, f"{path}: {bv.BUILDS} BVH "
+              f"builds, {counts['BVH build']} of them by the build kernel")
+        for n in set(expect) | {"BVH build"}:
             launches[n] += counts[n]
         return out
 
@@ -3466,8 +3659,8 @@ def main(argv=None) -> int:
     check(abs(gap) <= 0.10, f"learned guided mean off by {gap:+.2%}")
 
     # 9: the wavefront path, B4a through the CLI and B4b through hit_mode
-    drive("9", ("B4a",), lambda: cli("9", "wavefront",
-                                      ["--mode", "wavefront"]))
+    drive("9", ("B4a", "BVH build"), lambda: cli("9", "wavefront",
+                                                   ["--mode", "wavefront"]))
     check(bv.BUILDS == 1, f"wavefront: {bv.BUILDS} BVH builds in one frame")
 
     def wavefront_f32():
@@ -3524,6 +3717,7 @@ def main(argv=None) -> int:
 
     cw = scenes["culled_b1"]["torus_room"]["1 spp"]
     cw32 = scenes["culled_b1"]["torus_room"]["32 spp"]
+    bb = scenes["bvh_build"]
     results = {"kernels": [
         {"name": "B1 mega_default", "route": "cuda",
          "source": "rlrpt_tpu_torch/csrc/mega_default.cu",
@@ -3543,7 +3737,20 @@ def main(argv=None) -> int:
                   "bounces",
          "sweep_ms": cw["sweep_mean_ms"],
          "ms_32_spp": cw32["ms"], "sweep_ms_32_spp": cw32["sweep_mean_ms"],
-         "bound_ms_32_spp": cw32["bound_ms"]},
+         "bound_ms_32_spp": cw32["bound_ms"],
+         "simt_efficiency": cw["simt_efficiency"],
+         "simt_efficiency_32_spp": cw32["simt_efficiency"]},
+        {"name": "BVH build", "route": "cuda",
+         "source": "rlrpt_tpu_torch/csrc/bvh_build.cu",
+         "replaces": "rlrpt_tpu/ops/megakernel.py:164",
+         "launches": launches["BVH build"], "max_abs_err": bb["max_abs_err"],
+         "ms": bb["ms"], "plain_ms": bb["plain_ms"],
+         "bound_ms": bb["bound_ms"], "bound_by": bb["bound_by"],
+         "library_ms": None, "share": bb["share"],
+         "point": "generated OBJ, 4,980 triangles",
+         "build_bvh_ms": statistics.median(bb["build_bvh_ms"]),
+         "host_build_s": bb["host_build_s"],
+         "culled_end_to_end_s": bb["culled_end_to_end_s"]},
         {"name": "B3 mega_guided", "route": "cuda",
          "source": "rlrpt_tpu_torch/csrc/mega_guided.cu",
          "replaces": "rlrpt_tpu/ops/guided_mega.py:137",

@@ -60,7 +60,8 @@ __global__ void __launch_bounds__(rlrpt::kBlock)
 
 // The culled B1: the same slot loop with its closest hit by the walk of
 // the frame's tree (path_common.cuh:run_slots_walk).  kCount: the
-// count-only build, which also sums the walks' visits and tests.
+// count-only build, which also sums the walks' visits and tests, and their
+// warp steps and active lanes.
 template <bool kCount>
 __global__ void __launch_bounds__(rlrpt::kBlock) mega_default_bvh_kernel(
     rlrpt::MegaParams p, int n_nodes, const float4* __restrict__ nodes,
@@ -125,8 +126,9 @@ extern "C" int rlrpt_mega_default(rlrpt::MegaParams p, const void* tris,
 // (n_nodes, 16) f32, tris (p.n_tris, 12) f32 in its leaf order, order
 // (p.n_tris,) i32; mat (p.n_tris, 16) f32 unpermuted; rad, path_sum,
 // iters and next as rlrpt_mega_default's, and the same frame bit for bit.
-// counts: null, or (2,) uint64 zeros for the count-only build, which adds
-// the walks' inner-node visits and triangle tests there.  Returns the
+// counts: null, or (4,) uint64 zeros for the count-only build, which adds
+// the walks' inner-node visits, triangle tests, warp steps and active
+// lanes there (path_common.cuh:WalkCount).  Returns the
 // first CUDA error of the grid query and the launch, or 0.
 extern "C" int rlrpt_mega_default_bvh(rlrpt::MegaParams p, int n_nodes,
                                       const void* nodes, const void* tris,

@@ -212,10 +212,23 @@ __device__ __forceinline__ bool pop(const int* st_link, const float* st_near,
 
 // What a walk did, for a count-only build (walk<true>): inner nodes
 // visited (two box tests each) and ray-triangle tests, the counts that
-// ops/bvh.py:closest_hit_bvh_plain returns.
+// ops/bvh.py:closest_hit_bvh_plain returns; and the warp's side of it:
+// each step (a node visit or a leaf's tests) counts once for the warp, in
+// its lowest active lane, with the lanes that take it together
+// (__activemask), so lanes / (32 warp_steps) is the walk's SIMT
+// efficiency.
 struct WalkCount {
   uint32_t visits, tests;
+  unsigned long long warp_steps, lanes;
 };
+
+__device__ __forceinline__ void count_warp_step(WalkCount* count) {
+  const unsigned mask = __activemask();
+  if ((threadIdx.x & 31) == __ffs(mask) - 1) {
+    count->warp_steps += 1;
+    count->lanes += __popc(mask);
+  }
+}
 
 // The closest hit of one ray: the walk of ops/bvh.py:closest_hit_bvh_plain.
 // While-while order (Aila and Laine, HPG 2009): a lane steps through inner
@@ -254,7 +267,10 @@ __device__ __forceinline__ Hit walk(
         c = __ldg(p + 2);
         e = __ldg(p + 3);
       }
-      if constexpr (kCount) ++count->visits;
+      if constexpr (kCount) {
+        ++count->visits;
+        count_warp_step(count);
+      }
       const int ll = __float_as_int(a.w), lr = __float_as_int(c.w);
       float fl, fr;
       const float nl = box_near(a, b, r, fl), nr = box_near(c, e, r, fr);
@@ -273,7 +289,10 @@ __device__ __forceinline__ Hit walk(
       }
     }
     const int code = ~link;
-    if constexpr (kCount) count->tests += code & 7;
+    if constexpr (kCount) {
+      count->tests += code & 7;
+      count_warp_step(count);
+    }
     hit_tris_mapped(tris, order, code >> 3, code & 7, ox, oy, oz, dx, dy,
                     dz, h);
     if (!pop(st_link, st_near, sp, h.t, link)) return h;
@@ -766,7 +785,7 @@ __device__ __forceinline__ void run_slots(const MegaParams& p,
 // (n_nodes, 16), tris (n_tris, 12) in its leaf order and order (n_tris,);
 // the top min(n_nodes, kTopNodes) nodes are copied into s_nodes (dynamic
 // shared memory of that size) once per block.  With kCount the walks'
-// visits and tests are added to counts[0] and counts[1].
+// visits, tests, warp steps and active lanes are added to counts[0..3].
 template <bool kCount, class Sampler>
 __device__ __forceinline__ void run_slots_walk(
     const MegaParams& p, float4* __restrict__ s_nodes, int n_nodes,
@@ -779,11 +798,14 @@ __device__ __forceinline__ void run_slots_walk(
   for (int j = threadIdx.x; j < 4 * n_top; j += blockDim.x)
     s_nodes[j] = __ldg(nodes + j);
   __syncthreads();
-  WalkHits<kCount> hits{s_nodes, n_top, nodes, tris, order, {0u, 0u}};
+  WalkHits<kCount> hits{s_nodes, n_top, nodes, tris, order,
+                        {0u, 0u, 0ull, 0ull}};
   slot_loop(p, mat, sample, hits, rad, path_sum, iters, next);
   if constexpr (kCount) {
     atomicAdd(counts, static_cast<unsigned long long>(hits.count.visits));
     atomicAdd(counts + 1, static_cast<unsigned long long>(hits.count.tests));
+    atomicAdd(counts + 2, hits.count.warp_steps);
+    atomicAdd(counts + 3, hits.count.lanes);
   }
 }
 

@@ -137,7 +137,7 @@ def trace_frame_deep_wavefront(generator_or_seed, scene: Scene,
     gen = _generator(generator_or_seed, device)
     scene = scene.to(device)
     tris, mat = pack_scene_mxu(scene)
-    bvh = build_bvh(tris)   # once a frame: a host copy of the table
+    bvh = build_bvh(tris)   # once a frame, on the table's device
     ns = scene.n_surfaces
     n_pix, spp = cfg.n_pixels, cfg.samples_per_pixel
     n_local = n_pix if n_pix_local is None else n_pix_local

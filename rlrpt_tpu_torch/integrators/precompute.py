@@ -89,7 +89,7 @@ def render_importance_sampled(generator: torch.Generator, scene: Scene,
     dev = vols.device
     scene = scene.to(dev)
     tris = pack_triangles(scene)
-    bvh = build_bvh(tris)   # once a frame: a host copy of the table
+    bvh = build_bvh(tris)   # once a frame, on the table's device
     n = cfg.n_pixels
     acc = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     for _ in range(cfg.samples_per_pixel):

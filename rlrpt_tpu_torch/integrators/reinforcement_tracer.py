@@ -150,7 +150,7 @@ def render_frame_sarsa(generator_or_seed, scene: Scene, camera: Camera,
         gen = torch.Generator(device=device).manual_seed(int(gen))
     scene = scene.to(device)
     tris = pack_triangles(scene)
-    bvh = build_bvh(tris)   # once a frame: a host copy of the table
+    bvh = build_bvh(tris)   # once a frame, on the table's device
     scratch = td_scratch(vols.n_volumes, vols.n_sectors, device)
     n = cfg.n_pixels
     acc = torch.zeros((n, 3), dtype=torch.float32, device=device)

@@ -190,7 +190,7 @@ def trace_frame_sarsa_wavefront(generator_or_seed, scene: Scene,
             scene, tri_class=grid.tri_class if is_table else None)
     else:
         tris = pack_triangles(scene)
-    bvh = build_bvh(tris)   # once a frame: a host copy of the table
+    bvh = build_bvh(tris)   # once a frame, on the table's device
     ns = scene.n_surfaces
     n_pix = cfg.n_pixels
     n_local = n_pix if n_pix_local is None else n_pix_local

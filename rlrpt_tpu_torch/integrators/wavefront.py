@@ -73,7 +73,7 @@ def render_wavefront(generator_or_seed, scene: Scene, camera: Camera,
         gen = torch.Generator(device=device).manual_seed(int(gen))
     scene = scene.to(device)
     tris, mat = pack_scene_mxu(scene)
-    bvh = build_bvh(tris)   # once a frame: a host copy of the table
+    bvh = build_bvh(tris)   # once a frame, on the table's device
     ns = scene.n_surfaces
     w = cfg.n_pixels
     spp = cfg.samples_per_pixel

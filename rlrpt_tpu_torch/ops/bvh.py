@@ -2,9 +2,13 @@
 the culled kernel B1 walk.
 
 ``build_bvh`` builds one hierarchy per triangle table (the (T, 12) f32
-rows of ``pack_triangles`` and ``megakernel.pack_scene``), on the host
-with numpy and deterministically, so the CPU tests and the card get the
-same tree.  The kernels walk it one ray a thread (``rlrpt::walk`` in
+rows of ``pack_triangles`` and ``megakernel.pack_scene``), on the table's
+device and deterministically: a CPU table by the numpy build
+(``_build_host``, the tree's definition), a CUDA table by the build
+kernel ``csrc/bvh_build.cu`` (``KERNEL_BUILD``), which makes the same tree
+bit for bit from the table on the card; ``build_bvh_plain`` is that
+kernel's level steps in torch float64 on CPU tensors, for the tests and
+chip_smoke.py.  The kernels walk it one ray a thread (``rlrpt::walk`` in
 ``csrc/path_common.cuh``: B4 in ``csrc/closest_hit.cu``, the culled B1
 inside its slot loop in ``csrc/mega_default.cu``) and return what the
 brute-force sweep returns: the same t, triangle index and material row.
@@ -31,11 +35,13 @@ Layout, decoded the same way by the kernel and by closest_hit_bvh_plain:
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
 import torch
 
+from rlrpt_tpu_torch import _cuda
 from rlrpt_tpu_torch.ops.megakernel import INF, hit_rows, mt_terms
 
 BINS = 16          # SAH bins over the centroids, per axis
@@ -149,35 +155,50 @@ def _split(cen, tlo, thi, starts, counts):
                     rank >= counts[node] // 2)
 
 
-def build_bvh(tris: torch.Tensor) -> Bvh:
-    """The hierarchy of a (T, 12) f32 triangle table (pack_triangles
-    rows), on the table's device.  Copies the table to the host once (a
-    device sync), so callers build once a frame.  Raises ValueError if
-    the tree is deeper than the kernel's stack."""
-    global BUILDS
+def _check_table(tris: torch.Tensor) -> None:
     if tris.dim() != 2 or tris.shape[1] != 12 or tris.dtype != torch.float32:
         raise ValueError(f"tris must be (T, 12) float32, got "
                          f"{tuple(tris.shape)} {tris.dtype}")
-    BUILDS += 1
+
+
+def _check_depth(depth: int) -> None:
+    if depth > STACK:
+        raise ValueError(f"BVH depth {depth} exceeds the kernel's stack of "
+                         f"{STACK}")
+
+
+def _root_row(lo32, hi32, n: int) -> np.ndarray:
+    """The one row of a tree over n <= LEAF_MAX triangles: a leaf (or,
+    for n = 0, no child) on the left, no child on the right."""
+    row = np.zeros(16, np.float32)
+    row[0:3], row[4:7] = lo32, hi32
+    links = np.array([_leaf(0, n) if n else EMPTY, EMPTY], np.int32)
+    row[[3, 11]] = links.view(np.float32)
+    return row
+
+
+def _build_host(tris: torch.Tensor) -> Bvh:
+    """The numpy build, the tree's definition: a CPU table's build, and
+    on the card the build that copies the table to the host (a sync) and
+    the tree back, which chip_smoke.py holds the kernel against."""
     rows = tris.detach().cpu().numpy()
     n = rows.shape[0]
     v0 = rows[:, 0:3].astype(np.float64)
     # the corners the kernel's arithmetic sees: v0 and the exact sums
-    # v0 + e1, v0 + e2 of the f32 row values (exact in float64)
-    corners = np.stack([v0, v0 + rows[:, 4:7], v0 + rows[:, 8:11]], axis=1)
+    # v0 + e1, v0 + e2 of the f32 row values (exact in float64); + 0.0
+    # makes every -0 a +0, so no min or max depends on which zero it
+    # meets first
+    corners = np.stack([v0, v0 + rows[:, 4:7], v0 + rows[:, 8:11]],
+                       axis=1) + 0.0
     tlo, thi = corners.min(axis=1), corners.max(axis=1)
-    cen = corners.sum(axis=1) / 3.0
+    cen = ((corners[:, 0] + corners[:, 1]) + corners[:, 2]) / 3.0
     margin = float(np.abs(corners).max()) * MARGIN if n else 0.0
 
     levels, order = [], []
     if n <= LEAF_MAX:   # the root is one leaf and no child
         lo, hi = _round_out(tlo.min(axis=0) if n else np.zeros(3),
                             thi.max(axis=0) if n else np.zeros(3), margin)
-        row = np.zeros(16, np.float32)
-        row[0:3], row[4:7] = lo, hi
-        links = np.array([_leaf(0, n) if n else EMPTY, EMPTY], np.int32)
-        row[[3, 11]] = links.view(np.float32)
-        levels.append(row[None])
+        levels.append(_root_row(lo, hi, n)[None])
         order.append(np.arange(n))
     else:
         items = np.arange(n)
@@ -213,14 +234,268 @@ def build_bvh(tris: torch.Tensor) -> Bvh:
             counts = child[~leaf]
             starts = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(
                 np.int64)
-        if len(levels) > STACK:
-            raise ValueError(f"BVH depth {len(levels)} exceeds the kernel's "
-                             f"stack of {STACK}")
+        _check_depth(len(levels))
     dev = tris.device
     perm = torch.from_numpy(np.concatenate(order).astype(np.int32)).to(dev)
     return Bvh(nodes=torch.from_numpy(np.concatenate(levels)).to(dev),
                order=perm, tris_sorted=tris[perm.long()].contiguous(),
                depth=len(levels), source=tris)
+
+
+def _round_out_t(lo, hi, margin):
+    """_round_out in torch."""
+    lo, hi = lo - margin, hi + margin
+    lo32, hi32 = lo.float(), hi.float()
+    inf = torch.tensor(float("inf"))
+    lo32 = torch.where(lo32.double() > lo, torch.nextafter(lo32, -inf), lo32)
+    hi32 = torch.where(hi32.double() < hi, torch.nextafter(hi32, inf), hi32)
+    return lo32, hi32
+
+
+def _area_t(lo, hi):
+    e = (hi - lo).clamp(min=0.0)
+    return (e[..., 0] * e[..., 1] + e[..., 1] * e[..., 2]
+            + e[..., 2] * e[..., 0])
+
+
+def _scatter_min(rows, index, src):
+    """(rows, 3) minima of src's rows by index (+inf where none): the
+    kernel's atomic minima, exact in any order."""
+    return torch.full((rows, 3), float("inf"), dtype=torch.float64
+                      ).scatter_reduce(0, index, src, "amin")
+
+
+def _scatter_max(rows, index, src):
+    return torch.full((rows, 3), -float("inf"), dtype=torch.float64
+                      ).scatter_reduce(0, index, src, "amax")
+
+
+def _exclusive(v):
+    out = torch.zeros_like(v)
+    out[1:] = v.cumsum(0)[:-1]
+    return out
+
+
+def build_bvh_plain(tris: torch.Tensor, levels: list | None = None) -> Bvh:
+    """The build kernel's level steps (csrc/bvh_build.cu) in torch float64
+    on a CPU table: every reduction order-free (scatter min and max, bin
+    counts), the children's boxes from the bins either side of a SAH cut,
+    the stable partition and the breadth-first numbering by prefix sums.
+    Returns the numpy build's tree bit for bit.  Nothing
+    calls it on a path: the tests and chip_smoke.py hold the kernel and
+    the numpy build to it.  ``levels``: if a list, (inner nodes, their
+    triangles) of each level are appended to it, the work a bound counts."""
+    _check_table(tris)
+    if tris.device.type != "cpu":
+        raise ValueError(f"build_bvh_plain takes a CPU table, got "
+                         f"{tris.device}")
+    inf = float("inf")
+    rows = tris.detach().double()
+    n = rows.shape[0]
+    v0 = rows[:, 0:3]
+    c = torch.stack([v0, v0 + rows[:, 4:7], v0 + rows[:, 8:11]], 1) + 0.0
+    tlo = torch.minimum(torch.minimum(c[:, 0], c[:, 1]), c[:, 2])
+    thi = torch.maximum(torch.maximum(c[:, 0], c[:, 1]), c[:, 2])
+    cen = ((c[:, 0] + c[:, 1]) + c[:, 2]) / 3.0
+    margin = float(c.abs().max()) * MARGIN if n else 0.0
+    nodes = torch.zeros((max(n - 1, 1), 16), dtype=torch.float32)
+    order = torch.empty((n,), dtype=torch.int64)
+    if n <= LEAF_MAX:
+        lo, hi = ((tlo.amin(0), thi.amax(0)) if n
+                  else (torch.zeros(3, dtype=torch.float64),) * 2)
+        lo32, hi32 = _round_out_t(lo, hi, margin)
+        nodes[0] = torch.from_numpy(_root_row(lo32.numpy(), hi32.numpy(), n))
+        order = torch.arange(n)
+        depth = n_nodes = 1
+    else:
+        ax = torch.arange(3)
+        items, node = torch.arange(n), torch.zeros((n,), dtype=torch.int64)
+        start, count = torch.tensor([0]), torch.tensor([n])
+        k, m, base, placed, n_nodes, depth = 1, n, 0, 0, 1, 0
+        while k:
+            depth += 1
+            if levels is not None:
+                levels.append((k, m))
+            ce, lo_i, hi_i = cen[items], tlo[items], thi[items]
+            by3 = node[:, None].expand(m, 3)
+            # the node's centroid bounds, its bins' counts and boxes
+            cmin, cmax = _scatter_min(k, by3, ce), _scatter_max(k, by3, ce)
+            cext = cmax - cmin
+            scale = torch.where(cext > 0, BINS / torch.where(cext > 0, cext,
+                                                             1.0), 0.0)
+            b = ((ce - cmin[node]) * scale[node]).long().clamp(0, BINS - 1)
+            key = ((node[:, None] * 3 + ax) * BINS + b).reshape(-1)
+            n_bins = k * 3 * BINS
+            cnt = torch.bincount(key, minlength=n_bins).reshape(k, 3, BINS)
+            by_bin = key[:, None].expand(-1, 3)
+            blo = _scatter_min(n_bins, by_bin, lo_i.repeat_interleave(3, 0)
+                               ).reshape(k, 3, BINS, 3)
+            bhi = _scatter_max(n_bins, by_bin, hi_i.repeat_interleave(3, 0)
+                               ).reshape(k, 3, BINS, 3)
+            # SAH per cut: the left bins' and the right bins' boxes
+            n_l = cnt.cumsum(2)[:, :, :-1]
+            n_r = count[:, None, None] - n_l
+            pre_lo, pre_hi = blo.cummin(2).values, bhi.cummax(2).values
+            suf_lo = blo.flip(2).cummin(2).values.flip(2)
+            suf_hi = bhi.flip(2).cummax(2).values.flip(2)
+            a_l, a_r = _area_t(pre_lo, pre_hi), _area_t(suf_lo, suf_hi)
+            cost = torch.where((n_l > 0) & (n_r > 0),
+                               n_l.double() * a_l[:, :, :-1]
+                               + n_r.double() * a_r[:, :, 1:], inf
+                               ).reshape(k, 3 * (BINS - 1))
+            low = cost.amin(1)
+            best = torch.where(cost == low[:, None], torch.arange(
+                3 * (BINS - 1)), 3 * BINS).amin(1)   # ties: lowest (axis, cut)
+            by_sah = torch.isfinite(low)
+            axis, cut = best // (BINS - 1), best % (BINS - 1)
+            # each triangle's side, and the stable partition by a prefix sum
+            pos = torch.arange(m)
+            s_j, c_j = start[node], count[node]
+            right = torch.where(
+                by_sah[node], b.gather(1, axis[node][:, None])[:, 0]
+                > cut[node], pos - s_j >= c_j // 2)
+            r_before = torch.zeros((m + 1,), dtype=torch.int64)
+            r_before[1:] = right.long().cumsum(0)
+            n_right = r_before[start + count] - r_before[start]
+            rb = r_before[pos] - r_before[s_j]
+            new_pos = torch.where(right, s_j + c_j - n_right[node] + rb,
+                                  pos - rb)
+            child = 2 * node + right.long()
+            part = torch.empty_like(items)
+            part[new_pos] = items
+            child_at = torch.empty_like(items)
+            child_at[new_pos] = child
+            # the children's boxes: a SAH cut's are its bins' on either
+            # side; a split by index's, its triangles' minima and maxima
+            jk, c1 = torch.arange(k), (cut + 1).clamp(max=BINS - 1)
+            sah2 = by_sah.repeat_interleave(2)[:, None]
+            by_index = ~by_sah[node]
+            by_child = child[by_index][:, None].expand(-1, 3)
+            clo = torch.where(sah2, torch.stack(
+                [pre_lo[jk, axis, cut], suf_lo[jk, axis, c1]], 1).reshape(
+                    2 * k, 3), _scatter_min(2 * k, by_child, lo_i[by_index]))
+            chi = torch.where(sah2, torch.stack(
+                [pre_hi[jk, axis, cut], suf_hi[jk, axis, c1]], 1).reshape(
+                    2 * k, 3), _scatter_max(2 * k, by_child, hi_i[by_index]))
+            # the children: breadth-first numbers and leaf ranges by scans
+            cc = torch.stack([count - n_right, n_right], 1).reshape(-1)
+            leaf = cc <= LEAF_MAX
+            first = placed + _exclusive(torch.where(leaf, cc, 0))
+            inner_rank = _exclusive((~leaf).long())
+            next_start = _exclusive(torch.where(leaf, 0, cc))
+            link = torch.where(leaf, ~((first << 3) | cc),
+                               n_nodes + inner_rank)
+            lo32, hi32 = _round_out_t(clo, chi, margin)
+            row = nodes[base:base + k].view(k, 2, 8)
+            row[:, :, 0:3] = lo32.view(k, 2, 3)
+            row[:, :, 4:7] = hi32.view(k, 2, 3)
+            row[:, :, 3] = link.int().view(torch.float32).view(k, 2)
+            # every triangle to its leaf's range or its inner child's
+            j, side = child_at // 2, child_at % 2
+            off = pos - (start[j] + side * (count[j] - n_right[j]))
+            in_leaf = leaf[child_at]
+            order[(first[child_at] + off)[in_leaf]] = part[in_leaf]
+            k_next, m_next = int((~leaf).sum()), int(cc[~leaf].sum())
+            items = torch.empty((m_next,), dtype=torch.int64)
+            node = torch.empty((m_next,), dtype=torch.int64)
+            dest = (next_start[child_at] + off)[~in_leaf]
+            items[dest] = part[~in_leaf]
+            node[dest] = inner_rank[child_at][~in_leaf]
+            start, count = next_start[~leaf], cc[~leaf]
+            base += k
+            placed += int(cc[leaf].sum())
+            n_nodes += k_next
+            k, m = k_next, m_next
+        _check_depth(depth)
+    perm = order.to(torch.int32)
+    return Bvh(nodes=nodes[:n_nodes], order=perm,
+               tris_sorted=tris[order].contiguous(), depth=depth,
+               source=tris)
+
+
+# ---- the CUDA wrapper -----------------------------------------------------
+
+# n_tris, tris, nodes, order, tris_sorted, info, work, stamps, stream
+_BUILD_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 8
+KERNEL_BUILD = _cuda.Kernel("rlrpt_bvh_build", _BUILD_ARGS)
+# the same kernel asked for its phase clock (build_phase_ns), counted apart
+KERNEL_BUILD_TIMED = _cuda.Kernel("rlrpt_bvh_build", _BUILD_ARGS)
+STAMPS = 3 + 6 * 128   # csrc/bvh_build.cu kStamps
+
+
+def launch_build(tris: torch.Tensor, stamps: torch.Tensor | None = None):
+    """The build kernel on a contiguous CUDA table: returns (nodes (max(T
+    - 1, 1), 16), order, tris_sorted, info), info (2,) int32 = (rows of
+    nodes in use, depth), all filled on the card's current stream with no
+    host sync.  ``stamps``: a (STAMPS,) int64 CUDA tensor for the phase
+    clock (build_phase_ns), launched as KERNEL_BUILD_TIMED.  Raises
+    ValueError for a table not on a CUDA device."""
+    _check_table(tris)
+    if tris.device.type != "cuda":
+        raise ValueError(f"no BVH build kernel for device {tris.device}")
+    if not tris.is_contiguous():
+        raise ValueError("tris must be contiguous")
+    n = tris.shape[0]
+    lib = _cuda.library()
+    lib.rlrpt_bvh_workspace.argtypes = [ctypes.c_int]
+    lib.rlrpt_bvh_workspace.restype = ctypes.c_longlong
+    dev = tris.device
+    nodes = torch.empty((max(n - 1, 1), 16), dtype=torch.float32, device=dev)
+    order = torch.empty((n,), dtype=torch.int32, device=dev)
+    tris_sorted = torch.empty((n, 12), dtype=torch.float32, device=dev)
+    info = torch.empty((2,), dtype=torch.int32, device=dev)
+    work = torch.empty((int(lib.rlrpt_bvh_workspace(n)),), dtype=torch.uint8,
+                       device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        kernel = KERNEL_BUILD if stamps is None else KERNEL_BUILD_TIMED
+        kernel.launch(n, tris.data_ptr(), nodes.data_ptr(), order.data_ptr(),
+                      tris_sorted.data_ptr(), info.data_ptr(),
+                      work.data_ptr(),
+                      0 if stamps is None else stamps.data_ptr(), stream)
+    return nodes, order, tris_sorted, info
+
+
+def build_phase_ns(tris: torch.Tensor) -> dict:
+    """The build kernel's device time by phase on a CUDA table, from the
+    device clock it reads after every grid barrier (ns, summed over the
+    levels): "setup" (the root and the triangles' boxes and centroids),
+    then each level step's, "bins", "sah", "sides", "partition", "links"
+    and "place" (csrc/bvh_build.cu), and "total".  The card only."""
+    _check_table(tris)
+    if tris.device.type != "cuda" or tris.shape[0] <= LEAF_MAX:
+        raise ValueError("build_phase_ns takes a CUDA table of more than "
+                         f"{LEAF_MAX} triangles")
+    stamps = torch.zeros((STAMPS,), dtype=torch.int64, device=tris.device)
+    info = launch_build(tris.contiguous(), stamps)[3]
+    depth = int(info[1])
+    t = stamps[:3 + 6 * min(depth, 128)].cpu().numpy()
+    steps = np.diff(t[2:]).reshape(-1, 6).sum(axis=0)
+    names = ("bins", "sah", "sides", "partition", "links", "place")
+    out = {"setup": int(t[2] - t[0]), **dict(zip(names, map(int, steps)))}
+    out["total"] = int(t[-1] - t[0])
+    return out
+
+
+def build_bvh(tris: torch.Tensor) -> Bvh:
+    """The hierarchy of a (T, 12) f32 triangle table (pack_triangles
+    rows), on the table's device: a CPU table by the numpy build, a CUDA
+    table by the build kernel (KERNEL_BUILD), with one small read of the
+    tree's size back to the host and no copy of the table.  Raises
+    ValueError if the tree is deeper than the kernel's stack, and for a
+    table on another device."""
+    global BUILDS
+    _check_table(tris)
+    if tris.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no BVH build for device {tris.device}")
+    BUILDS += 1
+    if tris.device.type == "cpu":
+        return _build_host(tris)
+    nodes, order, tris_sorted, info = launch_build(tris.contiguous())
+    n_nodes, depth = info.tolist()
+    _check_depth(depth)
+    return Bvh(nodes=nodes[:n_nodes], order=order, tris_sorted=tris_sorted,
+               depth=depth, source=tris)
 
 
 def _slab(lo, hi, o, iv):

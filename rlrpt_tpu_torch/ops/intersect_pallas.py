@@ -27,8 +27,9 @@ the host wait.
 
 On the card the kernel walks a bounding-volume hierarchy of the table
 (``ops/bvh.py``): each launcher takes the frame's ``bvh=``, built once
-per table by the caller, and builds one itself when given none (a host
-copy of the table, and so a sync).  The answer is the brute-force sweep's
+per table by the caller, and builds one itself when given none (on the
+card by the build kernel, with one small read of the tree's size, and so
+a sync).  The answer is the brute-force sweep's
 bit for bit.  Each launcher runs the plain twin ``closest_hit_plain``
 (built on ``ops.megakernel.closest_hit_mt``, the brute force) for CPU
 tensors, where ``bvh`` is not used, and the kernel for CUDA tensors.

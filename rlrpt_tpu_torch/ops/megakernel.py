@@ -506,23 +506,29 @@ def mega_default_frame(seed: int, cam: tuple, tris: torch.Tensor,
 
 def walk_counts(seed: int, cam: tuple, tris: torch.Tensor,
                 mat: torch.Tensor, cfg: RenderConfig, n_slots: int,
-                pix_mux: int, bvh) -> tuple[int, int]:
+                pix_mux: int, bvh, simt: bool = False) -> tuple:
     """(inner-node visits, ray-triangle tests) of the culled frame's
     walks: the work a bound counts.  On the card the count-only build of
     the culled kernel (KERNEL_COUNT, which no path launches); on the CPU
-    the plain twin's counts."""
+    the plain twin's counts.  ``simt`` (the card only): also (warp steps,
+    active lanes) of the walks, each step a node visit or a leaf's tests
+    counted once a warp with the lanes that took it together, so lanes /
+    (32 warp steps) is the walk's SIMT efficiency."""
     check_tables(tris, mat)
     bvh.check_source(tris)
     if tris.device.type == "cpu":
+        if simt:
+            raise ValueError("walk_counts(simt=True) counts the card's "
+                             "warps: no plain version")
         counts = {"visits": 0, "tests": 0}
         mega_default_frame_plain(seed, cam, tris, mat, cfg, n_slots,
                                  pix_mux, bvh, counts)
         return counts["visits"], counts["tests"]
-    out = torch.zeros((2,), dtype=torch.int64, device=tris.device)
+    out = torch.zeros((4,), dtype=torch.int64, device=tris.device)
     _launch_bvh(KERNEL_COUNT, seed, cam, tris, mat, cfg, n_slots, pix_mux,
                 bvh, out)
-    visits, tests = out.tolist()
-    return visits, tests
+    counts = tuple(out.tolist())
+    return counts if simt else counts[:2]
 
 
 def assemble(rad, path_sum, iters, cfg: RenderConfig):
@@ -551,7 +557,8 @@ def render_default_mega(seed: int, scene: Scene, camera: Camera,
     ``cull``: the JAX launcher's (use_cull): by default on exactly when
     the scene spans more than one T_CHUNK chunk, forced off for one.  On,
     the frame walks a tree built here (build_bvh, once per call, on the
-    host) in the culled kernel; the image is the sweep's bit for bit.
+    table's device: on the card by the build kernel) in the culled
+    kernel; the image is the sweep's bit for bit.
     """
     device = torch.device(device)
     tris, mat = pack_scene(scene.to(device))
