@@ -21,6 +21,10 @@ set to 0 just before it and read just after:
 
 * the default megakernel at the bench point (Cornell 720x720, 1 spp,
   80-bounce cap): B1;
+* ``render_guided_mega(ablate="uniform")`` and ``ablate="fetch"`` at
+  720x720, 32 spp: B3's ablated kernels (perf attribution; phase 4 holds
+  them bit for bit to their twins at 128x128, 4 spp and at that point,
+  and times B3's three modes in turns there, per traced segment);
 * ``tools/render.py --mode sarsa-mega --frames 0`` and ``--mode mega`` at
   720x720, 32 spp: B3, B1;
 * the learning path, ``--mode sarsa-mega --frames 10 --spp 32`` at
@@ -99,7 +103,10 @@ set to 0 just before it and read just after:
   the cached GT's mean, then every row but neural_q against the cached
   GT with a 10 s budget (B1, B4a, B3, B2); every learned row's MAPE must
   be below the default row's, each printed beside EVAL.json's;
-* the tools (phase 20): the bench twin's line, ``sarsa_bench`` at
+* the tools (phase 20): ``mega_sweep --variants`` (the default grid and
+  a high3 spec) at the bench point, 2 frames a trial (B1: a row per
+  variant with rays/s and a lane use in (0, 1], the high3 spec's error
+  row); the bench twin's line, ``sarsa_bench`` at
   720x720, ``neural_q_bench`` at 128x128, ``nn_training_stats`` at 64x64
   (its line count), the interactive renderers of each mode at 96x96, and
   ``pixel_gradients`` through ``render_diff`` at 720x720, 2 spp, 80
@@ -126,7 +133,8 @@ set to 0 just before it and read just after:
   v0 + c_0 + c_1 exactly, and B2, B3 and B4a launched on each rank.
 
 Fails if a kernel of a path was never launched in it, if the brute-force
-sweep was, if the culled B1 was on a path that sweeps (Cornell, the test
+sweep or an ablated B3 kernel was, if the culled B1 was on a path that
+sweeps (Cornell, the test
 room: one chunk; ``cull=True`` on Cornell is forced off, as in JAX), if
 a tree of a path was built other than by the build kernel, or if a
 wavefront or sarsa-fast frame built more than one BVH.
@@ -159,8 +167,9 @@ import torch
 import torch.distributed as dist
 
 from rlrpt_tpu_torch.tools.mega_sweep import (APPLY_OPS, BOX_OPS, MT_OPS,
-                                              bound_ms, frame_bound,
-                                              graph_ms, kernel_ms)
+                                              ablate_turns, bound_ms,
+                                              frame_bound, graph_ms,
+                                              kernel_ms)
 
 ROOT = Path(__file__).resolve().parent
 CAM = (0.0, 0.0, -3.0)
@@ -2622,8 +2631,9 @@ def _json_lines(fn) -> list:
 
 
 def tool_phase(dev, out_dir: Path, drive) -> dict:
-    """Phase 20: the tools on the card, each through its entry point: the
-    bench twin's line, sarsa_bench at 720x720, neural_q_bench at 128x128,
+    """Phase 20: the tools on the card, each through its entry point:
+    mega_sweep's variant grid at the bench point, the bench twin's line,
+    sarsa_bench at 720x720, neural_q_bench at 128x128,
     nn_training_stats at 64x64, the interactive renderers at 96x96 and
     render_diff at 720x720, 2 spp, 80 bounces (B4b) against the same
     render with the plain hit on the same uniforms."""
@@ -2633,11 +2643,28 @@ def tool_phase(dev, out_dir: Path, drive) -> dict:
     from rlrpt_tpu_torch.integrators import differentiable as df
     from rlrpt_tpu_torch.ops import intersect_pallas as ip
     from rlrpt_tpu_torch.scene import cornell_box
-    from rlrpt_tpu_torch.tools import (interactive, neural_q_bench,
-                                       nn_training_stats, sarsa_bench)
+    from rlrpt_tpu_torch.tools import (interactive, mega_sweep,
+                                       neural_q_bench, nn_training_stats,
+                                       sarsa_bench)
     from rlrpt_tpu_torch.utils.stats import read_stats
 
     res = {}
+    # mega_sweep's variant grid at the bench point (720x720, 1 spp, 80
+    # bounces), and JAX's high3 spec, which has no counterpart: its error
+    # row, then the sweep goes on
+    specs = list(mega_sweep.DEFAULT_VARIANTS) + ["1024,32,high3,2"]
+    rows = drive("20", ("B1",), lambda: _json_lines(lambda: mega_sweep.main(
+        ["--variants", ";".join(specs), "--repeats", "2"])))
+    for x in rows:
+        log(f"[20] mega_sweep --variants --repeats 2: {json.dumps(x)}")
+    check([x["variant"] for x in rows] == specs, "mega_sweep rows")
+    check(all(x["rays_per_sec"] > 0 and 0.0 < x["lane_util"] <= 1.0
+              and np.isfinite(x["mape_vs_f32"]) for x in rows[:-1]),
+          "mega_sweep: a variant row out of range")
+    check(set(rows[-1]) == {"variant", "error"} and "A11" in
+          rows[-1]["error"], "mega_sweep: no error row for high3")
+    res["mega_sweep"] = rows
+
     (line,) = drive("20", ("B1",), lambda: _json_lines(
         lambda: bench_twin.main([])))
     check(set(line) == {"metric", "value", "unit", "vs_baseline"}
@@ -3367,6 +3394,65 @@ def main(argv=None) -> int:
         f"torch twin {b3_plain_ms:.1f} ms; bound {b3_bound:.4f} ms "
         f"({b3_by}; {float(b3_plain_out[1].double().sum()):.0f} segments), "
         f"{b3_bound / b3_ms:.4f} of it reached")
+    # B3's ablated kernels (render_guided_mega(ablate=...), perf
+    # attribution only): bit-equal to their twins at 128x128, 4 spp and
+    # at the main point, then B3's three modes timed in turns there
+    log("[4] B3's ablated kernels (uniform, fetch) vs their twins, "
+        "bit-equal, at 128x128 4spp and 720x720 32spp (80 bounces, the "
+        "initial table)")
+    small4 = RenderConfig(width=128, height=128, samples_per_pixel=4,
+                          max_ray_bounces=80)
+    n_small4 = mk.n_slots_for(small4.n_pixels, mk.R_TILE, mk.PIX_MUX)
+    ablated = {}
+    for mode, kern in (("uniform", gm.KERNEL_UNIFORM),
+                       ("fetch", gm.KERNEL_FETCH)):
+        err = 0.0
+        for label, cfg_a, ns_a, seed in (
+                ("128x128 4spp", small4, n_small4, 31),
+                ("720x720 32spp", sarsa, n_slots, 6)):
+            before = kern.launches
+            k_out = gm.mega_guided_frame(seed, cam, tris, mat, cdf_t, 11, 4,
+                                         cfg_a, ns_a, mk.PIX_MUX,
+                                         ablate=mode)
+            check(kern.launches == before + 1,
+                  f"B3 ablate={mode} launch not counted")
+            plain_ms, p_out = host_ms(lambda: gm.mega_guided_frame_plain(
+                seed, cam, tris, mat, cdf_t, 11, 4, cfg_a, ns_a, mk.PIX_MUX,
+                ablate=mode))
+            err = max(err, compare(f"B3 ablate={mode} {label}", k_out, p_out,
+                                   cfg_a))
+            check(all(torch.equal(a, b) for a, b in zip(k_out, p_out)),
+                  f"B3 ablate={mode} {label}: kernel and twin differ")
+        bound = frame_bound(f"B3 {mode}", p_out, n_tris,
+                            cdf_t.numel() * 2 if mode == "fetch" else 0)
+        ablated[mode] = {"max_abs_err": err, "plain_ms": plain_ms,
+                         "bound_ms": bound[0], "bound_by": bound[1]}
+    turns = ablate_turns(lambda m: lambda: gm.mega_guided_frame(
+        6, cam, tris, mat, cdf_t, 11, 4, sarsa, n_slots, mk.PIX_MUX,
+        ablate=m), 5)
+    for m, t in turns.items():
+        log(f"[4] B3 ablate={m} 720x720 32spp, 5 launches a turn in turns "
+            f"(none, uniform, fetch, fetch, uniform, none, twice): ms "
+            + ", ".join(f"{x:.4f}" for x in t["ms"])
+            + f"; {t['segments']:.0f} segments, {t['ns_per_segment']:.6f} "
+            f"ns a segment")
+    ns_seg = {m: t["ns_per_segment"] for m, t in turns.items()}
+    sampler_share = (ns_seg["none"] - ns_seg["uniform"]) / ns_seg["none"]
+    read = (ns_seg["fetch"] - ns_seg["uniform"]) / ns_seg["none"]
+    frame_ms = {m: statistics.mean(t["ms"]) for m, t in turns.items()}
+    frame_share = (frame_ms["none"] - frame_ms["uniform"]) / frame_ms["none"]
+    frame_read = (frame_ms["fetch"] - frame_ms["uniform"]) / frame_ms["none"]
+    log(f"[4] the guided sampler's share of B3 (the ablated paths are "
+        f"longer, so it lies between the two): per frame "
+        f"{frame_share:.4f}, per traced segment {sampler_share:.4f}; of it "
+        f"the column's address and one load {frame_read:.4f} and "
+        f"{read:.4f} on {card}")
+    for m in ablated:
+        ablated[m]["ms"] = statistics.mean(turns[m]["ms"])
+        log(f"[4] B3 ablate={m}: kernel {ablated[m]['ms']:.3f} ms, torch "
+            f"twin {ablated[m]['plain_ms']:.1f} ms; bound "
+            f"{ablated[m]['bound_ms']:.4f} ms ({ablated[m]['bound_by']}), "
+            f"{ablated[m]['bound_ms'] / ablated[m]['ms']:.4f} of it reached")
 
     # ---- 6: B2 vs its twin and vs B3 -----------------------------------
     log("[6] B2 mega_train vs its torch twin and B3 (frame bit-equal, "
@@ -3522,6 +3608,7 @@ def main(argv=None) -> int:
 
     # ---- the paths, each counted from zero ------------------------------
     kernels = {"B1": mk.KERNEL, "B1 culled": mk.KERNEL_CULL, "B3": gm.KERNEL,
+               "B3 uniform": gm.KERNEL_UNIFORM, "B3 fetch": gm.KERNEL_FETCH,
                "B2": gt.KERNEL, "B4a": ip.KERNEL_MAT, "B4b": ip.KERNEL_F32,
                "B4c": ip.KERNEL_MXU, "BVH build": bv.KERNEL_BUILD}
     launches = dict.fromkeys(kernels, 0)
@@ -3529,8 +3616,9 @@ def main(argv=None) -> int:
     def drive(path: str, expect, fn):
         """fn() with every count at 0; the expected kernels must launch,
         and the brute-force sweep (no path's kernel) must not, nor the
-        culled B1 where it is not expected (a scene of one chunk sweeps);
-        every tree the path built must come from the build kernel.
+        culled B1 where it is not expected (a scene of one chunk sweeps),
+        nor B3's ablated kernels (perf attribution only); every tree the
+        path built must come from the build kernel.
         bv.BUILDS holds the run's BVH builds afterwards."""
         for kern in (*kernels.values(), ip.KERNEL_SWEEP):
             kern.launches = 0
@@ -3547,6 +3635,9 @@ def main(argv=None) -> int:
               f"{path}: the brute-force sweep ran on a path")
         check("B1 culled" in expect or counts["B1 culled"] == 0,
               f"{path}: the culled B1 ran on a path that sweeps")
+        check(all(n in expect or counts[n] == 0
+                  for n in ("B3 uniform", "B3 fetch")),
+              f"{path}: an ablated B3 kernel ran on a path")
         check(counts["BVH build"] == bv.BUILDS, f"{path}: {bv.BUILDS} BVH "
               f"builds, {counts['BVH build']} of them by the build kernel")
         for n in set(expect) | {"BVH build"}:
@@ -3577,6 +3668,24 @@ def main(argv=None) -> int:
     check(bv.BUILDS == 0, f"cull=True on Cornell built {bv.BUILDS} trees")
     log("[4] render_default_mega(cull=True) on Cornell: the sweep kernel, "
         "no tree")
+
+    def ablate_path():
+        """render_guided_mega(ablate=...) at the main point, each mode once
+        (wrong images by design: finite and lit is all that is checked)."""
+        table = skewed_table(dev, 0.0)
+        for mode in ("uniform", "fetch"):
+            img, aux = gm.render_guided_mega(6, scene, camera, table, sarsa,
+                                             dev, ablate=mode)
+            check(img.shape == (720, 720, 3)
+                  and bool(torch.isfinite(img).all())
+                  and float(img.mean()) > 0.0,
+                  f"render_guided_mega(ablate={mode!r}): not a finite, lit "
+                  "frame")
+            log(f"[4] render_guided_mega(ablate={mode!r}) 720x720 32spp: "
+                f"mean {float(img.mean()):.6f}, avg path "
+                f"{float(aux['avg_path_length']):.4f}")
+
+    drive("4", ("B3 uniform", "B3 fetch"), ablate_path)
 
     # 5, 8, 9: the CLI at 720x720, 32 spp
     common = ["--width", "720", "--height", "720", "--spp", "32",
@@ -3757,6 +3866,19 @@ def main(argv=None) -> int:
          "launches": launches["B3"], "max_abs_err": b3_err,
          "ms": b3_ms, "plain_ms": b3_plain_ms, "bound_ms": b3_bound,
          "bound_by": b3_by, "library_ms": None, "share": b3_bound / b3_ms},
+    ] + [
+        {"name": f"B3 mega_guided ablate={m}", "route": "cuda",
+         "source": "rlrpt_tpu_torch/csrc/mega_guided.cu",
+         "replaces": f"rlrpt_tpu/ops/guided_mega.py:{line}",
+         "launches": launches[f"B3 {m}"],
+         "max_abs_err": ablated[m]["max_abs_err"], "ms": ablated[m]["ms"],
+         "plain_ms": ablated[m]["plain_ms"],
+         "bound_ms": ablated[m]["bound_ms"],
+         "bound_by": ablated[m]["bound_by"], "library_ms": None,
+         "share": ablated[m]["bound_ms"] / ablated[m]["ms"],
+         "ns_per_segment": ns_seg[m], "b3_ns_per_segment": ns_seg["none"]}
+        for m, line in (("uniform", 344), ("fetch", 346))
+    ] + [
         {"name": "B2 mega_train", "route": "cuda",
          "source": "rlrpt_tpu_torch/csrc/mega_train.cu",
          "replaces": "rlrpt_tpu/ops/guided_mega_train.py:101",
@@ -3785,7 +3907,9 @@ def main(argv=None) -> int:
         "learning_frames": frames, "guided_gap_after_learning": gap,
         "b2_iterations": b2_iters, "b2_grid_blocks": grid_blocks,
         "grid_barrier_us": sync_us, "b2_frame_device_kernels": b2_kernels,
-        "b4_walk": b4_walk,
+        "b4_walk": b4_walk, "b3_ablate_turns": turns,
+        "b3_sampler_share": {"per_frame": frame_share,
+                             "per_segment": sampler_share},
         **fine, **deep, "scenes": scenes, "deep_obj": deep_obj,
         "evaluation": evaluation,
         "tools": tools, "parallel": parallel, "phase_seconds": seconds},

@@ -22,6 +22,13 @@
 // probes instead of 128 compares.  The slot loop is run_slots' persistent,
 // work-pulling grid.  The sampler (rlrpt::CdfSampler) lives in
 // path_common.cuh: B2 draws the same paths with it.
+//
+// Two more kernels time the sampler's share of B3 by difference
+// (render_guided_mega(ablate=...), the JAX kernel's `ablate` switch,
+// guided_mega.py:340-370): the same slot loop with rlrpt::AblateSampler,
+// a uniform sector at the uniform pdf, with ("fetch") or without
+// ("uniform") the load of the bin column.  Their images are wrong by
+// design; each has its own entry point and launch count.
 #include "path_common.cuh"
 
 namespace {
@@ -36,6 +43,36 @@ __global__ void __launch_bounds__(rlrpt::kBlock)
                    iters, next);
 }
 
+template <bool kFetch>
+__global__ void __launch_bounds__(rlrpt::kBlock)
+    mega_guided_ablate_kernel(rlrpt::MegaParams p,
+                              const float4* __restrict__ tris,
+                              const float* __restrict__ mat,
+                              const __nv_bfloat16* __restrict__ cdf,
+                              float* __restrict__ rad,
+                              float* __restrict__ path_sum,
+                              int* __restrict__ iters,
+                              int* __restrict__ next) {
+  rlrpt::run_slots(p, tris, mat, rlrpt::AblateSampler<kFetch>{cdf}, rad,
+                   path_sum, iters, next);
+}
+
+template <class Kernel>
+int launch(Kernel kernel, const rlrpt::MegaParams& p, const void* tris,
+           const void* mat, const void* cdf, void* rad, void* path_sum,
+           void* iters, void* next, void* stream) {
+  int blocks = 0;
+  const int err = rlrpt::slot_grid(kernel, p.n_slots, rlrpt::kBlock, 0,
+                                   blocks);
+  if (err != 0) return err;
+  kernel<<<blocks, rlrpt::kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+      p, static_cast<const float4*>(tris), static_cast<const float*>(mat),
+      static_cast<const __nv_bfloat16*>(cdf), static_cast<float*>(rad),
+      static_cast<float*>(path_sum), static_cast<int*>(iters),
+      static_cast<int*>(next));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // As rlrpt_mega_default, plus cdf (n_cols, s_pad) bf16: the TriBinCDF
@@ -45,15 +82,25 @@ extern "C" int rlrpt_mega_guided(rlrpt::MegaParams p, const void* tris,
                                  const void* mat, const void* cdf, void* rad,
                                  void* path_sum, void* iters, void* next,
                                  void* stream) {
-  int blocks = 0;
-  const int err = rlrpt::slot_grid(mega_guided_kernel, p.n_slots,
-                                   rlrpt::kBlock, 0, blocks);
-  if (err != 0) return err;
-  mega_guided_kernel<<<blocks, rlrpt::kBlock, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      p, static_cast<const float4*>(tris), static_cast<const float*>(mat),
-      static_cast<const __nv_bfloat16*>(cdf), static_cast<float*>(rad),
-      static_cast<float*>(path_sum), static_cast<int*>(iters),
-      static_cast<int*>(next));
-  return static_cast<int>(cudaGetLastError());
+  return launch(mega_guided_kernel, p, tris, mat, cdf, rad, path_sum, iters,
+                next, stream);
+}
+
+// ablate="uniform": as rlrpt_mega_guided; cdf is not read.
+extern "C" int rlrpt_mega_guided_uniform(rlrpt::MegaParams p,
+                                         const void* tris, const void* mat,
+                                         const void* cdf, void* rad,
+                                         void* path_sum, void* iters,
+                                         void* next, void* stream) {
+  return launch(mega_guided_ablate_kernel<false>, p, tris, mat, cdf, rad,
+                path_sum, iters, next, stream);
+}
+
+// ablate="fetch": as rlrpt_mega_guided; one entry of a column is read.
+extern "C" int rlrpt_mega_guided_fetch(rlrpt::MegaParams p, const void* tris,
+                                       const void* mat, const void* cdf,
+                                       void* rad, void* path_sum, void* iters,
+                                       void* next, void* stream) {
+  return launch(mega_guided_ablate_kernel<true>, p, tris, mat, cdf, rad,
+                path_sum, iters, next, stream);
 }

@@ -2,10 +2,10 @@
 // mega_guided.cu, mega_train.cu, closest_hit.cu): the counter PRNG, the
 // camera-ray generator, one exact f32 Moller-Trumbore closest-hit routine,
 // its shared-memory sweep and its variant over a BVH leaf, the BVH walk
-// (B4, the culled B1), the two hemisphere frames, the guided CDF sampler,
-// the per-slot step of the regenerative slot loop, and that loop on a
-// persistent, work-pulling grid over the sweep (B1, B3) or the walk (the
-// culled B1).
+// (B4, the culled B1), the two hemisphere frames, the guided CDF sampler
+// and B3's two ablated samplers, the per-slot step of the regenerative
+// slot loop, and that loop on a persistent, work-pulling grid over the
+// sweep (B1, B3) or the walk (the culled B1).
 //
 // Every formula keeps the operation order of the JAX reference
 // (rlrpt_tpu/ops/megakernel.py, rlrpt_tpu/ops/guided_mega.py) and of the
@@ -431,6 +431,25 @@ __device__ __forceinline__ float bf16_at(const __nv_bfloat16* col, int i) {
   return __uint_as_float(static_cast<uint32_t>(bits) << 16);
 }
 
+// The direction and throughput factor of a guided bounce into `sector` at
+// probability density `pdf`: the Chiu concentric map of the sector's cell
+// plus the jitter (u1, u2), and scale = (diffuse/pi) * cos / pdf.
+__device__ __forceinline__ void sector_bounce(const MegaParams& p,
+                                              int sector, float pdf,
+                                              float u1, float u2, float nx,
+                                              float ny, float nz, float& dx,
+                                              float& dy, float& dz,
+                                              float& scale) {
+  const float pdf_safe = fmaxf(pdf, 1e-12f);
+  const int sxg = sector / p.sector_grid;
+  const int syg = sector - sxg * p.sector_grid;
+  const float gx = (static_cast<float>(sxg) + u1) * p.inv_gdir;
+  const float gy = (static_cast<float>(syg) + u2) * p.inv_gdir;
+  const float cost = concentric_dir(gx, gy, nx, ny, nz, dx, dy, dz);
+  // throughput *= (diffuse/pi) * cos / pdf
+  scale = cost / (static_cast<float>(kPiD) * pdf_safe);
+}
+
 // The guided bounce (B3, and B2's path): a sector drawn from the frozen
 // bf16 CDF column of the hit's bin, pdf = (hi - lo) * S / 2pi from the
 // same rounded values the draw compared, the Chiu concentric map of the
@@ -468,15 +487,39 @@ struct CdfSampler {
     const float hi = sector == p.n_sectors - 1 ? 1.f : bf16_at(col, sector);
     const float lo = sector > 0 ? bf16_at(col, sector - 1) : 0.f;
     const float pdf = fmaxf(hi - lo, 0.f) * p.pdf_scale;
-    const float pdf_safe = fmaxf(pdf, 1e-12f);
+    sector_bounce(p, sector, pdf, u1, u2, nx, ny, nz, dx, dy, dz, scale);
+  }
+};
 
-    const int sxg = sector / p.sector_grid;
-    const int syg = sector - sxg * p.sector_grid;
-    const float gx = (static_cast<float>(sxg) + u1) * p.inv_gdir;
-    const float gy = (static_cast<float>(syg) + u2) * p.inv_gdir;
-    const float cost = concentric_dir(gx, gy, nx, ny, nz, dx, dy, dz);
-    // throughput *= (diffuse/pi) * cos / pdf
-    scale = cost / (static_cast<float>(kPiD) * pdf_safe);
+// B3's perf-attribution samplers, render_guided_mega(ablate=...)
+// (guided_mega.py:340-370): the uniforms of CdfSampler, but the sector is
+// drawn uniformly, min(floor(us * S), S - 1), at the uniform pdf
+// 1/S * S/2pi, and no search is made.  kFetch ("fetch") also locates the
+// hit's bin column and reads its first entry, folded into the sector as
+// JAX folds row[0] * 1e-30: always 0 after truncation, but a load the
+// compiler must issue.  kFetch false ("uniform") reads no table.  The
+// images are wrong by design; the kernels time the guided sampler's share
+// of B3 by difference.
+template <bool kFetch>
+struct AblateSampler {
+  const __nv_bfloat16* __restrict__ cdf;   // (n_cols, s_pad)
+
+  __device__ __forceinline__ void operator()(
+      const MegaParams& p, int pix, uint32_t it1, float u1, float u2,
+      const Hit& h, float nx, float ny, float nz, float& dx, float& dy,
+      float& dz, float& scale) const {
+    const float us = uniform01(p.seed, pix, it1, 5);   // sector draw
+    int touch = 0;
+    if constexpr (kFetch) {
+      const __nv_bfloat16* col =
+          cdf + static_cast<size_t>(bin_column(h, p.uv_bins)) * p.s_pad;
+      touch = static_cast<int>(bf16_at(col, 0) * 1e-30f);
+    }
+    const int sector =
+        min(static_cast<int>(us * static_cast<float>(p.n_sectors)) + touch,
+            p.n_sectors - 1);
+    const float pdf = (1.f / static_cast<float>(p.n_sectors)) * p.pdf_scale;
+    sector_bounce(p, sector, pdf, u1, u2, nx, ny, nz, dx, dy, dz, scale);
   }
 };
 

@@ -13,6 +13,16 @@ As in ``ops.megakernel``: ``mega_guided_frame`` wraps the CUDA kernel B3
 ``mega_guided_frame_plain`` for CPU tensors.  The TPU kernel's one-hot MXU
 column fetch and its VMEM column cap and ray-tile narrowing do not carry
 over: a column is a load.
+
+``ablate`` is the JAX kernel's perf-attribution switch
+(guided_mega.py:340-370): ``"uniform"`` draws the sector uniformly at the
+uniform pdf and reads no table, ``"fetch"`` also reads the hit's bin
+column (its first entry, kept live as JAX keeps its fetched row).  Each
+mode is a CUDA kernel of its own with its own launch count
+(``KERNEL_UNIFORM``, ``KERNEL_FETCH``); the twin has the same modes.  The
+images of those modes are wrong by design: the kernels time the guided
+sampler's share of B3 by difference.  JAX sends an unknown mode down the
+``"fetch"`` branch; the port raises ValueError.
 """
 
 from __future__ import annotations
@@ -85,17 +95,58 @@ def bin_column(hit, uv_bins: int) -> torch.Tensor:
     return tri * (uv_bins * uv_bins) + iu * uv_bins + iv
 
 
+ABLATE_MODES = ("none", "uniform", "fetch")
+
+
+def _f32(x: float) -> float:
+    """x rounded to float32, as the kernels' parameters are."""
+    return float(torch.tensor(x, dtype=torch.float32))
+
+
+def check_ablate(ablate: str) -> None:
+    if ablate not in ABLATE_MODES:
+        raise ValueError(f"ablate must be one of {ABLATE_MODES}, got "
+                         f"{ablate!r}")
+
+
 def _cdf_sampler(seed: int, cdf_t: torch.Tensor, sector_grid: int,
-                 uv_bins: int):
+                 uv_bins: int, ablate: str = "none"):
     """The guided bounce of the twin over a (C, S_pad) transposed table.
-    Its info is (sector, column) of every slot's draw."""
+    Its info is (sector, column) of every slot's draw (column None under
+    ablate="uniform", which reads no table)."""
+    check_ablate(ablate)
     n_sectors = sector_grid * sector_grid
-    pdf_scale = float(torch.tensor(n_sectors / (2.0 * PI),
-                                   dtype=torch.float32))
-    inv_gdir = float(torch.tensor(1.0 / sector_grid, dtype=torch.float32))
+    pdf_scale = _f32(n_sectors / (2.0 * PI))
+    inv_gdir = _f32(1.0 / sector_grid)
+    uniform_pdf = _f32(1.0 / n_sectors)
+
+    def _sector_bounce(sector, pdf, u1, u2, nx, ny, nz):
+        """(dx, dy, dz, scale) of a bounce into ``sector`` at density
+        ``pdf`` (csrc/path_common.cuh:sector_bounce)."""
+        pdf_safe = torch.clamp(pdf, min=1e-12)
+        sxg = torch.div(sector, sector_grid, rounding_mode="floor")
+        syg = sector - sxg * sector_grid
+        gx = (sxg.float() + u1) * inv_gdir
+        gy = (syg.float() + u2) * inv_gdir
+        dx, dy, dz, cost = _concentric_dir(gx, gy, nx, ny, nz)
+        # throughput *= (diffuse/pi) * cos / pdf
+        return dx, dy, dz, cost / (float(PI) * pdf_safe)
 
     def sample(pix, it1, u1, u2, hit, nx, ny, nz):
         us = _uniform(seed, pix, it1, 5)
+        if ablate != "none":
+            # guided_mega.py:358-362: a uniform sector; "fetch" folds the
+            # column's first entry * 1e-30 (0 after truncation) into it
+            sector = (us * n_sectors).to(torch.int64)
+            column = None
+            if ablate == "fetch":
+                column = bin_column(hit, uv_bins)
+                sector = sector + (cdf_t[column, 0].float() * 1e-30).to(
+                    torch.int64)
+            sector = torch.clamp(sector, max=n_sectors - 1)
+            pdf = torch.full_like(us, uniform_pdf) * pdf_scale
+            return _sector_bounce(sector, pdf, u1, u2, nx, ny, nz) + (
+                (sector, column),)
         column = bin_column(hit, uv_bins)
         col = cdf_t[column].float()
         cnt = (col < us[:, None]).sum(dim=1)
@@ -108,14 +159,8 @@ def _cdf_sampler(seed: int, cdf_t: torch.Tensor, sector_grid: int,
         # is 1 - lo.
         hi = torch.where(sector == n_sectors - 1, 1.0, hi)
         pdf = torch.clamp(hi - lo, min=0.0) * pdf_scale
-        pdf_safe = torch.clamp(pdf, min=1e-12)
-        sxg = torch.div(sector, sector_grid, rounding_mode="floor")
-        syg = sector - sxg * sector_grid
-        gx = (sxg.float() + u1) * inv_gdir
-        gy = (syg.float() + u2) * inv_gdir
-        dx, dy, dz, cost = _concentric_dir(gx, gy, nx, ny, nz)
-        # throughput *= (diffuse/pi) * cos / pdf
-        return dx, dy, dz, cost / (float(PI) * pdf_safe), (sector, column)
+        return _sector_bounce(sector, pdf, u1, u2, nx, ny, nz) + (
+            (sector, column),)
 
     return sample
 
@@ -123,10 +168,13 @@ def _cdf_sampler(seed: int, cdf_t: torch.Tensor, sector_grid: int,
 def mega_guided_frame_plain(seed: int, cam: tuple, tris: torch.Tensor,
                             mat: torch.Tensor, cdf_t: torch.Tensor,
                             sector_grid: int, uv_bins: int,
-                            cfg: RenderConfig, n_slots: int, pix_mux: int):
-    """Plain torch twin of kernel B3 on the same inputs."""
+                            cfg: RenderConfig, n_slots: int, pix_mux: int,
+                            ablate: str = "none"):
+    """Plain torch twin of kernel B3 (or, with ``ablate``, of its ablated
+    kernels) on the same inputs."""
     return run_slots_plain(seed, cam, tris, mat, cfg, n_slots, pix_mux,
-                           _cdf_sampler(seed, cdf_t, sector_grid, uv_bins))
+                           _cdf_sampler(seed, cdf_t, sector_grid, uv_bins,
+                                        ablate))
 
 
 def check_cdf(cdf_t: torch.Tensor, tris: torch.Tensor, sector_grid: int,
@@ -157,23 +205,30 @@ def check_cdf(cdf_t: torch.Tensor, tris: torch.Tensor, sector_grid: int,
                          "need every column non-decreasing")
 
 
-KERNEL = _cuda.Kernel("rlrpt_mega_guided",
-                      [_cuda.MegaParams] + [ctypes.c_void_p] * 8)
+_ARGS = [_cuda.MegaParams] + [ctypes.c_void_p] * 8
+KERNEL = _cuda.Kernel("rlrpt_mega_guided", _ARGS)
+# B3's ablated kernels (ablate="uniform", "fetch"), counted apart
+KERNEL_UNIFORM = _cuda.Kernel("rlrpt_mega_guided_uniform", _ARGS)
+KERNEL_FETCH = _cuda.Kernel("rlrpt_mega_guided_fetch", _ARGS)
+_KERNELS = {"none": KERNEL, "uniform": KERNEL_UNIFORM, "fetch": KERNEL_FETCH}
 
 
 def mega_guided_frame(seed: int, cam: tuple, tris: torch.Tensor,
                       mat: torch.Tensor, cdf_t: torch.Tensor,
                       sector_grid: int, uv_bins: int, cfg: RenderConfig,
-                      n_slots: int, pix_mux: int):
+                      n_slots: int, pix_mux: int, ablate: str = "none"):
     """One frame of kernel B3 over ``cdf_t``, the (C, S_pad) bf16 table
     transposed and contiguous.  Returns (rad, path_sum, iters) as
-    ops.megakernel.mega_default_frame does.  CPU tensors take the twin."""
+    ops.megakernel.mega_default_frame does.  ``ablate`` ("none",
+    "uniform", "fetch") picks B3 or one of its ablated kernels.  CPU
+    tensors take the twin."""
+    check_ablate(ablate)
     check_tables(tris, mat)
     check_cdf(cdf_t, tris, sector_grid, uv_bins)
     if tris.device.type == "cpu":
         return mega_guided_frame_plain(seed, cam, tris, mat, cdf_t,
                                        sector_grid, uv_bins, cfg, n_slots,
-                                       pix_mux)
+                                       pix_mux, ablate)
     if tris.device.type != "cuda":
         raise ValueError(f"no kernel for device {tris.device}")
     s_pad = cdf_t.shape[1]
@@ -186,22 +241,26 @@ def mega_guided_frame(seed: int, cam: tuple, tris: torch.Tensor,
     rad, path_sum, iters, nxt = frame_outputs(n_slots, pix_mux, tris.device)
     with torch.cuda.device(tris.device):
         stream = torch.cuda.current_stream().cuda_stream
-        KERNEL.launch(params, tris.data_ptr(), mat.data_ptr(),
-                      cdf_t.data_ptr(), rad.data_ptr(), path_sum.data_ptr(),
-                      iters.data_ptr(), nxt.data_ptr(), stream)
+        _KERNELS[ablate].launch(params, tris.data_ptr(), mat.data_ptr(),
+                                cdf_t.data_ptr(), rad.data_ptr(),
+                                path_sum.data_ptr(), iters.data_ptr(),
+                                nxt.data_ptr(), stream)
     return rad, path_sum, iters
 
 
 def render_guided_mega(seed: int, scene: Scene, camera: Camera,
                        table: TriBinCDF, cfg: RenderConfig, device,
-                       r_tile: int = R_TILE, pix_mux: int = PIX_MUX):
+                       r_tile: int = R_TILE, pix_mux: int = PIX_MUX,
+                       ablate: str = "none"):
     """Render a frame with frozen-map guided sampling; returns (image,
     aux).  ``seed`` is the kernel's int seed, as in
     ops.megakernel.render_default_mega.
 
     Same estimator as the SARSA wavefront's inference side (importance
     sample the learned CDF, weight by brdf*cos/pdf, ref:
-    reinforcement_path_tracing.cu:85-120).
+    reinforcement_path_tracing.cu:85-120).  ``ablate`` ("uniform",
+    "fetch") is perf attribution only: those frames are wrong by design
+    (the module's docstring).
     """
     t_pad = _t_pad(scene.n_triangles)
     n_chunks = t_pad // min(t_pad, T_CHUNK)
@@ -219,5 +278,5 @@ def render_guided_mega(seed: int, scene: Scene, camera: Camera,
     n_slots = n_slots_for(cfg.n_pixels, r_tile, pix_mux)
     out = mega_guided_frame(seed, camera_vector(camera), tris, mat, cdf_t,
                             table.sector_grid, table.uv_bins, cfg, n_slots,
-                            pix_mux)
+                            pix_mux, ablate)
     return assemble(*out, cfg)

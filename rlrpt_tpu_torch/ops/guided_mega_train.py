@@ -347,7 +347,9 @@ def render_sarsa_mega_train(seed: int, scene: Scene, camera: Camera,
                             table: TriBinCDF, q: torch.Tensor,
                             visits: torch.Tensor, cfg: RenderConfig,
                             radiance_threshold: float, device,
-                            r_tile: int = R_TILE, pix_mux: int = PIX_MUX):
+                            r_tile: int = R_TILE, pix_mux: int = PIX_MUX,
+                            sector_grid: int | None = None,
+                            uv_bins: int | None = None):
     """One in-kernel SARSA learning frame on the binned Q-state.
 
     Returns (image (H, W, 3), q, visits, aux): q and visits are new
@@ -356,8 +358,16 @@ def render_sarsa_mega_train(seed: int, scene: Scene, camera: Camera,
     exact visit-count delta), 0-d device tensors.  Rebuild the CDF between
     frames with rebuild_bin_cdf (the reference's once-per-frame
     schedule).  ``seed`` is the kernel's int seed, as in
-    ops.megakernel.render_default_mega.
+    ops.megakernel.render_default_mega.  ``sector_grid`` and ``uv_bins``
+    are the table's (guided_mega_train.py:474-475): the TriBinCDF carries
+    them, so they are checks, and a value other than the table's raises
+    ValueError.
     """
+    for name, given, own in (("sector_grid", sector_grid, table.sector_grid),
+                             ("uv_bins", uv_bins, table.uv_bins)):
+        if given is not None and given != own:
+            raise ValueError(f"{name}={given} differs from the table's "
+                             f"{own}")
     t_pad = _t_pad(scene.n_triangles)
     if t_pad > T_CHUNK:
         raise ValueError("binned SARSA megakernel supports single-chunk "

@@ -113,6 +113,54 @@ def test_twin_matches_jax(uv_bins, skew):
     assert_frame_parity(img_t, aux_t, img_j, aux_j)
 
 
+@pytest.mark.parametrize("ablate", ["uniform", "fetch"])
+def test_ablated_twin_matches_jax(ablate):
+    """render_guided_mega(ablate=...), the JAX kernel's perf-attribution
+    switch: a uniform sector at the uniform pdf, "fetch" after reading the
+    hit's bin column.  The frames are wrong by design, but the twin draws
+    the JAX kernel's samples, so they agree per pixel as the guided frame
+    does, at test_twin_matches_jax's point (the skewed uv4 table)."""
+    q = _q(4, 11, 3.0)
+    tj = jgt.rebuild_bin_cdf(jnp.asarray(q), 11, 4, T_PAD)
+    tt = gt.rebuild_bin_cdf(torch.from_numpy(q), 11, 4, T_PAD)
+    key = jax.random.PRNGKey(1)
+    kw = dict(width=32, height=32, samples_per_pixel=4, max_ray_bounces=10)
+    img_j, aux_j = jgm.render_guided_mega(
+        key, jax_cornell_box(), JCamera.create(CAM), tj,
+        jconfig.RenderConfig(**kw), r_tile=128, pix_mux=1, interpret=True,
+        precision="highest", ablate=ablate)
+    img_t, aux_t = gm.render_guided_mega(
+        kernel_seed(key), cornell_box(device="cpu"), Camera.create(CAM), tt,
+        RenderConfig(**kw), device="cpu", r_tile=128, pix_mux=1,
+        ablate=ablate)
+    assert_frame_parity(img_t, aux_t, img_j, aux_j)
+
+
+def test_ablate_modes_checked():
+    """An unknown mode raises ValueError (JAX takes it as "fetch"), in the
+    launcher, the wrapper and the twin; "uniform" and "fetch" draw the
+    same sectors, so their frames are equal, and differ from "none"."""
+    cfg = RenderConfig(width=16, height=16, samples_per_pixel=2,
+                       max_ray_bounces=4)
+    cam = Camera.create(CAM)
+    table = gt.rebuild_bin_cdf(torch.from_numpy(_q(4, 11, 3.0)), 11, 4,
+                               T_PAD)
+    with pytest.raises(ValueError, match="ablate"):
+        gm.render_guided_mega(0, cornell_box(device="cpu"), cam, table, cfg,
+                              device="cpu", ablate="search")
+    tris, mat = mk.pack_scene(cornell_box(device="cpu"))
+    cdf_t = table.cdf.T.contiguous()
+    args = (3, mk.camera_vector(cam), tris, mat, cdf_t, 11, 4, cfg, 256, 1)
+    for fn in (gm.mega_guided_frame, gm.mega_guided_frame_plain):
+        with pytest.raises(ValueError, match="ablate"):
+            fn(*args, ablate="")
+    out = {m: gm.mega_guided_frame(*args, ablate=m)
+           for m in gm.ABLATE_MODES}
+    for a, b in zip(out["uniform"], out["fetch"]):
+        assert torch.equal(a, b)
+    assert not torch.equal(out["none"][0], out["uniform"][0])
+
+
 def test_guided_unbiased_under_skewed_table():
     """A non-uniform table leaves the image mean unchanged (pdf == the
     actual sampling probability of every sector); tolerance of

@@ -107,6 +107,30 @@ def test_twin_matches_jax(uv_bins, rr, key0):
         qj, vj, qt, vt = qj2, vj2, qt2, vt2
 
 
+def test_table_keywords_default_to_the_table():
+    """sector_grid and uv_bins passed as the table's own values give the
+    default call's frame, q and visits (guided_mega_train.py:474-475);
+    any other value raises ValueError, since the table carries them."""
+    cfg = RenderConfig(width=16, height=16, samples_per_pixel=2,
+                       max_ray_bounces=4)
+    q, v = gt.init_bin_q(T_PAD, 2, G, INIT, device="cpu")
+    tb = gt.rebuild_bin_cdf(q, G, 2, T_PAD)
+    outs = [gt.render_sarsa_mega_train(
+        5, cornell_box(device="cpu"), Camera.create(CAM), tb, q, v, cfg,
+        THR, device="cpu", r_tile=256, pix_mux=1, **kw)
+        for kw in ({}, {"sector_grid": G, "uv_bins": 2})]
+    (img_a, q_a, v_a, aux_a), (img_b, q_b, v_b, aux_b) = outs
+    for a, b in ((img_a, img_b), (q_a, q_b), (v_a, v_b)):
+        assert torch.equal(a, b)
+    assert int(aux_a["td_scatter_count"]) == int(aux_b["td_scatter_count"])
+    assert int(aux_a["td_scatter_count"]) > 0
+    for kw in ({"sector_grid": G - 1}, {"uv_bins": 4}):
+        with pytest.raises(ValueError, match="differs from the table"):
+            gt.render_sarsa_mega_train(
+                5, cornell_box(device="cpu"), Camera.create(CAM), tb, q, v,
+                cfg, THR, device="cpu", r_tile=256, pix_mux=1, **kw)
+
+
 def test_image_is_the_guided_frame_and_inputs_untouched():
     """The paths never read Q: a learning frame's rad, path_sum and iters
     are the guided twin's bit for bit; q and visits come back new."""
