@@ -264,17 +264,83 @@ __device__ __forceinline__ void apply(const rlrpt::MegaParams& p,
   }
 }
 
+// B2's phase clock, in the timed build only (KERNEL_TIMED in
+// ops/guided_mega_train.py): each block's thread 0 reads clock64() at the
+// start and after each phase, sums the cycles in shared memory and at the
+// end adds its row into clock (blocks, kClockCols) int64: the start (slot
+// starts, first apply, first grid barrier), then over the iterations the
+// step (with the compaction), the first grid barrier, the apply (to its
+// block's last warp: the timed build waits for the block there) and the
+// second grid barrier, the block's total, and its iterations.  The phases
+// sum to the total but for the last iteration's flag test.  Every reading
+// is one SM's own counter, so a row's shares need no clock conversion.
+// apply() deals its items to the grid's warps in order, so where they are
+// fewer than the warps only the first blocks apply, and the rest wait for
+// them at the second barrier: the row of the block with the most apply
+// cycles is the one the frame's length follows.
+enum ClockCol {
+  kStartCyc, kStepCyc, kWait1Cyc, kApplyCyc, kWait2Cyc, kTotalCyc, kIters,
+  kClockCols
+};
+
+__device__ __forceinline__ long long* clock_sums() {
+  __shared__ long long s[kClockCols + 1];   // the sums, the last reading
+  return s;
+}
+
+template <bool kTimed>
+__device__ __forceinline__ void clock_begin() {
+  if constexpr (kTimed) {
+    if (threadIdx.x == 0) {
+      long long* s = clock_sums();
+      for (int j = 0; j < kClockCols; ++j) s[j] = 0;
+      s[kClockCols] = clock64();
+      s[kTotalCyc] = -s[kClockCols];
+    }
+  }
+}
+
+// Add the cycles since the last reading to column col.
+template <bool kTimed>
+__device__ __forceinline__ void clock_mark(int col) {
+  if constexpr (kTimed) {
+    if (threadIdx.x == 0) {
+      long long* s = clock_sums();
+      const long long now = clock64();
+      s[col] += now - s[kClockCols];
+      s[kClockCols] = now;
+      if (col == kWait2Cyc) s[kIters] += 1;
+    }
+  }
+}
+
+template <bool kTimed>
+__device__ __forceinline__ void clock_end(long long* clock) {
+  if constexpr (kTimed) {
+    if (threadIdx.x == 0) {
+      long long* s = clock_sums();
+      s[kTotalCyc] += clock64();
+      long long* row = clock + static_cast<size_t>(blockIdx.x) * kClockCols;
+      for (int j = 0; j < kClockCols; ++j) row[j] += s[j];
+    }
+  }
+}
+
 // The whole learning frame; launched cooperatively (grid.sync).  Block b
 // owns per_block slot ids (owned_slot); dynamic shared memory holds the
 // local ids of its live slots (per_block ints).  Eight blocks an SM (1,056
 // on the H100) cap it at 64 registers a thread (chip_smoke.py [1] prints
-// the registers and spills of every kernel).
-__global__ void __launch_bounds__(kBlock, 8)
-    train_kernel(rlrpt::MegaParams p, TrainParams tp, TrainBufs b) {
+// the registers and spills of every kernel).  kTimed adds the phase clock.
+template <bool kTimed>
+__device__ __forceinline__ void train_frame(const rlrpt::MegaParams& p,
+                                            const TrainParams& tp,
+                                            const TrainBufs& b,
+                                            long long* clock) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ int s_live[];
   __shared__ float4 s_tri[3 * rlrpt::kTileTris];
   __shared__ int s_warp[33];
+  clock_begin<kTimed>();
   const bool resident = p.n_tris <= rlrpt::kTileTris;
   if (resident) rlrpt::load_tile(s_tri, b.tris, 0, p.n_tris);
   __syncthreads();
@@ -297,6 +363,7 @@ __global__ void __launch_bounds__(kBlock, 8)
   }
   apply(p, tp, b, b.irr + tp.n_cols);   // cnt is zero: the input Q's sums
   grid.sync();
+  clock_mark<kTimed>(kStartCyc);
 
   for (int it1 = 1; it1 <= tp.max_iters; ++it1) {
     const float* irr = b.irr + (it1 & 1) * tp.n_cols;
@@ -330,13 +397,43 @@ __global__ void __launch_bounds__(kBlock, 8)
     }
     count = kept;
     if (count > 0 && threadIdx.x == 0) b.flags[it1 & 1] = 1;
+    clock_mark<kTimed>(kStepCyc);
     grid.sync();
+    clock_mark<kTimed>(kWait1Cyc);
     // flags[(it1 + 1) & 1] was last read after iteration it1 - 1's apply
     if (blockIdx.x == 0 && threadIdx.x == 0) b.flags[(it1 + 1) & 1] = 0;
     apply(p, tp, b, irr_next);
+    if constexpr (kTimed) __syncthreads();
+    clock_mark<kTimed>(kApplyCyc);
     grid.sync();
+    clock_mark<kTimed>(kWait2Cyc);
     if (__ldcg(b.flags + (it1 & 1)) == 0) break;
   }
+  clock_end<kTimed>(clock);
+}
+
+// The plain build and the timed one: overloads of one name, so a trace
+// names both train_kernel.
+__global__ void __launch_bounds__(kBlock, 8)
+    train_kernel(rlrpt::MegaParams p, TrainParams tp, TrainBufs b) {
+  train_frame<false>(p, tp, b, nullptr);
+}
+
+__global__ void __launch_bounds__(kBlock, 8)
+    train_kernel(rlrpt::MegaParams p, TrainParams tp, TrainBufs b,
+                 long long* clock) {
+  train_frame<true>(p, tp, b, clock);
+}
+
+using PlainKernel = void (*)(rlrpt::MegaParams, TrainParams, TrainBufs);
+using TimedKernel = void (*)(rlrpt::MegaParams, TrainParams, TrainBufs,
+                             long long*);
+
+const void* train_kernel_ptr(bool timed) {
+  return timed ? reinterpret_cast<const void*>(
+                     static_cast<TimedKernel>(train_kernel))
+               : reinterpret_cast<const void*>(
+                     static_cast<PlainKernel>(train_kernel));
 }
 
 // A kernel of grid barriers only, on train_kernel's grid: their cost.
@@ -345,11 +442,13 @@ __global__ void __launch_bounds__(kBlock) barrier_probe_kernel(int n_syncs) {
   for (int i = 0; i < n_syncs; ++i) grid.sync();
 }
 
-// train_kernel's grid: the blocks that fit on the card at once with
-// per_block ints of dynamic shared memory each, and no more than the slots
-// need; per_block covers the block's 32-slot groups.  Returns a CUDA
-// error, or 0.
-int train_grid(int n_slots, int& blocks, int& per_block, size_t& smem) {
+// train_kernel's grid (the plain or the timed build): the blocks that fit
+// on the card at once with per_block ints of dynamic shared memory each,
+// and no more than the slots need; per_block covers the block's 32-slot
+// groups.  Returns a CUDA error, or 0.
+int train_grid(bool timed, int n_slots, int& blocks, int& per_block,
+               size_t& smem) {
+  const void* kernel = train_kernel_ptr(timed);
   int dev = 0, sms = 0, per_sm = 0;
   int err = static_cast<int>(cudaGetDevice(&dev));
   if (err == 0)
@@ -362,11 +461,11 @@ int train_grid(int n_slots, int& blocks, int& per_block, size_t& smem) {
     smem = static_cast<size_t>(per_block) * sizeof(int);
     if (smem > 48 * 1024)
       err = static_cast<int>(cudaFuncSetAttribute(
-          train_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
           static_cast<int>(smem)));
     if (err == 0)
       err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, train_kernel, kBlock, smem));
+          &per_sm, kernel, kBlock, smem));
     if (err == 0 && per_sm == 0)
       err = static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
     if (err != 0 || blocks <= per_sm * sms) break;
@@ -382,7 +481,9 @@ int train_grid(int n_slots, int& blocks, int& per_block, size_t& smem) {
 // f32, updated in place; sum_t, cnt (S_pad, C) f32 zeros; irr (2, C) f32
 // zeros; fstate (9, n_slots) f32, istate (5, n_slots) i32 (no values
 // needed); flags (2,) i32 zeros; rad (pix_mux, n_slots, 3), path_sum
-// (n_slots,), td (n_slots,) f32 zeros; iters (n_slots,) i32 zeros.
+// (n_slots,), td (n_slots,) f32 zeros; iters (n_slots,) i32 zeros; clock
+// null (the plain build), or (blocks, kClockCols) int64 (the timed build,
+// which adds its phase cycles; blocks from rlrpt_train_blocks(n_slots)).
 // Returns the first CUDA error, or 0: cudaErrorCooperativeLaunchTooLarge
 // if the grid cannot be co-resident.  Does not synchronise.
 extern "C" int rlrpt_mega_train(rlrpt::MegaParams p, rlrpt::TrainParams tp,
@@ -392,10 +493,11 @@ extern "C" int rlrpt_mega_train(rlrpt::MegaParams p, rlrpt::TrainParams tp,
                                 void* sum_t, void* cnt, void* irr,
                                 void* fstate, void* istate, void* flags,
                                 void* rad, void* path_sum, void* iters,
-                                void* td, void* stream) {
+                                void* td, void* clock, void* stream) {
+  const bool timed = clock != nullptr;
   int blocks = 0, per_block = 0;
   size_t smem = 0;
-  int err = train_grid(p.n_slots, blocks, per_block, smem);
+  int err = train_grid(timed, p.n_slots, blocks, per_block, smem);
   if (err != 0) return err;
   TrainBufs b{static_cast<const float4*>(tris),
               static_cast<const float*>(mat),
@@ -408,12 +510,24 @@ extern "C" int rlrpt_mega_train(rlrpt::MegaParams p, rlrpt::TrainParams tp,
               static_cast<int*>(istate), static_cast<float*>(rad),
               static_cast<float*>(path_sum), static_cast<int*>(iters),
               static_cast<float*>(td), static_cast<int*>(flags), per_block};
-  void* args[] = {&p, &tp, &b};
+  long long* clock_rows = static_cast<long long*>(clock);
+  void* args[] = {&p, &tp, &b, &clock_rows};
   err = static_cast<int>(cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(train_kernel), dim3(blocks), dim3(kBlock),
-      args, smem, static_cast<cudaStream_t>(stream)));
+      train_kernel_ptr(timed), dim3(blocks), dim3(kBlock), args, smem,
+      static_cast<cudaStream_t>(stream)));
   const int last = static_cast<int>(cudaGetLastError());   // clears it
   return err != 0 ? err : last;
+}
+
+// *blocks_out receives the block count of the grid rlrpt_mega_train's
+// timed build launches for n_slots slots: the rows of its clock.  Returns
+// a CUDA error, or 0.
+extern "C" int rlrpt_train_blocks(int n_slots, int* blocks_out) {
+  int blocks = 0, per_block = 0;
+  size_t smem = 0;
+  const int err = train_grid(true, n_slots, blocks, per_block, smem);
+  if (err == 0) *blocks_out = blocks;
+  return err;
 }
 
 // n_syncs grid barriers on the grid rlrpt_mega_train would launch for
@@ -422,7 +536,7 @@ extern "C" int rlrpt_train_barrier_probe(int n_slots, int n_syncs,
                                          int* blocks_out, void* stream) {
   int blocks = 0, per_block = 0;
   size_t smem = 0;
-  int err = train_grid(n_slots, blocks, per_block, smem);
+  int err = train_grid(false, n_slots, blocks, per_block, smem);
   if (err != 0) return err;
   *blocks_out = blocks;
   void* args[] = {&n_syncs};

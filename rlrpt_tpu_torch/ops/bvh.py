@@ -43,6 +43,7 @@ import torch
 
 from rlrpt_tpu_torch import _cuda
 from rlrpt_tpu_torch.ops.megakernel import INF, hit_rows, mt_terms
+from rlrpt_tpu_torch.utils import profiling
 
 BINS = 16          # SAH bins over the centroids, per axis
 LEAF_MAX = 4       # triangles a leaf holds at most
@@ -492,7 +493,8 @@ def build_bvh(tris: torch.Tensor) -> Bvh:
     if tris.device.type == "cpu":
         return _build_host(tris)
     nodes, order, tris_sorted, info = launch_build(tris.contiguous())
-    n_nodes, depth = info.tolist()
+    with profiling.host_sync("bvh_info", info):
+        n_nodes, depth = info.tolist()
     _check_depth(depth)
     return Bvh(nodes=nodes[:n_nodes], order=order, tris_sorted=tris_sorted,
                depth=depth, source=tris)

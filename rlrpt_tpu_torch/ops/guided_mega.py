@@ -43,6 +43,7 @@ from rlrpt_tpu_torch.ops.megakernel import (PIX_MUX, R_TILE, T_CHUNK,
                                             pack_scene, run_slots_plain)
 from rlrpt_tpu_torch.radiance.bake import TriBinCDF
 from rlrpt_tpu_torch.scene.scene import Scene
+from rlrpt_tpu_torch.utils import profiling
 
 PI = math.pi
 
@@ -198,8 +199,9 @@ def check_cdf(cdf_t: torch.Tensor, tris: torch.Tensor, sector_grid: int,
                          f"{sector_grid}x{sector_grid} sectors")
     if cdf_t.device != tris.device:
         raise ValueError("cdf_t must be on the tables' device")
-    bad = int(torch.count_nonzero(
-        (cdf_t[:, 1:] < cdf_t[:, :-1]).any(dim=1)))
+    with profiling.host_sync("check_cdf", cdf_t):
+        bad = int(torch.count_nonzero(
+            (cdf_t[:, 1:] < cdf_t[:, :-1]).any(dim=1)))
     if bad:
         raise ValueError(f"{bad} CDF column(s) decrease: the guided kernels "
                          "need every column non-decreasing")
@@ -222,9 +224,10 @@ def mega_guided_frame(seed: int, cam: tuple, tris: torch.Tensor,
     ops.megakernel.mega_default_frame does.  ``ablate`` ("none",
     "uniform", "fetch") picks B3 or one of its ablated kernels.  CPU
     tensors take the twin."""
-    check_ablate(ablate)
-    check_tables(tris, mat)
-    check_cdf(cdf_t, tris, sector_grid, uv_bins)
+    with profiling.span("render_guided_mega.check"):
+        check_ablate(ablate)
+        check_tables(tris, mat)
+        check_cdf(cdf_t, tris, sector_grid, uv_bins)
     if tris.device.type == "cpu":
         return mega_guided_frame_plain(seed, cam, tris, mat, cdf_t,
                                        sector_grid, uv_bins, cfg, n_slots,
@@ -233,13 +236,15 @@ def mega_guided_frame(seed: int, cam: tuple, tris: torch.Tensor,
         raise ValueError(f"no kernel for device {tris.device}")
     s_pad = cdf_t.shape[1]
     n_sectors = sector_grid * sector_grid
-    params = mega_params(
-        seed, cam, tris.shape[0], cfg, n_slots, pix_mux,
-        n_sectors=n_sectors, sector_grid=sector_grid, uv_bins=uv_bins,
-        s_pad=s_pad, pdf_scale=n_sectors / (2.0 * PI),
-        inv_gdir=1.0 / sector_grid)
-    rad, path_sum, iters, nxt = frame_outputs(n_slots, pix_mux, tris.device)
-    with torch.cuda.device(tris.device):
+    with profiling.span("render_guided_mega.launch"), \
+            torch.cuda.device(tris.device):
+        params = mega_params(
+            seed, cam, tris.shape[0], cfg, n_slots, pix_mux,
+            n_sectors=n_sectors, sector_grid=sector_grid, uv_bins=uv_bins,
+            s_pad=s_pad, pdf_scale=n_sectors / (2.0 * PI),
+            inv_gdir=1.0 / sector_grid)
+        rad, path_sum, iters, nxt = frame_outputs(n_slots, pix_mux,
+                                                  tris.device)
         stream = torch.cuda.current_stream().cuda_stream
         _KERNELS[ablate].launch(params, tris.data_ptr(), mat.data_ptr(),
                                 cdf_t.data_ptr(), rad.data_ptr(),
@@ -273,10 +278,13 @@ def render_guided_mega(seed: int, scene: Scene, camera: Camera,
             f"table baked for t_pad={table.t_pad} but scene packs to "
             f"{t_pad}; re-bake the table for this scene")
     device = torch.device(device)
-    tris, mat = pack_scene(scene.to(device))
-    cdf_t = table.cdf.to(device).T.contiguous()
-    n_slots = n_slots_for(cfg.n_pixels, r_tile, pix_mux)
-    out = mega_guided_frame(seed, camera_vector(camera), tris, mat, cdf_t,
-                            table.sector_grid, table.uv_bins, cfg, n_slots,
-                            pix_mux, ablate)
-    return assemble(*out, cfg)
+    with profiling.span("render_guided_mega.pack"):
+        tris, mat = pack_scene(scene.to(device))
+        cam = camera_vector(camera)
+        n_slots = n_slots_for(cfg.n_pixels, r_tile, pix_mux)
+    with profiling.span("render_guided_mega.tables"):
+        cdf_t = table.cdf.to(device).T.contiguous()
+    out = mega_guided_frame(seed, cam, tris, mat, cdf_t, table.sector_grid,
+                            table.uv_bins, cfg, n_slots, pix_mux, ablate)
+    with profiling.span("render_guided_mega.assemble"):
+        return assemble(*out, cfg)

@@ -32,6 +32,7 @@ helpers of the pipeline; ``rebuild_bin_cdf`` runs between frames.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import numpy as np
@@ -49,6 +50,7 @@ from rlrpt_tpu_torch.ops.megakernel import (PIX_MUX, R_TILE, T_CHUNK, _t_pad,
                                             run_slots_plain)
 from rlrpt_tpu_torch.radiance.bake import TriBinCDF
 from rlrpt_tpu_torch.scene.scene import Scene
+from rlrpt_tpu_torch.utils import profiling
 
 PI = math.pi
 
@@ -148,19 +150,22 @@ def rebuild_bin_cdf(q: torch.Tensor, sector_grid: int, uv_bins: int,
         jax_order = q.device.type == "cpu"
     s = sector_grid * sector_grid
     s_pad = q.shape[0]
-    cos = hs.sector_cos_thetas(sector_grid, q.device)
-    w = torch.clamp(q[:s] * cos[:, None], min=distribution_threshold)
-    total = 1e-10 + (row_sum(w) if jax_order else torch.sum(w, dim=0))
-    p = w / total[None, :]
-    if defensive_mix:
-        p = (1.0 - defensive_mix) * p + defensive_mix / s
-    cdf = row_cumsum(p) if jax_order else torch.cumsum(p, dim=0)
-    cdf[s - 1] = 1.0
-    out = torch.full((s_pad, q.shape[1]), 2.0, dtype=torch.float32,
-                     device=q.device)
-    out[:s] = cdf
-    return TriBinCDF(cdf=out.to(dtype), sector_grid=sector_grid,
-                     uv_bins=uv_bins, t_pad=t_pad)
+    with profiling.span("rebuild_bin_cdf.cos"):
+        cos = hs.sector_cos_thetas(sector_grid, q.device)
+    with profiling.span("rebuild_bin_cdf.sums"):
+        w = torch.clamp(q[:s] * cos[:, None], min=distribution_threshold)
+        total = 1e-10 + (row_sum(w) if jax_order else torch.sum(w, dim=0))
+        p = w / total[None, :]
+        if defensive_mix:
+            p = (1.0 - defensive_mix) * p + defensive_mix / s
+        cdf = row_cumsum(p) if jax_order else torch.cumsum(p, dim=0)
+        cdf[s - 1] = 1.0
+    with profiling.span("rebuild_bin_cdf.cast"):
+        out = torch.full((s_pad, q.shape[1]), 2.0, dtype=torch.float32,
+                         device=q.device)
+        out[:s] = cdf
+        return TriBinCDF(cdf=out.to(dtype), sector_grid=sector_grid,
+                         uv_bins=uv_bins, t_pad=t_pad)
 
 
 # ---- the learning frame ----------------------------------------------------
@@ -237,29 +242,38 @@ def mega_train_frame_plain(seed: int, cam: tuple, tris: torch.Tensor,
     return rad, path_sum, iters, q, visits, st["td"]
 
 
-KERNEL = _cuda.Kernel("rlrpt_mega_train",
-                      [_cuda.MegaParams, _cuda.TrainParams]
-                      + [ctypes.c_void_p] * 18)
+_TRAIN_ARGS = [_cuda.MegaParams, _cuda.TrainParams] + [ctypes.c_void_p] * 19
+KERNEL = _cuda.Kernel("rlrpt_mega_train", _TRAIN_ARGS)
+# the same frame with B2's phase clock (csrc/mega_train.cu), counted apart
+KERNEL_TIMED = _cuda.Kernel("rlrpt_mega_train", _TRAIN_ARGS)
 
 
-def mega_train_frame(seed: int, cam: tuple, tris: torch.Tensor,
-                     mat: torch.Tensor, cdf_t: torch.Tensor, lum: torch.Tensor,
-                     sec_cos: torch.Tensor, q: torch.Tensor,
-                     visits: torch.Tensor, sector_grid: int, uv_bins: int,
-                     radiance_threshold: float, cfg: RenderConfig,
-                     n_slots: int, pix_mux: int):
-    """One learning frame of kernel B2 over ``cdf_t`` (the (C, S_pad) bf16
-    table, transposed and contiguous), ``lum`` (C,) the bins' luminance,
-    ``sec_cos`` (S,) the sectors' cos(theta), and ``q``, ``visits``
-    (S_pad, C) f32, which are left untouched.  Returns (rad, path_sum,
-    iters, q, visits, td) as mega_train_frame_plain does.  CPU tensors take
-    the twin.
+def _check_error(lib, symbol: str, err: int) -> None:
+    if err != 0:
+        msg = lib.rlrpt_cuda_error_string(err).decode()
+        raise RuntimeError(f"{symbol}: CUDA error {err}: {msg}")
 
-    On the card the frame is one cooperative launch of a persistent
-    kernel that runs the iterations on the device (step, grid barrier,
-    apply, grid barrier) and stops when no slot is active; the host does
-    not synchronise inside it.  A grid that cannot be co-resident raises
-    RuntimeError."""
+
+@functools.lru_cache(maxsize=64)
+def train_blocks(n_slots: int, device) -> int:
+    """The block count of the timed B2's cooperative grid for ``n_slots``
+    slots: the rows its phase clock fills (fixed for a card, so asked of
+    it once)."""
+    lib = _cuda.library()
+    fn = lib.rlrpt_train_blocks
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _check_error(lib, "rlrpt_train_blocks",
+                     fn(n_slots, ctypes.byref(blocks)))
+    return blocks.value
+
+
+def _check_train_inputs(tris, mat, cdf_t, lum, sec_cos, q, visits,
+                        sector_grid: int, uv_bins: int, n_slots: int,
+                        clock) -> None:
+    """What mega_train_frame takes (its docstring); raises ValueError."""
     check_tables(tris, mat)
     check_cdf(cdf_t, tris, sector_grid, uv_bins)
     n_cols = cdf_t.shape[0]
@@ -280,6 +294,46 @@ def mega_train_frame(seed: int, cam: tuple, tris: torch.Tensor,
             raise ValueError(f"{name} must be on the tables' device")
     if q.shape != visits.shape:
         raise ValueError("q and visits must have one shape")
+    if clock is not None:
+        if not tris.is_cuda:
+            raise ValueError("clock takes the timed B2: CUDA tables only")
+        rows = train_blocks(n_slots, tris.device)
+        cols = len(profiling.CLOCK_COLS)
+        if (clock.dtype != torch.int64 or clock.device != tris.device
+                or not clock.is_contiguous() or clock.dim() != 2
+                or clock.shape[0] < rows or clock.shape[1] != cols):
+            raise ValueError(f"clock must be a contiguous int64 (>= {rows}, "
+                             f"{cols}) tensor on {tris.device}")
+
+
+def mega_train_frame(seed: int, cam: tuple, tris: torch.Tensor,
+                     mat: torch.Tensor, cdf_t: torch.Tensor, lum: torch.Tensor,
+                     sec_cos: torch.Tensor, q: torch.Tensor,
+                     visits: torch.Tensor, sector_grid: int, uv_bins: int,
+                     radiance_threshold: float, cfg: RenderConfig,
+                     n_slots: int, pix_mux: int,
+                     clock: torch.Tensor | None = None):
+    """One learning frame of kernel B2 over ``cdf_t`` (the (C, S_pad) bf16
+    table, transposed and contiguous), ``lum`` (C,) the bins' luminance,
+    ``sec_cos`` (S,) the sectors' cos(theta), and ``q``, ``visits``
+    (S_pad, C) f32, which are left untouched.  Returns (rad, path_sum,
+    iters, q, visits, td) as mega_train_frame_plain does.  CPU tensors take
+    the twin.
+
+    On the card the frame is one cooperative launch of a persistent
+    kernel that runs the iterations on the device (step, grid barrier,
+    apply, grid barrier) and stops when no slot is active; the host does
+    not synchronise inside it.  A grid that cannot be co-resident raises
+    RuntimeError.  ``clock``: a contiguous int64 CUDA tensor of
+    train_blocks(n_slots, device) or more rows of
+    len(profiling.CLOCK_COLS); then the timed build (KERNEL_TIMED) runs
+    the same frame, bit for bit, and adds each block's phase cycles into
+    its row."""
+    with profiling.span("render_sarsa_mega_train.check"):
+        _check_train_inputs(tris, mat, cdf_t, lum, sec_cos, q, visits,
+                            sector_grid, uv_bins, n_slots, clock)
+    n_cols = cdf_t.shape[0]
+    n_sectors = sector_grid * sector_grid
     if tris.device.type == "cpu":
         return mega_train_frame_plain(seed, cam, tris, mat, cdf_t, lum,
                                       sec_cos, q, visits, sector_grid,
@@ -288,37 +342,40 @@ def mega_train_frame(seed: int, cam: tuple, tris: torch.Tensor,
     if tris.device.type != "cuda":
         raise ValueError(f"no kernel for device {tris.device}")
     dev = tris.device
-    params = mega_params(
-        seed, cam, tris.shape[0], cfg, n_slots, pix_mux,
-        n_sectors=n_sectors, sector_grid=sector_grid, uv_bins=uv_bins,
-        s_pad=cdf_t.shape[1], pdf_scale=n_sectors / (2.0 * PI),
-        inv_gdir=1.0 / sector_grid)
-    max_iters = pix_mux * cfg.samples_per_pixel * cfg.max_ray_bounces
-    train = _cuda.TrainParams(n_cols=n_cols, max_iters=max_iters,
-                              radiance_threshold=radiance_threshold,
-                              irr_scale=_irr_scale(n_sectors))
-    f32 = dict(dtype=torch.float32, device=dev)
-    i32 = dict(dtype=torch.int32, device=dev)
-    q_out, v_out = q.clone(), visits.clone()
-    sum_t = torch.zeros(q.shape, **f32)
-    cnt = torch.zeros(q.shape, **f32)
-    irr = torch.zeros((2, n_cols), **f32)
-    fstate = torch.empty((9, n_slots), **f32)   # csrc/mega_train.cu:FRow
-    istate = torch.empty((5, n_slots), **i32)   # csrc/mega_train.cu:IRow
-    flags = torch.zeros((2,), **i32)
-    rad = torch.zeros((pix_mux, n_slots, 3), **f32)
-    path_sum = torch.zeros((n_slots,), **f32)
-    iters = torch.zeros((n_slots,), **i32)
-    td = torch.zeros((n_slots,), **f32)
-    with torch.cuda.device(dev):
+    with profiling.span("render_sarsa_mega_train.outputs"):
+        f32 = dict(dtype=torch.float32, device=dev)
+        i32 = dict(dtype=torch.int32, device=dev)
+        q_out, v_out = q.clone(), visits.clone()
+        sum_t = torch.zeros(q.shape, **f32)
+        cnt = torch.zeros(q.shape, **f32)
+        irr = torch.zeros((2, n_cols), **f32)
+        fstate = torch.empty((9, n_slots), **f32)   # csrc/mega_train.cu:FRow
+        istate = torch.empty((5, n_slots), **i32)   # csrc/mega_train.cu:IRow
+        flags = torch.zeros((2,), **i32)
+        rad = torch.zeros((pix_mux, n_slots, 3), **f32)
+        path_sum = torch.zeros((n_slots,), **f32)
+        iters = torch.zeros((n_slots,), **i32)
+        td = torch.zeros((n_slots,), **f32)
+    with profiling.span("render_sarsa_mega_train.launch"), \
+            torch.cuda.device(dev):
+        params = mega_params(
+            seed, cam, tris.shape[0], cfg, n_slots, pix_mux,
+            n_sectors=n_sectors, sector_grid=sector_grid, uv_bins=uv_bins,
+            s_pad=cdf_t.shape[1], pdf_scale=n_sectors / (2.0 * PI),
+            inv_gdir=1.0 / sector_grid)
+        max_iters = pix_mux * cfg.samples_per_pixel * cfg.max_ray_bounces
+        train = _cuda.TrainParams(n_cols=n_cols, max_iters=max_iters,
+                                  radiance_threshold=radiance_threshold,
+                                  irr_scale=_irr_scale(n_sectors))
         stream = torch.cuda.current_stream().cuda_stream
-        KERNEL.launch(params, train, tris.data_ptr(), mat.data_ptr(),
-                      cdf_t.data_ptr(), lum.data_ptr(), sec_cos.data_ptr(),
-                      q_out.data_ptr(), v_out.data_ptr(), sum_t.data_ptr(),
-                      cnt.data_ptr(), irr.data_ptr(), fstate.data_ptr(),
-                      istate.data_ptr(), flags.data_ptr(), rad.data_ptr(),
-                      path_sum.data_ptr(), iters.data_ptr(), td.data_ptr(),
-                      stream)
+        (KERNEL if clock is None else KERNEL_TIMED).launch(
+            params, train, tris.data_ptr(), mat.data_ptr(), cdf_t.data_ptr(),
+            lum.data_ptr(), sec_cos.data_ptr(), q_out.data_ptr(),
+            v_out.data_ptr(), sum_t.data_ptr(), cnt.data_ptr(),
+            irr.data_ptr(), fstate.data_ptr(), istate.data_ptr(),
+            flags.data_ptr(), rad.data_ptr(), path_sum.data_ptr(),
+            iters.data_ptr(), td.data_ptr(),
+            0 if clock is None else clock.data_ptr(), stream)
     return rad, path_sum, iters, q_out, v_out, td
 
 
@@ -334,12 +391,9 @@ def barrier_probe(n_slots: int, n_syncs: int, device) -> int:
     fn.restype = ctypes.c_int
     blocks = ctypes.c_int(0)
     with torch.cuda.device(device):
-        err = fn(n_slots, n_syncs, ctypes.byref(blocks),
-                 torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        msg = lib.rlrpt_cuda_error_string(err).decode()
-        raise RuntimeError(f"rlrpt_train_barrier_probe: CUDA error {err}: "
-                           f"{msg}")
+        _check_error(lib, "rlrpt_train_barrier_probe",
+                     fn(n_slots, n_syncs, ctypes.byref(blocks),
+                        torch.cuda.current_stream().cuda_stream))
     return blocks.value
 
 
@@ -375,20 +429,29 @@ def render_sarsa_mega_train(seed: int, scene: Scene, camera: Camera,
     if table.t_pad != t_pad:
         raise ValueError(f"table t_pad {table.t_pad} != scene t_pad {t_pad}")
     device = torch.device(device)
-    scene = scene.to(device)
-    tris, mat = pack_scene(scene)
+    with profiling.span("render_sarsa_mega_train.pack"):
+        scene = scene.to(device)
+        tris, mat = pack_scene(scene)
+        cam = camera_vector(camera)
+        n_slots = n_slots_for(cfg.n_pixels, r_tile, pix_mux)
 
     def f32(a):
         return a.to(device=device, dtype=torch.float32).contiguous()
 
-    n_slots = n_slots_for(cfg.n_pixels, r_tile, pix_mux)
+    with profiling.span("render_sarsa_mega_train.tables"):
+        cdf_t = table.cdf.to(device).T.contiguous()
+        lum = bin_luminance(scene, t_pad, table.uv_bins)[0]
+        sec_cos = f32(hs.sector_cos_thetas(table.sector_grid, device))
+        q, visits = f32(q), f32(visits)
+    clock = None   # B2's phase clock, while a profiler records
+    if tris.is_cuda and profiling.recording():
+        clock = profiling.RECORDER.clock(
+            train_blocks(n_slots, tris.device), tris.device)
     rad, path_sum, iters, q, visits, td = mega_train_frame(
-        seed, camera_vector(camera), tris, mat,
-        table.cdf.to(device).T.contiguous(),
-        bin_luminance(scene, t_pad, table.uv_bins)[0],
-        f32(hs.sector_cos_thetas(table.sector_grid, device)), f32(q),
-        f32(visits), table.sector_grid, table.uv_bins, radiance_threshold,
-        cfg, n_slots, pix_mux)
-    img, aux = assemble(rad, path_sum, iters, cfg)
-    aux["td_scatter_count"] = td.double().sum().long()
+        seed, cam, tris, mat, cdf_t, lum, sec_cos, q, visits,
+        table.sector_grid, table.uv_bins, radiance_threshold, cfg, n_slots,
+        pix_mux, clock)
+    with profiling.span("render_sarsa_mega_train.assemble"):
+        img, aux = assemble(rad, path_sum, iters, cfg)
+        aux["td_scatter_count"] = td.double().sum().long()
     return img, q, visits, aux

@@ -17,6 +17,7 @@ import math
 import torch
 
 from rlrpt_tpu_torch.ops.linalg import frame_to_world, make_frame
+from rlrpt_tpu_torch.utils import profiling
 
 PI = math.pi
 
@@ -56,7 +57,9 @@ def concentric_map(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     out = torch.stack([sin_t * torch.cos(phi), cos_t, sin_t * torch.sin(phi)],
                       dim=-1)
     # Origin (and any degenerate xx == 0 point) -> straight up, as in the ref.
-    up = torch.tensor([0.0, 1.0, 0.0], dtype=out.dtype, device=out.device)
+    with profiling.host_sync("up_vector", out):   # a copy from the host
+        up = torch.tensor([0.0, 1.0, 0.0], dtype=out.dtype,
+                          device=out.device)
     return w(origin[..., None], up.expand(out.shape), out)
 
 

@@ -47,6 +47,7 @@ from rlrpt_tpu_torch import _cuda
 from rlrpt_tpu_torch.camera import Camera
 from rlrpt_tpu_torch.config import RenderConfig
 from rlrpt_tpu_torch.scene.scene import Scene
+from rlrpt_tpu_torch.utils import profiling
 
 INF = 3.0e38
 PI = math.pi
@@ -460,17 +461,27 @@ def frame_outputs(n_slots: int, pix_mux: int, device):
             torch.zeros((1,), dtype=torch.int32, device=device))
 
 
-def _launch_bvh(kernel: _cuda.Kernel, seed, cam, tris, mat, cfg, n_slots,
-                pix_mux, bvh, counts):
-    rad, path_sum, iters, nxt = frame_outputs(n_slots, pix_mux, tris.device)
-    with torch.cuda.device(tris.device):
+def _launch(kernel: _cuda.Kernel, seed, cam, tris, mat, cfg, n_slots,
+            pix_mux, bvh=None, counts=None):
+    """Allocate a frame's outputs and launch B1's sweep, or with ``bvh``
+    its culled build (``counts``: KERNEL_COUNT's four int64 sums)."""
+    with profiling.span("render_default_mega.outputs"):
+        rad, path_sum, iters, nxt = frame_outputs(n_slots, pix_mux,
+                                                  tris.device)
+    with profiling.span("render_default_mega.launch"), \
+            torch.cuda.device(tris.device):
         stream = torch.cuda.current_stream().cuda_stream
-        kernel.launch(mega_params(seed, cam, tris.shape[0], cfg, n_slots,
-                                  pix_mux), bvh.nodes.shape[0],
-                      bvh.nodes.data_ptr(), bvh.tris_sorted.data_ptr(),
-                      bvh.order.data_ptr(), mat.data_ptr(), rad.data_ptr(),
-                      path_sum.data_ptr(), iters.data_ptr(), nxt.data_ptr(),
-                      0 if counts is None else counts.data_ptr(), stream)
+        params = mega_params(seed, cam, tris.shape[0], cfg, n_slots, pix_mux)
+        if bvh is None:
+            kernel.launch(params, tris.data_ptr(), mat.data_ptr(),
+                          rad.data_ptr(), path_sum.data_ptr(),
+                          iters.data_ptr(), nxt.data_ptr(), stream)
+        else:
+            kernel.launch(params, bvh.nodes.shape[0], bvh.nodes.data_ptr(),
+                          bvh.tris_sorted.data_ptr(), bvh.order.data_ptr(),
+                          mat.data_ptr(), rad.data_ptr(), path_sum.data_ptr(),
+                          iters.data_ptr(), nxt.data_ptr(),
+                          0 if counts is None else counts.data_ptr(), stream)
     return rad, path_sum, iters
 
 
@@ -490,18 +501,8 @@ def mega_default_frame(seed: int, cam: tuple, tris: torch.Tensor,
                                         pix_mux, bvh)
     if tris.device.type != "cuda":
         raise ValueError(f"no kernel for device {tris.device}")
-    if bvh is not None:
-        return _launch_bvh(KERNEL_CULL, seed, cam, tris, mat, cfg, n_slots,
-                           pix_mux, bvh, None)
-    rad, path_sum, iters, nxt = frame_outputs(n_slots, pix_mux, tris.device)
-    with torch.cuda.device(tris.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        KERNEL.launch(mega_params(seed, cam, tris.shape[0], cfg, n_slots,
-                                  pix_mux),
-                      tris.data_ptr(), mat.data_ptr(), rad.data_ptr(),
-                      path_sum.data_ptr(), iters.data_ptr(), nxt.data_ptr(),
-                      stream)
-    return rad, path_sum, iters
+    return _launch(KERNEL if bvh is None else KERNEL_CULL, seed, cam, tris,
+                   mat, cfg, n_slots, pix_mux, bvh)
 
 
 def walk_counts(seed: int, cam: tuple, tris: torch.Tensor,
@@ -525,9 +526,10 @@ def walk_counts(seed: int, cam: tuple, tris: torch.Tensor,
                                  pix_mux, bvh, counts)
         return counts["visits"], counts["tests"]
     out = torch.zeros((4,), dtype=torch.int64, device=tris.device)
-    _launch_bvh(KERNEL_COUNT, seed, cam, tris, mat, cfg, n_slots, pix_mux,
-                bvh, out)
-    counts = tuple(out.tolist())
+    _launch(KERNEL_COUNT, seed, cam, tris, mat, cfg, n_slots, pix_mux, bvh,
+            out)
+    with profiling.host_sync("walk_counts", out):
+        counts = tuple(out.tolist())
     return counts if simt else counts[:2]
 
 
@@ -561,12 +563,16 @@ def render_default_mega(seed: int, scene: Scene, camera: Camera,
     kernel; the image is the sweep's bit for bit.
     """
     device = torch.device(device)
-    tris, mat = pack_scene(scene.to(device))
-    n_slots = n_slots_for(cfg.n_pixels, r_tile, pix_mux)
+    with profiling.span("render_default_mega.pack"):
+        tris, mat = pack_scene(scene.to(device))
+        cam = camera_vector(camera)
+        n_slots = n_slots_for(cfg.n_pixels, r_tile, pix_mux)
     bvh = None
     if use_cull(tris.shape[0], cull):
         from rlrpt_tpu_torch.ops.bvh import build_bvh
-        bvh = build_bvh(tris)
-    out = mega_default_frame(seed, camera_vector(camera), tris, mat, cfg,
-                             n_slots, pix_mux, bvh)
-    return assemble(*out, cfg)
+        with profiling.span("render_default_mega.bvh"):
+            bvh = build_bvh(tris)
+    out = mega_default_frame(seed, cam, tris, mat, cfg, n_slots, pix_mux,
+                             bvh)
+    with profiling.span("render_default_mega.assemble"):
+        return assemble(*out, cfg)

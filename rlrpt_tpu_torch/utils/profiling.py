@@ -8,11 +8,19 @@ frames with SDL_GetTicks (main.cu:43-49).  Here:
 * ``host_fence`` waits for the card: ``torch.cuda.synchronize`` on the
   device of any CUDA tensor it is given, nothing for CPU tensors (they are
   computed when the call returns);
-* ``phase_timer`` wall-clocks a named phase, fenced on what the body
-  stores in ``out["value"]``;
 * ``trace`` records a region with ``torch.profiler`` into a directory, as
-  a Chrome trace;
-* ``RaysPerSecond`` accumulates traced rays over wall time.
+  a Chrome trace, with the program's spans in it;
+* ``span`` marks a phase of the program, ``host_sync`` a place where the
+  host waits for the card; both record only while a ``torch.profiler``
+  records, into ``RECORDER`` and, as ``user_annotation`` events on the
+  profiler's clock, into its trace.  Off, a span costs one check of the
+  profiler's flag and an empty ``with``.  Spans are named
+  ``<launcher>.<phase>`` after the public launcher whose phase they time
+  (``render_default_mega.pack``), host waits ``sync.<site>``;
+* ``RECORDER`` also owns the buffer of kernel B2's phase clock, which
+  ``ops.guided_mega_train.render_sarsa_mega_train`` fills while a
+  profiler records (csrc/mega_train.cu, the timed build); ``b2_shares``
+  reads its phase shares over the blocks that apply.
 """
 
 from __future__ import annotations
@@ -20,9 +28,123 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import Iterator, Optional
+from collections import defaultdict
+from typing import Iterator
 
 import torch
+from torch._C._autograd import _profiler_enabled as recording
+
+# Columns of a row of B2's phase clock (csrc/mega_train.cu ClockCol): a
+# block's cycles at the start (slot starts, the first apply, the first
+# grid barrier), in the iterations' step (and compaction), first grid
+# barrier, apply and second grid barrier, its total, and its iterations.
+CLOCK_COLS = ("start", "step", "wait1", "apply", "wait2", "total",
+              "iterations")
+
+
+class Recorder:
+    """What the spans, the host waits and B2's phase clock recorded while
+    a profiler ran, summed since the last ``reset``: per span name its
+    host nanoseconds (``ns``), the same less the spans recorded inside it
+    (``self_ns``) and its calls; per site the host waits (``syncs``);
+    ``b2_clock``, a (blocks, len(CLOCK_COLS)) int64 tensor on the card
+    that the timed B2 adds its blocks' rows into (None until one ran)."""
+
+    def __init__(self) -> None:
+        self.reset()
+
+    def reset(self) -> None:
+        self.ns: dict[str, int] = defaultdict(int)
+        self.self_ns: dict[str, int] = defaultdict(int)
+        self.calls: dict[str, int] = defaultdict(int)
+        self.syncs: dict[str, int] = defaultdict(int)
+        self.b2_clock: torch.Tensor | None = None
+        self._open: list[int] = []   # ns of recorded children, per open span
+
+    def clock(self, rows: int, device) -> torch.Tensor:
+        """B2's clock buffer of ``rows`` rows on ``device``, allocated at
+        its first call and kept across calls; raises ValueError for a grid
+        of other rows or another device (``reset`` first)."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if self.b2_clock is None:
+            self.b2_clock = torch.zeros((rows, len(CLOCK_COLS)),
+                                        dtype=torch.int64, device=device)
+        elif (self.b2_clock.shape[0], self.b2_clock.device) != (rows, device):
+            raise ValueError(
+                f"B2's clock holds {self.b2_clock.shape[0]} rows on "
+                f"{self.b2_clock.device}, not {rows} on {device}: reset the "
+                "recorder before timing another grid")
+        return self.b2_clock
+
+
+RECORDER = Recorder()
+
+
+def b2_shares(clock: torch.Tensor | None) -> dict | None:
+    """B2's phases (start, step, wait1, apply, wait2) in percent of the
+    cycles of a clock's blocks that apply: those whose apply cycles reach
+    half the largest block's.  apply() deals its items to the grid's warps
+    in order, so where they are fewer than the warps only the first blocks
+    apply and the others wait for them at the second grid barrier: the
+    frame's length follows the blocks that apply.  One read from the card;
+    None for no clock or no cycles."""
+    if clock is None:
+        return None
+    c = clock.cpu()
+    apply = c[:, CLOCK_COLS.index("apply")]
+    sums = c[2 * apply >= apply.max()].sum(dim=0).tolist()
+    total = sums[CLOCK_COLS.index("total")]
+    if total <= 0:
+        return None
+    return {n: 100.0 * sums[i] / total
+            for i, n in enumerate(CLOCK_COLS[:5])}
+
+
+class _Span:
+    __slots__ = ("name", "mark", "t0")
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+
+    def __enter__(self) -> None:
+        self.mark = torch.profiler.record_function(self.name)
+        self.mark.__enter__()
+        RECORDER._open.append(0)
+        self.t0 = time.perf_counter_ns()
+
+    def __exit__(self, *exc) -> bool:
+        dt = time.perf_counter_ns() - self.t0
+        rec = RECORDER
+        children = rec._open.pop()
+        if rec._open:
+            rec._open[-1] += dt
+        rec.ns[self.name] += dt
+        rec.self_ns[self.name] += dt - children
+        rec.calls[self.name] += 1
+        self.mark.__exit__(*exc)   # the bookkeeping inside the annotation
+        return False
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A phase of the program: records only while a profiler records."""
+    if not recording():
+        return _OFF
+    return _Span(name)
+
+
+def host_sync(site: str, tensor: torch.Tensor):
+    """Wraps a place where the host waits for the card on ``tensor``: a
+    span ``sync.<site>`` that counts one wait at ``site``, for a CUDA
+    tensor while a profiler records (nothing for a CPU tensor)."""
+    if not recording() or not tensor.is_cuda:
+        return _OFF
+    RECORDER.syncs[site] += 1
+    return _Span("sync." + site)
 
 
 def _tensors(tree) -> Iterator[torch.Tensor]:
@@ -44,23 +166,10 @@ def host_fence(tree) -> None:
 
 
 @contextlib.contextmanager
-def phase_timer(name: str, verbose: bool = True) -> Iterator[dict]:
-    """Times a phase; fences on ``out['value']`` if the body sets it, and
-    stores the seconds in ``out['seconds']``."""
-    out: dict = {}
-    t0 = time.perf_counter()
-    yield out
-    if "value" in out:
-        host_fence(out["value"])
-    out["seconds"] = time.perf_counter() - t0
-    if verbose:
-        print(f"{name}: {out['seconds']:.3f}s")
-
-
-@contextlib.contextmanager
 def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
     """A torch.profiler region (CPU, and CUDA when a card is present)
-    written to ``log_dir/trace.json`` (chrome://tracing, Perfetto)."""
+    written to ``log_dir/trace.json`` (chrome://tracing, Perfetto); the
+    program's spans and host waits are in it, and in ``RECORDER``."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -71,29 +180,3 @@ def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-class RaysPerSecond:
-    """Accumulates traced-ray counts and wall time -> rays/s."""
-
-    def __init__(self) -> None:
-        self.rays = 0.0
-        self.seconds = 0.0
-        self._t0: Optional[float] = None
-
-    def start(self) -> None:
-        self._t0 = time.perf_counter()
-
-    def stop(self, rays: float) -> None:
-        if self._t0 is None:
-            raise RuntimeError("RaysPerSecond.stop() before start()")
-        self.seconds += time.perf_counter() - self._t0
-        self.rays += rays
-        self._t0 = None
-
-    @property
-    def value(self) -> float:
-        return self.rays / self.seconds if self.seconds else 0.0
-
-    def per_chip(self, n_chips: int = 1) -> float:
-        return self.value / max(n_chips, 1)

@@ -9,7 +9,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
-import pytest
 import torch
 
 from rlrpt_tpu import config as jconfig
@@ -177,24 +176,16 @@ def test_resumed_run_equals_uninterrupted(tmp_path):
         assert torch.equal(a, b)
 
 
-def test_profiling_hooks(tmp_path, capsys):
+def test_profiling_hooks(tmp_path):
     x = torch.ones(3)
     assert profiling.host_fence({"a": [x, (x, 2)], "b": None}) is None
-    with profiling.phase_timer("phase", verbose=True) as out:
-        out["value"] = x * 2
-    assert out["seconds"] >= 0.0 and "phase: " in capsys.readouterr().out
-    r = profiling.RaysPerSecond()
-    with pytest.raises(RuntimeError):
-        r.stop(1.0)
-    for rays in (100.0, 300.0):
-        r.start()
-        r.stop(rays)
-    assert r.rays == 400.0 and r.value > 0
-    assert r.per_chip(4) == pytest.approx(r.value / 4)
     with profiling.trace(str(tmp_path / "tr")):
-        torch.ones(64).sum()
+        with profiling.span("hooks.sum"):
+            torch.ones(64).sum()
     trace = json.loads((tmp_path / "tr" / "trace.json").read_text())
-    assert trace["traceEvents"]
+    assert any(e.get("name") == "hooks.sum"
+               and e.get("cat") == "user_annotation"
+               for e in trace["traceEvents"])
 
 
 def test_small_config_matches_jax():
