@@ -33,6 +33,18 @@ exit, and an iteration with no live slot changes nothing and is not
 counted.  Nothing inside an iteration waits for the host.  Randomness
 comes from one ``torch.Generator``.  The network and the Adam state are
 updated in place.
+
+Tracing (``utils.profiling``), only while a profiler records: spans
+``trace_frame_deep_wavefront.<phase>`` (pack: the tables and the tree;
+hit, forward, td, train, sample, transport: an iteration's stages;
+compact and flush: a drain), the host waits ``sync.live_count`` (the
+live-count read), ``sync.flush`` (the flush's two masked indexes) and
+``sync.camera`` (the origin's copy to the card), and the frame's counts
+``deep_wavefront.frames``, ``.steps`` (host) and ``.iterations``,
+``.rays``, ``.rows_forwarded`` (device: live iterations, live rays
+traced, surface hits forwarded).  A ``Capture`` in the module attribute
+``CAPTURE`` keeps chosen iterations' tensors for a comparison from
+outside; without one the frame checks the attribute once a step.
 """
 
 from __future__ import annotations
@@ -65,8 +77,13 @@ from rlrpt_tpu_torch.ops.intersect_pallas import (closest_hit_mat_mxu,
                                                   pack_scene_mxu)
 from rlrpt_tpu_torch.parallel.mesh import any_rank, psum
 from rlrpt_tpu_torch.scene.scene import Scene
+from rlrpt_tpu_torch.utils import profiling
 
 SYNC_EVERY = 2
+
+#: A ``Capture`` armed by a caller that checks chosen iterations from
+#: outside the frame (the benchmark's comparison), or None.
+CAPTURE = None
 
 
 class _State(NamedTuple):
@@ -84,6 +101,68 @@ class _State(NamedTuple):
     slot_rad: torch.Tensor    # (W, pix_mux, 3)
     prev_loc: torch.Tensor    # (W, 3) position of the pending action
     action: torch.Tensor      # (W,) int64, -1 = no pending transition
+
+
+def flat_state(net: DQNetwork, opt_state: AdamState) -> tuple:
+    """A copy of the parameters and the Adam moments, flat in that order
+    (each parameter's, then each mu, then each nu), and of the step
+    count."""
+    parts = [p.detach().reshape(-1) for p in net.parameters()]
+    parts += [m.reshape(-1) for m in opt_state.mu]
+    parts += [v.reshape(-1) for v in opt_state.nu]
+    return torch.cat(parts), opt_state.count.clone()
+
+
+class Capture:
+    """What a frame keeps of itself while armed (``CAPTURE``).
+
+    ``iterations``: the frame's steps (counted from 0 over every phase) to
+    record; ``tail``: also record the final phase's steps, keeping the last
+    SYNC_EVERY (the last step with a live slot is among them).  A record
+    is a dict of the step's tensors: its input state ``state`` (a
+    ``_State``), the hit (``t``, ``tri``, ``mrow``), the positions
+    forwarded ``qpos``, the Q rows ``qs``, the uniforms ``u``, the
+    per-lane epsilon ``eps``, the sampler's ``sector`` and ``pdf``, the
+    TD targets ``td`` and the ``pending`` mask, the net and Adam state
+    before training (``before``: ``flat_state``) and after each of its
+    minibatches (``trained``, a list of ``flat_state``), and the output
+    state ``out``; plus ``step``, ``phase``, ``width``.  The step's
+    tensors are new each step and never written again, so a record holds
+    them; the net and the Adam state, trained in place, are copied.
+    ``flushes``: every flush's (pixel, kmx, slot_rad) copies, in order;
+    ``w0``, the slots; ``steps``, the frame's steps."""
+
+    def __init__(self, iterations=(), tail: bool = False):
+        self.iterations = frozenset(iterations)
+        self.tail = tail
+        self.records: dict = {}
+        self.tail_records: list = []
+        self.flushes: list = []
+        self.w0 = None
+        self.steps = 0
+
+    def want(self, step: int, last_phase: bool):
+        """The record to fill for this step, or None."""
+        if step in self.iterations:
+            rec = self.records[step] = {}
+        elif self.tail and last_phase:
+            rec = {}
+        else:
+            return None
+        if self.tail and last_phase:
+            self.tail_records = (self.tail_records + [rec])[-SYNC_EVERY:]
+        return rec
+
+    def flush(self, pixel, kmx, slot_rad) -> None:
+        self.flushes.append((pixel.clone(), kmx.clone(), slot_rad.clone()))
+
+
+def _live_above(active: torch.Tensor, width: int, mesh) -> bool:
+    """Whether more than ``width`` slots are live (on any rank): the
+    loop's one read of the card."""
+    flag = active.sum() > width
+    with profiling.host_sync("live_count", flag):
+        return any_rank(flag, mesh)
 
 
 def trace_frame_deep_wavefront(generator_or_seed, scene: Scene,
@@ -135,9 +214,14 @@ def trace_frame_deep_wavefront(generator_or_seed, scene: Scene,
         raise ValueError("training needs opt_state")
     device = next(net.parameters()).device
     gen = _generator(generator_or_seed, device)
-    scene = scene.to(device)
-    tris, mat = pack_scene_mxu(scene)
-    bvh = build_bvh(tris)   # once a frame, on the table's device
+    span = profiling.span
+    counting = profiling.recording()
+    rec_ = profiling.RECORDER
+    cap = CAPTURE
+    with span("trace_frame_deep_wavefront.pack"):
+        scene = scene.to(device)
+        tris, mat = pack_scene_mxu(scene)
+        bvh = build_bvh(tris)   # once a frame, on the table's device
     ns = scene.n_surfaces
     n_pix, spp = cfg.n_pixels, cfg.samples_per_pixel
     n_local = n_pix if n_pix_local is None else n_pix_local
@@ -152,7 +236,8 @@ def trace_frame_deep_wavefront(generator_or_seed, scene: Scene,
     if mlp_dtype == "bf16":
         fwd_net = copy.deepcopy(net).to(torch.bfloat16)
         verts = scene.vertices_flat.to(torch.bfloat16)
-    cam_o = torch.tensor(camera.position, **f32d)
+    with profiling.host_sync("camera", tris):
+        cam_o = torch.tensor(camera.position, **f32d)
     lane = torch.arange(1, w0 + 1, **i32)
     ksel_base = torch.arange(pix_mux, **i64)
 
@@ -177,21 +262,26 @@ def trace_frame_deep_wavefront(generator_or_seed, scene: Scene,
              "light_hits": zero(torch.int64),
              "light_path_sum": zero(torch.float64)}
 
-    def step(c: _State, wp: int) -> _State:
+    def step(c: _State, wp: int, rec: dict | None) -> _State:
         act = c.active
-        # last live lane + 1 (0 when none is live), on the device
-        m = torch.max(torch.where(act, lane[:wp], 0)).reshape(1)
-        t, tri, mrow = closest_hit_mat_mxu(c.o, c.d, tris, mat, m, bvh)
-        normal, diffuse3 = mrow[:, 0:3], mrow[:, 3:6]
-        emission3, lum = mrow[:, 6:9], mrow[:, 10]
-        missed = act & (t >= INF_CUT)
-        hit_light = act & ~missed & (tri >= ns)
-        hit_surface = act & ~missed & (tri < ns)
-        # dead and missed lanes would feed inf into the MLP: clamp them
-        qpos = torch.where(hit_surface[:, None], c.o + t[:, None] * c.d, 0.0)
+        with span("trace_frame_deep_wavefront.hit"):
+            # last live lane + 1 (0 when none is live), on the device
+            m = torch.max(torch.where(act, lane[:wp], 0)).reshape(1)
+            t, tri, mrow = closest_hit_mat_mxu(c.o, c.d, tris, mat, m, bvh)
+            normal, diffuse3 = mrow[:, 0:3], mrow[:, 3:6]
+            emission3, lum = mrow[:, 6:9], mrow[:, 10]
+            missed = act & (t >= INF_CUT)
+            hit_light = act & ~missed & (tri >= ns)
+            hit_surface = act & ~missed & (tri < ns)
+            # dead and missed lanes would feed inf into the MLP: clamp them
+            qpos = torch.where(hit_surface[:, None], c.o + t[:, None] * c.d,
+                               0.0)
+        if counting:
+            rec_.tally("deep_wavefront.rays", act.sum())
+            rec_.tally("deep_wavefront.rows_forwarded", hit_surface.sum())
 
         # ONE forward: the sampling distribution and the TD bootstrap
-        with torch.no_grad():
+        with span("trace_frame_deep_wavefront.forward"), torch.no_grad():
             if mlp_dtype == "bf16":
                 if dl.train_on_position:
                     qs = fwd_net(qpos.to(torch.bfloat16))
@@ -203,128 +293,182 @@ def trace_frame_deep_wavefront(generator_or_seed, scene: Scene,
                 qs = _q_forward(net, scene, qpos, dl)
 
         if train:
-            # rewards and discounts per hit type (neural_q_pathtracer.cu:
-            # 646-752): light r = lum * 200, miss 0, surface gamma = lum
-            td = torch.where(hit_light, lum * dl.light_reward_scale,
-                             torch.where(hit_surface,
-                                         lum * bootstrap_max(qs, cos_tbl),
-                                         0.0))
-            pending = act & (c.action >= 0)
-            dl_t = (dataclasses.replace(dl, batch_size=wp)
-                    if train_batching == "fused" else dl)
-            stats["loss_sum"] += train_on_batches(
-                net, opt_state, scene, c.prev_loc,
-                torch.clamp(c.action, min=0), td, dl_t,
-                weights=pending.float(), mesh=mesh)
-            # the loss's scale: squared error grows with Q's magnitude
-            # (x200 light reward) even while the relative error falls
-            td_sq = torch.where(pending, td * td, 0.0).sum()
-            if mesh is not None:
-                td_sq = psum(td_sq.reshape(1), mesh)[0]
-            stats["td_sq_sum"] += td_sq
+            with span("trace_frame_deep_wavefront.td"):
+                # rewards and discounts per hit type (neural_q_pathtracer.
+                # cu:646-752): light r = lum * 200, miss 0, surface
+                # gamma = lum
+                td = torch.where(hit_light, lum * dl.light_reward_scale,
+                                 torch.where(hit_surface,
+                                             lum * bootstrap_max(qs,
+                                                                 cos_tbl),
+                                             0.0))
+                pending = act & (c.action >= 0)
+            with span("trace_frame_deep_wavefront.train"):
+                dl_t = (dataclasses.replace(dl, batch_size=wp)
+                        if train_batching == "fused" else dl)
+                on_step = None
+                if rec is not None:
+                    trained = []
+                    rec.update(td=td, pending=pending, trained=trained,
+                               before=flat_state(net, opt_state))
 
-        contrib = (torch.where(missed[:, None],
-                               c.tp * cfg.environment_light, 0.0)
-                   + torch.where(hit_light[:, None], c.tp * emission3, 0.0))
+                    def on_step():
+                        trained.append(flat_state(net, opt_state))
+                stats["loss_sum"] += train_on_batches(
+                    net, opt_state, scene, c.prev_loc,
+                    torch.clamp(c.action, min=0), td, dl_t,
+                    weights=pending.float(), mesh=mesh, on_step=on_step)
+                # the loss's scale: squared error grows with Q's magnitude
+                # (x200 light reward) even while the relative error falls
+                td_sq = torch.where(pending, td * td, 0.0).sum()
+                if mesh is not None:
+                    td_sq = psum(td_sq.reshape(1), mesh)[0]
+                stats["td_sq_sum"] += td_sq
 
-        # the next direction from Q * cos
-        if train:
-            eps_lane = torch.clamp(
-                eps0 - dl.epsilon_decay * c.sord.float(), min=dl.epsilon_min)
-        else:
-            eps_lane = 0.0
-        u = torch.rand((wp, 5), generator=gen, device=device)
-        new_d, sector, pdf = sample_q_directions_u(u, qs, normal, eps_lane,
-                                                   gr, rl.grid_rho, cos_tbl)
-        cos_theta = torch.sum(normal * new_d, dim=-1)
-        brdf3 = diffuse3 / math.pi
-        pdf_safe = torch.clamp(pdf, min=1e-12)
-        exhausted = hit_surface & (c.bounce + 1 >= cfg.max_ray_bounces)
-        survive = hit_surface & ~exhausted
-        # the bounce cap contributes tp * brdf, no direction factor
-        sample_rad = (c.sample_rad + contrib
-                      + torch.where(exhausted[:, None], c.tp * brdf3, 0.0))
-        tp = torch.where(survive[:, None],
-                         c.tp * brdf3 * (cos_theta / pdf_safe)[:, None], c.tp)
-        rr_killed = torch.zeros_like(survive)
-        if cfg.russian_roulette:
-            p = torch.clamp(tp.max(dim=-1).values, cfg.rr_min_prob, 1.0)
-            do_rr = survive & (c.bounce + 1 >= cfg.rr_start_bounce)
-            rr_killed = do_rr & (torch.rand((wp,), generator=gen,
-                                            device=device) >= p)
-            tp = torch.where((do_rr & ~rr_killed)[:, None], tp / p[:, None],
-                             tp)
-            survive = survive & ~rr_killed
+        with span("trace_frame_deep_wavefront.sample"):
+            contrib = (torch.where(missed[:, None],
+                                   c.tp * cfg.environment_light, 0.0)
+                       + torch.where(hit_light[:, None], c.tp * emission3,
+                                     0.0))
 
-        o = torch.where(survive[:, None], qpos + cfg.eps * new_d, c.o)
-        d = torch.where(survive[:, None], new_d, c.d)
-        bounce = torch.where(survive, c.bounce + 1, c.bounce)
-        prev_loc = torch.where(survive[:, None], qpos, c.prev_loc)
-        action = torch.where(survive, sector, -1)
+            # the next direction from Q * cos
+            if train:
+                eps_lane = torch.clamp(
+                    eps0 - dl.epsilon_decay * c.sord.float(),
+                    min=dl.epsilon_min)
+            else:
+                eps_lane = 0.0
+            u = torch.rand((wp, 5), generator=gen, device=device)
+            new_d, sector, pdf = sample_q_directions_u(
+                u, qs, normal, eps_lane, gr, rl.grid_rho, cos_tbl)
 
-        # stats of finished samples
-        done = missed | hit_light
-        fin = (bounce + 1).double()
-        stats["path_sum"] += (torch.where(done | rr_killed, fin, 0.0).sum()
-                              + exhausted.sum().double()
-                              * cfg.max_ray_bounces)
-        finished = act & ~survive
-        stats["zclp"] += (finished & (sample_rad.mean(-1)
-                                      < cfg.throughput_threshold)).sum()
-        # guidance shows on the light-terminated subset: the Cornell box
-        # is open at the camera side, so better guidance turns short
-        # escaping paths into longer light-finding ones
-        stats["light_hits"] += hit_light.sum()
-        stats["light_path_sum"] += torch.where(hit_light, fin, 0.0).sum()
+        with span("trace_frame_deep_wavefront.transport"):
+            cos_theta = torch.sum(normal * new_d, dim=-1)
+            brdf3 = diffuse3 / math.pi
+            pdf_safe = torch.clamp(pdf, min=1e-12)
+            exhausted = hit_surface & (c.bounce + 1 >= cfg.max_ray_bounces)
+            survive = hit_surface & ~exhausted
+            # the bounce cap contributes tp * brdf, no direction factor
+            sample_rad = (c.sample_rad + contrib
+                          + torch.where(exhausted[:, None], c.tp * brdf3,
+                                        0.0))
+            tp = torch.where(survive[:, None],
+                             c.tp * brdf3 * (cos_theta / pdf_safe)[:, None],
+                             c.tp)
+            rr_killed = torch.zeros_like(survive)
+            if cfg.russian_roulette:
+                p = torch.clamp(tp.max(dim=-1).values, cfg.rr_min_prob, 1.0)
+                do_rr = survive & (c.bounce + 1 >= cfg.rr_start_bounce)
+                rr_killed = do_rr & (torch.rand((wp,), generator=gen,
+                                                device=device) >= p)
+                tp = torch.where((do_rr & ~rr_killed)[:, None],
+                                 tp / p[:, None], tp)
+                survive = survive & ~rr_killed
 
-        # bank finished samples into the slot's k-th row
-        slot_rad = c.slot_rad + ((ksel_base == c.kmx[:, None])[:, :, None]
-                                 * torch.where(finished[:, None], sample_rad,
-                                               0.0)[:, None, :])
+            o = torch.where(survive[:, None], qpos + cfg.eps * new_d, c.o)
+            d = torch.where(survive[:, None], new_d, c.d)
+            bounce = torch.where(survive, c.bounce + 1, c.bounce)
+            prev_loc = torch.where(survive[:, None], qpos, c.prev_loc)
+            action = torch.where(survive, sector, -1)
 
-        # regeneration: the next sample, else the next multiplexed pixel
-        next_pix = c.pixel + w0
-        step_k = (finished & (c.remaining <= 0) & (c.kmx + 1 < pix_mux)
-                  & (next_pix < n_pix) & (next_pix < pix_end))
-        pixel = torch.where(step_k, next_pix, c.pixel)
-        kmx = torch.where(step_k, c.kmx + 1, c.kmx)
-        remaining = torch.where(step_k, spp, c.remaining)
-        regen = finished & (remaining > 0)
-        rd = _primary_dirs(gen, pixel, camera, cfg)
-        # a pixel's next sample advances its ordinal, a new pixel resets it
-        sord = torch.where(regen, torch.where(step_k, 0, c.sord + 1), c.sord)
-        return _State(
-            o=torch.where(regen[:, None], cam_o, o),
-            d=torch.where(regen[:, None], rd, d),
-            tp=torch.where(regen[:, None], 1.0, tp), pixel=pixel, kmx=kmx,
-            bounce=torch.where(regen, 0, bounce),
-            remaining=torch.where(regen, remaining - 1, remaining),
-            sord=sord, active=survive | regen,
-            sample_rad=torch.where(regen[:, None], 0.0, sample_rad),
-            slot_rad=slot_rad, prev_loc=prev_loc,
-            action=torch.where(regen, -1, action))
+            # stats of finished samples
+            done = missed | hit_light
+            fin = (bounce + 1).double()
+            stats["path_sum"] += (torch.where(done | rr_killed, fin,
+                                              0.0).sum()
+                                  + exhausted.sum().double()
+                                  * cfg.max_ray_bounces)
+            finished = act & ~survive
+            stats["zclp"] += (finished & (sample_rad.mean(-1)
+                                          < cfg.throughput_threshold)).sum()
+            # guidance shows on the light-terminated subset: the Cornell
+            # box is open at the camera side, so better guidance turns
+            # short escaping paths into longer light-finding ones
+            stats["light_hits"] += hit_light.sum()
+            stats["light_path_sum"] += torch.where(hit_light, fin,
+                                                   0.0).sum()
+
+            # bank finished samples into the slot's k-th row
+            slot_rad = c.slot_rad + (
+                (ksel_base == c.kmx[:, None])[:, :, None]
+                * torch.where(finished[:, None], sample_rad,
+                              0.0)[:, None, :])
+
+            # regeneration: the next sample, else the next multiplexed
+            # pixel
+            next_pix = c.pixel + w0
+            step_k = (finished & (c.remaining <= 0) & (c.kmx + 1 < pix_mux)
+                      & (next_pix < n_pix) & (next_pix < pix_end))
+            pixel = torch.where(step_k, next_pix, c.pixel)
+            kmx = torch.where(step_k, c.kmx + 1, c.kmx)
+            remaining = torch.where(step_k, spp, c.remaining)
+            regen = finished & (remaining > 0)
+            rd = _primary_dirs(gen, pixel, camera, cfg)
+            # a pixel's next sample advances its ordinal, a new pixel
+            # resets it
+            sord = torch.where(regen, torch.where(step_k, 0, c.sord + 1),
+                               c.sord)
+            out = _State(
+                o=torch.where(regen[:, None], cam_o, o),
+                d=torch.where(regen[:, None], rd, d),
+                tp=torch.where(regen[:, None], 1.0, tp), pixel=pixel,
+                kmx=kmx, bounce=torch.where(regen, 0, bounce),
+                remaining=torch.where(regen, remaining - 1, remaining),
+                sord=sord, active=survive | regen,
+                sample_rad=torch.where(regen[:, None], 0.0, sample_rad),
+                slot_rad=slot_rad, prev_loc=prev_loc,
+                action=torch.where(regen, -1, action))
+        if rec is not None:
+            rec.update(state=c, t=t, tri=tri, mrow=mrow, qpos=qpos, qs=qs,
+                       u=u, eps=eps_lane, sector=sector, pdf=pdf, out=out,
+                       live=act.any())
+        return out
 
     widths = _phase_widths(w0, DRAIN_FACTOR, MIN_DRAIN_W)
     phase_iters = []
+    k = 0                     # the frame's steps so far
+    if cap is not None:
+        cap.w0 = w0
     for i, wp in enumerate(widths):
         w_next = widths[i + 1] if i + 1 < len(widths) else 0
         iters = torch.zeros((), **i64)
         n = 0
-        while n % SYNC_EVERY or any_rank(st.active.sum() > w_next, mesh):
+        while n % SYNC_EVERY or _live_above(st.active, w_next, mesh):
             iters = iters + st.active.any()
-            st = step(st, wp)
+            rec = None if cap is None else cap.want(k, w_next == 0)
+            if rec is not None:
+                rec.update(step=k, phase=i, width=wp)
+            st = step(st, wp, rec)
             n += 1
+            k += 1
         phase_iters.append(iters)
         if w_next:
-            st = _compact(st, wp)
+            with span("trace_frame_deep_wavefront.compact"):
+                st = _compact(st, wp)
             # the tail [w_next:] is dead: flush its banked radiance before
             # slicing it away
-            _flush(image, st.pixel[w_next:], st.kmx[w_next:],
-                   st.slot_rad[w_next:], w0, pix_lo)
+            with span("trace_frame_deep_wavefront.flush"):
+                if cap is not None:
+                    cap.flush(st.pixel[w_next:], st.kmx[w_next:],
+                              st.slot_rad[w_next:])
+                with profiling.host_sync("flush", image, waits=2):
+                    _flush(image, st.pixel[w_next:], st.kmx[w_next:],
+                           st.slot_rad[w_next:], w0, pix_lo)
             st = _State(*(a[:w_next] for a in st))
-    _flush(image, st.pixel, st.kmx, st.slot_rad, w0, pix_lo)
+    with span("trace_frame_deep_wavefront.flush"):
+        if cap is not None:
+            cap.flush(st.pixel, st.kmx, st.slot_rad)
+        with profiling.host_sync("flush", image, waits=2):
+            _flush(image, st.pixel, st.kmx, st.slot_rad, w0, pix_lo)
     stats.update(phase_iterations=torch.stack(phase_iters),
                  phase_widths=tuple(widths))
+    if counting:
+        rec_.counts["deep_wavefront.frames"] += 1
+        rec_.counts["deep_wavefront.steps"] += k
+        rec_.tally("deep_wavefront.iterations",
+                   stats["phase_iterations"].sum())
+    if cap is not None:
+        cap.steps = k
     return image, stats
 
 

@@ -53,6 +53,7 @@ from rlrpt_tpu_torch.ops.intersect_pallas import (closest_hit_pallas_mat,
 from rlrpt_tpu_torch.ops.linalg import make_frame
 from rlrpt_tpu_torch.parallel.mesh import any_rank, psum
 from rlrpt_tpu_torch.scene.scene import AREA_LIGHT, NOTHING, SURFACE, Scene
+from rlrpt_tpu_torch.utils import profiling
 
 ACTIVE, TERMINATED, LEARNING_ONLY = 0, 1, 2
 
@@ -255,7 +256,7 @@ def train_on_batches(net: DQNetwork, opt_state: AdamState, scene: Scene,
                      prev_loc: torch.Tensor, actions: torch.Tensor,
                      tds: torch.Tensor, dl: DeepLearningConfig,
                      weights: torch.Tensor | None = None,
-                     mesh=None) -> torch.Tensor:
+                     mesh=None, on_step=None) -> torch.Tensor:
     """One Adam step per minibatch of dl.batch_size rays, in order (ref:
     neural_q_pathtracer.cu:421-513).  ``weights`` (R,) weight the
     squared errors (the wavefront's pending mask).  A minibatch whose
@@ -269,7 +270,18 @@ def train_on_batches(net: DQNetwork, opt_state: AdamState, scene: Scene,
     same Adam step (or none, when no rank has a live ray) and the
     replicas stay bit-identical.  Every rank must hold as many rays
     (``prev_loc.shape[0]``) and the same ``dl.batch_size``, so all run
-    the same number of minibatches."""
+    the same number of minibatches.
+
+    ``on_step``, if given, is called with no argument after each
+    minibatch's step (taken or skipped): the capture hook of
+    ``deep_wavefront`` copies the state there.
+
+    While a profiler records, the spans ``train_on_batches.grad`` (a
+    minibatch's loss and gradients) and ``.adam`` (its step) time each
+    minibatch, and ``profiling.RECORDER`` counts the minibatches, the
+    rows with a nonzero weight (``train.rows``) and the Adam steps taken
+    (``train.adam_steps``; the rest were skipped), the last two on the
+    device."""
     r = prev_loc.shape[0]
     b = min(dl.batch_size, r)
     if weights is None:
@@ -277,23 +289,35 @@ def train_on_batches(net: DQNetwork, opt_state: AdamState, scene: Scene,
     tds = tds.detach()
     params = list(net.parameters())
     loss_sum = torch.zeros((), dtype=torch.float32, device=tds.device)
+    counting = profiling.recording()
+    if counting:
+        rec = profiling.RECORDER
+        rec.counts["train.minibatches"] += -(-r // b) if b else 0
+        rec.tally("train.rows", (weights != 0).sum())
+        count0 = opt_state.count.clone()
     for s in range(0, r, b):
-        w = weights[s:s + b]
-        loss = td_loss(net, scene, prev_loc[s:s + b], actions[s:s + b],
-                       tds[s:s + b], w, dl)
-        grads = torch.autograd.grad(loss, params)
-        n_live = w.sum()
-        if mesh is not None:
-            flat = psum(torch.cat([g.reshape(-1) for g in grads]
-                                  + [loss.detach().reshape(1),
-                                     n_live.reshape(1)]), mesh)
-            grads = [g.view_as(p) for g, p in
-                     zip(flat[:-2].split([p.numel() for p in params]),
-                         params)]
-            loss, n_live = flat[-2], flat[-1]
-        adam_update(params, grads, opt_state, dl.learning_rate, dl.adam_b1,
-                    dl.adam_b2, dl.adam_eps, live=n_live > 0)
+        with profiling.span("train_on_batches.grad"):
+            w = weights[s:s + b]
+            loss = td_loss(net, scene, prev_loc[s:s + b], actions[s:s + b],
+                           tds[s:s + b], w, dl)
+            grads = torch.autograd.grad(loss, params)
+            n_live = w.sum()
+            if mesh is not None:
+                flat = psum(torch.cat([g.reshape(-1) for g in grads]
+                                      + [loss.detach().reshape(1),
+                                         n_live.reshape(1)]), mesh)
+                grads = [g.view_as(p) for g, p in
+                         zip(flat[:-2].split([p.numel() for p in params]),
+                             params)]
+                loss, n_live = flat[-2], flat[-1]
+        with profiling.span("train_on_batches.adam"):
+            adam_update(params, grads, opt_state, dl.learning_rate,
+                        dl.adam_b1, dl.adam_b2, dl.adam_eps, live=n_live > 0)
+        if on_step is not None:
+            on_step()
         loss_sum = loss_sum + loss.detach()
+    if counting:
+        rec.tally("train.adam_steps", opt_state.count - count0)
     return loss_sum
 
 

@@ -22,7 +22,11 @@ frames with SDL_GetTicks (main.cu:43-49).  Here:
   kernel B2's phase clock, which
   ``ops.guided_mega_train.render_sarsa_mega_train`` fills while a
   profiler records (csrc/mega_train.cu, the timed build); ``b2_shares``
-  reads its phase shares over the blocks that apply.
+  reads its phase shares over the blocks that apply;
+* ``RECORDER`` counts the deep-Q paths' work while a profiler records:
+  host numbers in ``counts`` (frames, steps, minibatches); ``tally`` adds
+  a device one (live iterations, rays, rows forwarded and trained, Adam
+  steps taken) without a wait, and ``tally_values`` reads them once.
 """
 
 from __future__ import annotations
@@ -49,7 +53,9 @@ class Recorder:
     a profiler ran, summed since the last ``reset``: per span name its
     host nanoseconds (``ns``), the same less the spans recorded inside it
     (``self_ns``) and its calls; per site the host waits (``syncs``);
-    per table of ``utils.prep_cache`` its lookups and hits; ``b2_clock``,
+    per table of ``utils.prep_cache`` its lookups and hits; per counter
+    name its host sum (``counts``) or its device sum (``tallies``, an int64
+    tensor each, read by ``tally_values``); ``b2_clock``,
     a (blocks, len(CLOCK_COLS)) int64 tensor on the card that the timed
     B2 adds its blocks' rows into (None until one ran)."""
 
@@ -63,6 +69,8 @@ class Recorder:
         self.syncs: dict[str, int] = defaultdict(int)
         self.lookups: dict[str, int] = defaultdict(int)
         self.hits: dict[str, int] = defaultdict(int)
+        self.counts: dict[str, int] = defaultdict(int)
+        self.tallies: dict[str, torch.Tensor] = {}
         self.b2_clock: torch.Tensor | None = None
         self._open: list[int] = []   # ns of recorded children, per open span
 
@@ -82,6 +90,24 @@ class Recorder:
                 f"{self.b2_clock.device}, not {rows} on {device}: reset the "
                 "recorder before timing another grid")
         return self.b2_clock
+
+    def tally(self, name: str, value: torch.Tensor) -> None:
+        """Add ``value`` (an integer or bool tensor) to the counter
+        ``name`` on its device, with no wait for the card."""
+        acc = self.tallies.get(name)
+        if acc is None:
+            self.tallies[name] = value.detach().to(torch.int64,
+                                                    copy=True).reshape(())
+        else:
+            acc.add_(value.detach().reshape(()))
+
+    def tally_values(self) -> dict[str, int]:
+        """The device counters read on the host: one wait."""
+        if not self.tallies:
+            return {}
+        names = sorted(self.tallies)
+        vals = torch.stack([self.tallies[n] for n in names]).tolist()
+        return dict(zip(names, vals))
 
 
 RECORDER = Recorder()
@@ -142,13 +168,13 @@ def span(name: str):
     return _Span(name)
 
 
-def host_sync(site: str, tensor: torch.Tensor):
+def host_sync(site: str, tensor: torch.Tensor, waits: int = 1):
     """Wraps a place where the host waits for the card on ``tensor``: a
-    span ``sync.<site>`` that counts one wait at ``site``, for a CUDA
-    tensor while a profiler records (nothing for a CPU tensor)."""
+    span ``sync.<site>`` that counts ``waits`` waits at ``site``, for a
+    CUDA tensor while a profiler records (nothing for a CPU tensor)."""
     if not recording() or not tensor.is_cuda:
         return _OFF
-    RECORDER.syncs[site] += 1
+    RECORDER.syncs[site] += waits
     return _Span("sync." + site)
 
 
