@@ -26,7 +26,9 @@ plain twin on the CPU.  The network's parameters and the Adam state are
 updated in place (the JAX functions return new ones); the functions
 return them too, so call sites read alike.  The bounce loop reads its
 continue flag on the host once per bounce (the JAX package decides in a
-while_loop); nothing inside the minibatch loop waits for the host.
+while_loop); inside the minibatch loop only a minibatch width's first
+step on a card waits for the host, when ``train_on_batches`` captures it
+as a CUDA graph.
 Randomness comes from a ``torch.Generator``, so frames match the JAX
 package's in distribution, not per pixel.
 """
@@ -34,6 +36,7 @@ package's in distribution, not per pixel.
 from __future__ import annotations
 
 import math
+import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -252,6 +255,100 @@ def td_loss(net: DQNetwork, scene: Scene, loc: torch.Tensor,
     return torch.sum(weight * (td - qa) ** 2)
 
 
+def _grad_step(net: DQNetwork, scene: Scene, params: list,
+               loc: torch.Tensor, action: torch.Tensor, td: torch.Tensor,
+               w: torch.Tensor, dl: DeepLearningConfig, mesh=None):
+    """One minibatch's loss, gradients and live-ray count; with a
+    ``mesh``, each summed over the ranks in one psum."""
+    loss = td_loss(net, scene, loc, action, td, w, dl)
+    grads = torch.autograd.grad(loss, params)
+    n_live = w.sum()
+    if mesh is not None:
+        flat = psum(torch.cat([g.reshape(-1) for g in grads]
+                              + [loss.detach().reshape(1),
+                                 n_live.reshape(1)]), mesh)
+        grads = [g.view_as(p) for g, p in
+                 zip(flat[:-2].split([p.numel() for p in params]), params)]
+        loss, n_live = flat[-2], flat[-1]
+    return loss, grads, n_live
+
+
+def _adam_step(params: list, grads, opt_state: AdamState, n_live,
+               dl: DeepLearningConfig) -> None:
+    adam_update(params, grads, opt_state, dl.learning_rate, dl.adam_b1,
+                dl.adam_b2, dl.adam_eps, live=n_live > 0)
+
+
+def _eager_step(net, opt_state, scene, params, batch, dl,
+                mesh=None) -> torch.Tensor:
+    """One minibatch's step issued op by op; returns its loss."""
+    with profiling.span("train_on_batches.grad"):
+        loss, grads, n_live = _grad_step(net, scene, params, *batch, dl,
+                                         mesh)
+    with profiling.span("train_on_batches.adam"):
+        _adam_step(params, grads, opt_state, n_live, dl)
+    return loss
+
+
+def _graphed(device: torch.device, mesh) -> bool:
+    """Whether ``train_on_batches`` replays its minibatch steps as CUDA
+    graphs: on a card, without a mesh (a mesh's psum stays eager)."""
+    return device.type == "cuda" and mesh is None
+
+
+class _StepGraph:
+    """One minibatch step (``_grad_step``, then ``_adam_step``) of one
+    width, captured as a CUDA graph in a memory pool of its own.  Its
+    static inputs (loc (b, 3), action (b,), td (b,), weight (b,)) are
+    filled by a copy before each replay; the loss is a static output.
+    The graph reads and writes the parameters, Adam's state and the
+    scene's vertices at the addresses it was captured with."""
+
+    def __init__(self, net, opt_state, scene, params, batch, dl, stream):
+        self.inputs = tuple(torch.empty_like(x) for x in batch)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=stream):
+            loss, grads, n_live = _grad_step(net, scene, params,
+                                             *self.inputs, dl)
+            _adam_step(params, grads, opt_state, n_live, dl)
+        self.loss = loss.detach()
+
+    def __call__(self, batch) -> torch.Tensor:
+        for static, x in zip(self.inputs, batch):
+            static.copy_(x)
+        self.graph.replay()
+        return self.loss
+
+
+#: The captured steps of each Adam state, by the id of its step count,
+#: then by ``_graph_key`` and width; an entry dies with its state, so a
+#: copy of a network captures its own and never replays another's.
+_GRAPHS: dict[int, dict] = {}
+#: The stream each card captures on (and runs a width's first step on).
+_STREAMS: dict[torch.device, torch.cuda.Stream] = {}
+
+
+def _graphs_of(opt_state: AdamState) -> dict:
+    key = id(opt_state.count)
+    graphs = _GRAPHS.get(key)
+    if graphs is None:
+        graphs = _GRAPHS[key] = {}
+        weakref.finalize(opt_state.count, _GRAPHS.pop, key, None)
+    return graphs
+
+
+def _graph_key(params, opt_state: AdamState, scene: Scene,
+               dl: DeepLearningConfig) -> tuple:
+    """What a captured step holds: the addresses of the parameters, the
+    moments, the step count and (for the relative encoding) the scene's
+    vertices, and the rates it was captured with."""
+    held = [*params, *opt_state.mu, *opt_state.nu, opt_state.count]
+    if not dl.train_on_position:
+        held += [scene.v0, scene.v1, scene.v2]
+    return (tuple(t.data_ptr() for t in held), dl.train_on_position,
+            dl.learning_rate, dl.adam_b1, dl.adam_b2, dl.adam_eps)
+
+
 def train_on_batches(net: DQNetwork, opt_state: AdamState, scene: Scene,
                      prev_loc: torch.Tensor, actions: torch.Tensor,
                      tds: torch.Tensor, dl: DeepLearningConfig,
@@ -263,6 +360,13 @@ def train_on_batches(net: DQNetwork, opt_state: AdamState, scene: Scene,
     weights are all zero (padding, or nothing pending) leaves the network
     and the state as they were, decided on the device.  Updates ``net``
     and ``opt_state`` in place; returns the summed loss (a () tensor).
+
+    On a card without a mesh each step is a CUDA graph, one per Adam
+    state and minibatch width (``_StepGraph``): a width's first step runs
+    op by op on the capture stream, then is captured, and its later steps
+    replay the graph, the same kernels in the same order, so the weights
+    are the ones the op-by-op loop gives, bit for bit.  Elsewhere every
+    step runs op by op.
 
     With a ``mesh`` (parallel.mesh) each rank holds its share of every
     global minibatch: one psum per minibatch sums the gradients, the loss
@@ -278,10 +382,13 @@ def train_on_batches(net: DQNetwork, opt_state: AdamState, scene: Scene,
 
     While a profiler records, the spans ``train_on_batches.grad`` (a
     minibatch's loss and gradients) and ``.adam`` (its step) time each
-    minibatch, and ``profiling.RECORDER`` counts the minibatches, the
-    rows with a nonzero weight (``train.rows``) and the Adam steps taken
-    (``train.adam_steps``; the rest were skipped), the last two on the
-    device."""
+    step run op by op, ``.replay`` each replayed one (its input copies
+    and the replay) and ``.capture`` each capture, whose host wait is
+    ``sync.graph_capture``; ``profiling.RECORDER`` counts the
+    minibatches, the replays (``train.graph_replays``), the captures
+    (``train.graph_captures``), the rows with a nonzero weight
+    (``train.rows``) and the Adam steps taken (``train.adam_steps``; the
+    rest were skipped), the last two on the device."""
     r = prev_loc.shape[0]
     b = min(dl.batch_size, r)
     if weights is None:
@@ -295,28 +402,44 @@ def train_on_batches(net: DQNetwork, opt_state: AdamState, scene: Scene,
         rec.counts["train.minibatches"] += -(-r // b) if b else 0
         rec.tally("train.rows", (weights != 0).sum())
         count0 = opt_state.count.clone()
+    graphs = (_graphs_of(opt_state) if _graphed(tds.device, mesh)
+              else None)
+    if graphs is not None:
+        base = _graph_key(params, opt_state, scene, dl)
+        stream = _STREAMS.get(tds.device)
+        if stream is None:
+            stream = _STREAMS[tds.device] = torch.cuda.Stream(tds.device)
+    replays = captures = 0
     for s in range(0, r, b):
-        with profiling.span("train_on_batches.grad"):
-            w = weights[s:s + b]
-            loss = td_loss(net, scene, prev_loc[s:s + b], actions[s:s + b],
-                           tds[s:s + b], w, dl)
-            grads = torch.autograd.grad(loss, params)
-            n_live = w.sum()
-            if mesh is not None:
-                flat = psum(torch.cat([g.reshape(-1) for g in grads]
-                                      + [loss.detach().reshape(1),
-                                         n_live.reshape(1)]), mesh)
-                grads = [g.view_as(p) for g, p in
-                         zip(flat[:-2].split([p.numel() for p in params]),
-                             params)]
-                loss, n_live = flat[-2], flat[-1]
-        with profiling.span("train_on_batches.adam"):
-            adam_update(params, grads, opt_state, dl.learning_rate,
-                        dl.adam_b1, dl.adam_b2, dl.adam_eps, live=n_live > 0)
+        batch = (prev_loc[s:s + b], actions[s:s + b], tds[s:s + b],
+                 weights[s:s + b])
+        if graphs is None:
+            loss = _eager_step(net, opt_state, scene, params, batch, dl,
+                               mesh)
+        elif (key := (base, batch[0].shape[0])) in graphs:
+            with profiling.span("train_on_batches.replay"):
+                loss = graphs[key](batch)
+            replays += 1
+        else:
+            # the real step, on the stream the capture will use, so its
+            # cuBLAS handles and autograd are warm there; then the capture,
+            # which runs nothing
+            main = torch.cuda.current_stream(tds.device)
+            stream.wait_stream(main)
+            with torch.cuda.stream(stream):
+                loss = _eager_step(net, opt_state, scene, params, batch, dl)
+            main.wait_stream(stream)
+            with profiling.span("train_on_batches.capture"), \
+                    profiling.host_sync("graph_capture", tds):
+                graphs[key] = _StepGraph(net, opt_state, scene, params,
+                                         batch, dl, stream)
+            captures += 1
         if on_step is not None:
             on_step()
         loss_sum = loss_sum + loss.detach()
     if counting:
+        rec.counts["train.graph_replays"] += replays
+        rec.counts["train.graph_captures"] += captures
         rec.tally("train.adam_steps", opt_state.count - count0)
     return loss_sum
 

@@ -4,9 +4,12 @@ profiler; with one, every stage's span and counters that equal the
 frames' own aux and Adam state; frames, weights and stats bit for bit the
 same with tracing on or off and with the capture hook armed or not.  On
 the card (``-m chip``), every host wait of a training frame is one the
-program counts, site for site, against torch's sync debug mode."""
+program counts, site for site, against torch's sync debug mode and the
+callers of ``torch.cuda.synchronize`` (which that mode does not see: the
+minibatch graphs' captures wait there)."""
 
 import collections
+import sys
 import warnings
 from pathlib import Path
 
@@ -90,6 +93,9 @@ def test_counters_equal_the_frames_own_aux():
     assert minibatches == 2 * steps
     assert rec.calls["train_on_batches.adam"] == minibatches
     assert rec.calls["train_on_batches.grad"] == minibatches
+    # on the CPU every step runs op by op: no CUDA graph
+    assert rec.counts["train.graph_replays"] == 0
+    assert rec.counts["train.graph_captures"] == 0
     taken = n["train.adam_steps"]
     assert taken == int(state[-1]) - int(count0)
     assert 0 < taken < minibatches          # the first steps have none
@@ -129,13 +135,16 @@ def test_capture_keeps_the_last_live_steps_of_the_final_phase():
     assert rec["qs"].shape == (rec["width"], RL.grid_resolution ** 2)
 
 
-# the file of each counted host wait (the frame torch names in its warning)
+# the file of each counted host wait (the frame torch names in its
+# warning, or the caller of torch.cuda.synchronize, which torch's sync
+# debug mode does not see: torch.cuda.graph's, in torch/cuda/graphs.py)
 SITES = {"mesh.py": "live_count", "sarsa_wavefront.py": "flush",
-         "deep_wavefront.py": "camera", "bvh.py": "bvh_info"}
+         "deep_wavefront.py": "camera", "bvh.py": "bvh_info",
+         "graphs.py": "graph_capture"}
 
 
 @pytest.mark.chip
-def test_every_host_wait_of_a_frame_is_counted():
+def test_every_host_wait_of_a_frame_is_counted(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     cfg = RenderConfig(width=128, height=128, samples_per_pixel=1,
@@ -146,20 +155,31 @@ def test_every_host_wait_of_a_frame_is_counted():
     made = _net("cuda", dl, rl)          # the net's copy to the card
     torch.cuda.synchronize()
     profiling.RECORDER.reset()
+    synchronize, callers = torch.cuda.synchronize, []
+
+    def spy(device=None):
+        callers.append(sys._getframe(1).f_code.co_filename)
+        return synchronize(device)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         torch.cuda.set_sync_debug_mode("warn")
+        monkeypatch.setattr(torch.cuda, "synchronize", spy)
         try:
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
                 _frames(2, "cuda", cfg, dl, rl, made)
         finally:
+            monkeypatch.undo()
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
     seen = collections.Counter(
         SITES.get(Path(w.filename).name, f"{w.filename}:{w.lineno}")
         for w in caught if "synchroniz" in str(w.message))
+    seen.update(SITES.get(Path(f).name, f) for f in callers)
     counted = collections.Counter(profiling.RECORDER.syncs)
-    print(f"host waits of 2 frames: torch's sync debug mode {dict(seen)}, "
-          f"counted {dict(counted)}")
+    print(f"host waits of 2 frames: torch's sync debug mode and "
+          f"torch.cuda.synchronize {dict(seen)}, counted {dict(counted)}")
     assert seen == counted
     assert counted["bvh_info"] == counted["camera"] == 2
+    # the fresh net captures each minibatch width once, in its first frame
+    assert counted["graph_capture"] == (
+        profiling.RECORDER.counts["train.graph_captures"]) > 0
