@@ -16,7 +16,6 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -67,14 +66,6 @@ class TrainParams(ctypes.Structure):
     ]
 
 
-class BuildInfo:
-    """What the one build of this process did (read by chip_smoke.py)."""
-
-    seconds: float | None = None   # None: the library was already built
-    log: str = ""
-    path: Path | None = None
-
-
 _lib: ctypes.CDLL | None = None
 
 
@@ -98,12 +89,10 @@ def library() -> ctypes.CDLL:
     for name in SOURCES + HEADERS:
         digest.update((CSRC / name).read_bytes())
     so = BUILD_DIR / f"librlrpt_mega_{digest.hexdigest()[:16]}.so"
-    BuildInfo.path = so
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         stem = so.with_name(f"{so.stem}.{os.getpid()}")
         nvcc = _nvcc()
-        t0 = time.perf_counter()
         objs, procs = [], []
         for src in SOURCES:
             obj = Path(f"{stem}.{src}.o")
@@ -112,23 +101,19 @@ def library() -> ctypes.CDLL:
             procs.append((cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
-        logs, failed = [], []
+        failed = []
         for cmd, proc in procs:
             out, _ = proc.communicate()
-            logs.append(out)
             if proc.returncode != 0:
                 failed.append(f"{' '.join(cmd)}\n{out}")
         tmp = Path(f"{stem}.so")
         if not failed:
             cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
             proc = subprocess.run(cmd, capture_output=True, text=True)
-            logs.append(proc.stdout + proc.stderr)
             if proc.returncode != 0:
-                failed.append(f"{' '.join(cmd)}\n{logs[-1]}")
+                failed.append(f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
         for obj in objs:
             obj.unlink(missing_ok=True)
-        BuildInfo.seconds = time.perf_counter() - t0
-        BuildInfo.log = "".join(logs)
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         os.replace(tmp, so)

@@ -64,7 +64,6 @@ constexpr int kBlock = 256;
 constexpr int kWarps = kBlock / 32;
 constexpr int kMaxGrid = kBlock;          // block totals: one block's scan
 constexpr int kTrisPerBlock = 128;
-constexpr int kStamps = 3 + 6 * 128;      // the setup's and 128 levels'
 constexpr unsigned kFull = 0xffffffffu;
 // key_of(+inf) and key_of(-inf): the empty minimum and maximum
 constexpr u64 kKeyPlusInf = 0xfff0000000000000ull;
@@ -419,29 +418,16 @@ __device__ void root_leaf(int n, const float* __restrict__ tris,
 //   F  each triangle to its leaf's range of order and tris_sorted, or to
 //      its inner child's range of the next level, with that node's
 //      centroid bounds (a warp's atomics merged by node).
-// stamp() reads the device clock after each barrier when asked
-// (build_phase_ns).
 __global__ void __launch_bounds__(kBlock) bvh_build_kernel(
     int n, const float* __restrict__ tris, float* __restrict__ nodes,
     int* __restrict__ order, float* __restrict__ tris_sorted,
-    int* __restrict__ info, u64* __restrict__ stamps, Work w) {
+    int* __restrict__ info, Work w) {
   cg::grid_group grid = cg::this_grid();
   __shared__ int s_warp[kWarps + 1];
   __shared__ int s_pre[3][kMaxGrid + 1];
   const int g = gridDim.x;
   const int gt = blockIdx.x * kBlock + threadIdx.x, stride = g * kBlock;
   const int lane = threadIdx.x & 31, warp = gt >> 5, n_warps = stride >> 5;
-  int n_stamps = 0;
-  // with stamps: the device clock at the start and after every barrier
-  auto stamp = [&]() {
-    if (stamps != nullptr && gt == 0 && n_stamps < kStamps) {
-      u64 t;
-      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-      stamps[n_stamps] = t;
-    }
-    ++n_stamps;
-  };
-  stamp();
 
   if (n <= kLeafMax) {
     if (gt == 0) root_leaf(n, tris, nodes, order, tris_sorted, info);
@@ -460,7 +446,6 @@ __global__ void __launch_bounds__(kBlock) bvh_build_kernel(
     }
   }
   grid.sync();
-  stamp();
   u64 big = 0ull;   // bits of the largest |corner|: non-negative doubles
                     // order as their bits
   for (int i0 = gt - lane; i0 < n; i0 += stride) {   // warp-uniform
@@ -492,7 +477,6 @@ __global__ void __launch_bounds__(kBlock) bvh_build_kernel(
   }
   if (lane == 0) atomicMax(w.margin, big);
   grid.sync();
-  stamp();
   const double margin =
       __longlong_as_double(static_cast<long long>(__ldcg(w.margin))) *
       kMargin;
@@ -528,13 +512,11 @@ __global__ void __launch_bounds__(kBlock) bvh_build_kernel(
       w.binp[p] = packed;
     }
     grid.sync();
-    stamp();
 
     // C: each node's cut
     for (int j = warp; j < k; j += n_warps)
       sah_split(w, j, __ldcg(count + j), lane);
     grid.sync();
-    stamp();
 
     // D1: sides, and the chunk scans of the right ones
     const int chunk = (m + g - 1) / g;
@@ -560,7 +542,6 @@ __global__ void __launch_bounds__(kBlock) bvh_build_kernel(
       if (threadIdx.x == 0) w.btot[blockIdx.x] = carry;
     }
     grid.sync();
-    stamp();
 
     // D2: the stable partition, the children's boxes and counts, and the
     // chunk scans over the children
@@ -625,7 +606,6 @@ __global__ void __launch_bounds__(kBlock) bvh_build_kernel(
       }
     }
     grid.sync();
-    stamp();
 
     // E: links and boxes of the level's rows, the next level's nodes
     grid_prefix3(w.ctot, s_pre, s_warp);
@@ -661,7 +641,6 @@ __global__ void __launch_bounds__(kBlock) bvh_build_kernel(
     const int leaf_tris = s_pre[0][g], k_next = s_pre[1][g];
     const int m_next = s_pre[2][g];
     grid.sync();
-    stamp();
 
     // F: every triangle to its leaf or to the next level
     for (int q0 = gt - lane; q0 < m; q0 += stride) {   // warp-uniform
@@ -697,7 +676,6 @@ __global__ void __launch_bounds__(kBlock) bvh_build_kernel(
     m = m_next;
     cur ^= 1;
     grid.sync();
-    stamp();
   }
   if (gt == 0) {
     info[0] = n_nodes;
@@ -718,15 +696,12 @@ extern "C" long long rlrpt_bvh_workspace(int n_tris) {
 // (max(n_tris - 1, 1), 16) f32, of which the first info[0] rows are the
 // tree; order (n_tris,) i32; tris_sorted (n_tris, 12) f32; info (2,) i32
 // receives (rows, depth); work: rlrpt_bvh_workspace(n_tris) bytes, no
-// values needed.  stamps: null, or (3 + 6 * 128,) uint64 that receive the
-// device clock (%globaltimer, ns) at the start, after the setup's two
-// barriers and after each of a level's six (the build's phase split; only
-// chip_smoke.py asks for it).  One cooperative launch on `stream`; does
-// not synchronise.  Returns the first CUDA error of the grid query and the
+// values needed.  One cooperative launch on `stream`; does not
+// synchronise.  Returns the first CUDA error of the grid query and the
 // launch, or 0.
 extern "C" int rlrpt_bvh_build(int n_tris, const void* tris, void* nodes,
                                void* order, void* tris_sorted, void* info,
-                               void* work, void* stamps, void* stream) {
+                               void* work, void* stream) {
   int dev = 0, sms = 0, per_sm = 0;
   int err = static_cast<int>(cudaGetDevice(&dev));
   if (err == 0)
@@ -749,8 +724,7 @@ extern "C" int rlrpt_bvh_build(int n_tris, const void* tris, void* nodes,
   int* od = static_cast<int*>(order);
   float* ts = static_cast<float*>(tris_sorted);
   int* inf = static_cast<int*>(info);
-  u64* st = static_cast<u64*>(stamps);
-  void* args[] = {&n, &t, &nd, &od, &ts, &inf, &st, &w};
+  void* args[] = {&n, &t, &nd, &od, &ts, &inf, &w};
   err = static_cast<int>(cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(bvh_build_kernel), dim3(blocks),
       dim3(kBlock), args, 0, static_cast<cudaStream_t>(stream)));

@@ -39,7 +39,7 @@
 // it does no walk.
 //
 // The brute-force sweep stays below as closest_hit_sweep_kernel: no path
-// calls it, and chip_smoke.py uses it as the same-card reference.
+// calls it, and the card tests use it as the same-card reference.
 #include "path_common.cuh"
 
 namespace {

@@ -329,8 +329,8 @@ __device__ __forceinline__ void clock_end(long long* clock) {
 // The whole learning frame; launched cooperatively (grid.sync).  Block b
 // owns per_block slot ids (owned_slot); dynamic shared memory holds the
 // local ids of its live slots (per_block ints).  Eight blocks an SM (1,056
-// on the H100) cap it at 64 registers a thread (chip_smoke.py [1] prints
-// the registers and spills of every kernel).  kTimed adds the phase clock.
+// on the H100) cap it at 64 registers a thread.  kTimed adds the phase
+// clock.
 template <bool kTimed>
 __device__ __forceinline__ void train_frame(const rlrpt::MegaParams& p,
                                             const TrainParams& tp,
@@ -436,12 +436,6 @@ const void* train_kernel_ptr(bool timed) {
                      static_cast<PlainKernel>(train_kernel));
 }
 
-// A kernel of grid barriers only, on train_kernel's grid: their cost.
-__global__ void __launch_bounds__(kBlock) barrier_probe_kernel(int n_syncs) {
-  cg::grid_group grid = cg::this_grid();
-  for (int i = 0; i < n_syncs; ++i) grid.sync();
-}
-
 // train_kernel's grid (the plain or the timed build): the blocks that fit
 // on the card at once with per_block ints of dynamic shared memory each,
 // and no more than the slots need; per_block covers the block's 32-slot
@@ -528,21 +522,4 @@ extern "C" int rlrpt_train_blocks(int n_slots, int* blocks_out) {
   const int err = train_grid(true, n_slots, blocks, per_block, smem);
   if (err == 0) *blocks_out = blocks;
   return err;
-}
-
-// n_syncs grid barriers on the grid rlrpt_mega_train would launch for
-// n_slots slots; *blocks receives its size.  Returns a CUDA error, or 0.
-extern "C" int rlrpt_train_barrier_probe(int n_slots, int n_syncs,
-                                         int* blocks_out, void* stream) {
-  int blocks = 0, per_block = 0;
-  size_t smem = 0;
-  int err = train_grid(false, n_slots, blocks, per_block, smem);
-  if (err != 0) return err;
-  *blocks_out = blocks;
-  void* args[] = {&n_syncs};
-  err = static_cast<int>(cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(barrier_probe_kernel), dim3(blocks),
-      dim3(kBlock), args, 0, static_cast<cudaStream_t>(stream)));
-  const int last = static_cast<int>(cudaGetLastError());
-  return err != 0 ? err : last;
 }

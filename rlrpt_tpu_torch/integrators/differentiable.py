@@ -14,7 +14,7 @@ so gradients are exact for shading and material parameters at fixed path
 geometry.  The gathers are ``index_select``s, whose backward is an
 index_add; advanced indexing's backward, a sorted index_put, is far
 slower on the card when hundreds of thousands of rays hit a few dozen
-triangles (``chip_smoke.py`` [20] times both).
+triangles.
 
 The drawing is split from the tracing: ``render_diff`` draws each
 sample's (H, W, 2) jitter and each bounce's (R, 2) uniforms from its

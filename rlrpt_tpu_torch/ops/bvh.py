@@ -7,13 +7,13 @@ device and deterministically: a CPU table by the numpy build
 (``_build_host``, the tree's definition), a CUDA table by the build
 kernel ``csrc/bvh_build.cu`` (``KERNEL_BUILD``), which makes the same tree
 bit for bit from the table on the card; ``build_bvh_plain`` is that
-kernel's level steps in torch float64 on CPU tensors, for the tests and
-chip_smoke.py.  The kernels walk it one ray a thread (``rlrpt::walk`` in
+kernel's level steps in torch float64 on CPU tensors, for the tests.
+The kernels walk it one ray a thread (``rlrpt::walk`` in
 ``csrc/path_common.cuh``: B4 in ``csrc/closest_hit.cu``, the culled B1
 inside its slot loop in ``csrc/mega_default.cu``) and return what the
 brute-force sweep returns: the same t, triangle index and material row.
 ``closest_hit_bvh_plain`` is the same walk in vectorised torch, for the
-tests, chip_smoke.py and B1's culled twin (``megakernel.walk_hit``).
+tests and B1's culled twin (``megakernel.walk_hit``).
 This is the port's form of the JAX megakernel's AABB cull
 (``rlrpt_tpu/ops/megakernel.py:411-472``), which skips whole
 256-triangle chunks, since a TPU cannot walk a tree; the JAX closest-hit
@@ -66,11 +66,11 @@ FAR_SCALE = float(np.float32(1.0 + 2.0 * (3 * _U) / (1.0 - 3 * _U)))
 # 2^-21 |o - v0| / (sin(corner angle) cos(incidence)), below the margin
 # for |o - v0| <= 4E while sin(corner angle) cos(incidence) >= 2^-9;
 # below that, a loss also needs a second accepted hit within the margin
-# of the first (a shared edge in another leaf), and chip_smoke.py counts
+# of the first (a shared edge in another leaf), and the card tests count
 # 0 differing rays over millions of camera, bounce and grazing rays.
 MARGIN = 2.0 ** -10
 
-BUILDS = 0   # build_bvh calls in this process (chip_smoke.py reads it)
+BUILDS = 0   # build_bvh calls in this process
 
 
 @dataclasses.dataclass(frozen=True)
@@ -181,7 +181,7 @@ def _root_row(lo32, hi32, n: int) -> np.ndarray:
 def _build_host(tris: torch.Tensor) -> Bvh:
     """The numpy build, the tree's definition: a CPU table's build, and
     on the card the build that copies the table to the host (a sync) and
-    the tree back, which chip_smoke.py holds the kernel against."""
+    the tree back, which the card tests hold the kernel against."""
     rows = tris.detach().cpu().numpy()
     n = rows.shape[0]
     v0 = rows[:, 0:3].astype(np.float64)
@@ -283,8 +283,8 @@ def build_bvh_plain(tris: torch.Tensor, levels: list | None = None) -> Bvh:
     counts), the children's boxes from the bins either side of a SAH cut,
     the stable partition and the breadth-first numbering by prefix sums.
     Returns the numpy build's tree bit for bit.  Nothing
-    calls it on a path: the tests and chip_smoke.py hold the kernel and
-    the numpy build to it.  ``levels``: if a list, (inner nodes, their
+    calls it on a path: the tests hold the kernel and the numpy build to
+    it.  ``levels``: if a list, (inner nodes, their
     triangles) of each level are appended to it, the work a bound counts."""
     _check_table(tris)
     if tris.device.type != "cpu":
@@ -416,21 +416,16 @@ def build_bvh_plain(tris: torch.Tensor, levels: list | None = None) -> Bvh:
 
 # ---- the CUDA wrapper -----------------------------------------------------
 
-# n_tris, tris, nodes, order, tris_sorted, info, work, stamps, stream
-_BUILD_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 8
-KERNEL_BUILD = _cuda.Kernel("rlrpt_bvh_build", _BUILD_ARGS)
-# the same kernel asked for its phase clock (build_phase_ns), counted apart
-KERNEL_BUILD_TIMED = _cuda.Kernel("rlrpt_bvh_build", _BUILD_ARGS)
-STAMPS = 3 + 6 * 128   # csrc/bvh_build.cu kStamps
+# n_tris, tris, nodes, order, tris_sorted, info, work, stream
+KERNEL_BUILD = _cuda.Kernel("rlrpt_bvh_build",
+                            [ctypes.c_int] + [ctypes.c_void_p] * 7)
 
 
-def launch_build(tris: torch.Tensor, stamps: torch.Tensor | None = None):
+def launch_build(tris: torch.Tensor):
     """The build kernel on a contiguous CUDA table: returns (nodes (max(T
     - 1, 1), 16), order, tris_sorted, info), info (2,) int32 = (rows of
     nodes in use, depth), all filled on the card's current stream with no
-    host sync.  ``stamps``: a (STAMPS,) int64 CUDA tensor for the phase
-    clock (build_phase_ns), launched as KERNEL_BUILD_TIMED.  Raises
-    ValueError for a table not on a CUDA device."""
+    host sync.  Raises ValueError for a table not on a CUDA device."""
     _check_table(tris)
     if tris.device.type != "cuda":
         raise ValueError(f"no BVH build kernel for device {tris.device}")
@@ -449,33 +444,10 @@ def launch_build(tris: torch.Tensor, stamps: torch.Tensor | None = None):
                        device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        kernel = KERNEL_BUILD if stamps is None else KERNEL_BUILD_TIMED
-        kernel.launch(n, tris.data_ptr(), nodes.data_ptr(), order.data_ptr(),
-                      tris_sorted.data_ptr(), info.data_ptr(),
-                      work.data_ptr(),
-                      0 if stamps is None else stamps.data_ptr(), stream)
+        KERNEL_BUILD.launch(n, tris.data_ptr(), nodes.data_ptr(),
+                            order.data_ptr(), tris_sorted.data_ptr(),
+                            info.data_ptr(), work.data_ptr(), stream)
     return nodes, order, tris_sorted, info
-
-
-def build_phase_ns(tris: torch.Tensor) -> dict:
-    """The build kernel's device time by phase on a CUDA table, from the
-    device clock it reads after every grid barrier (ns, summed over the
-    levels): "setup" (the root and the triangles' boxes and centroids),
-    then each level step's, "bins", "sah", "sides", "partition", "links"
-    and "place" (csrc/bvh_build.cu), and "total".  The card only."""
-    _check_table(tris)
-    if tris.device.type != "cuda" or tris.shape[0] <= LEAF_MAX:
-        raise ValueError("build_phase_ns takes a CUDA table of more than "
-                         f"{LEAF_MAX} triangles")
-    stamps = torch.zeros((STAMPS,), dtype=torch.int64, device=tris.device)
-    info = launch_build(tris.contiguous(), stamps)[3]
-    depth = int(info[1])
-    t = stamps[:3 + 6 * min(depth, 128)].cpu().numpy()
-    steps = np.diff(t[2:]).reshape(-1, 6).sum(axis=0)
-    names = ("bins", "sah", "sides", "partition", "links", "place")
-    out = {"setup": int(t[2] - t[0]), **dict(zip(names, map(int, steps)))}
-    out["total"] = int(t[-1] - t[0])
-    return out
 
 
 def build_bvh(tris: torch.Tensor) -> Bvh:
@@ -522,7 +494,7 @@ def closest_hit_bvh_plain(o: torch.Tensor, d: torch.Tensor, bvh: Bvh,
     tests (R,) int32): closest_hit_plain's outputs, which these equal bit
     for bit, then each ray's inner-node visits (two box tests each) and
     ray-triangle tests.  Rays at index >= active_count are misses with no
-    visits.  Used by the tests, chip_smoke.py and B1's culled twin
+    visits.  Used by the tests and B1's culled twin
     (megakernel.walk_hit)."""
     r = o.shape[0]
     live = max(min(int(active_count), r), 0)

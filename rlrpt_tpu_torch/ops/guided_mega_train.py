@@ -393,24 +393,6 @@ def mega_train_frame(seed: int, cam: tuple, tris: torch.Tensor,
     return rad, path_sum, iters, q_out, v_out, td
 
 
-def barrier_probe(n_slots: int, n_syncs: int, device) -> int:
-    """Launch ``n_syncs`` grid barriers alone on the cooperative grid that
-    kernel B2 takes for ``n_slots`` slots (to time the barrier); returns
-    the grid's block count.  Not a kernel of any path: it is not
-    counted."""
-    lib = _cuda.library()
-    fn = lib.rlrpt_train_barrier_probe
-    fn.argtypes = [ctypes.c_int, ctypes.c_int,
-                   ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    blocks = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        _check_error(lib, "rlrpt_train_barrier_probe",
-                     fn(n_slots, n_syncs, ctypes.byref(blocks),
-                        torch.cuda.current_stream().cuda_stream))
-    return blocks.value
-
-
 def render_sarsa_mega_train(seed: int, scene: Scene, camera: Camera,
                             table: TriBinCDF, q: torch.Tensor,
                             visits: torch.Tensor, cfg: RenderConfig,

@@ -181,8 +181,8 @@ def closest_hit_sweep(o: torch.Tensor, d: torch.Tensor, tris: torch.Tensor,
     """The brute-force closest-hit kernel (every ray against every
     triangle, in 256-triangle shared-memory tiles), which the BVH walk
     replaced.  No path calls it and its launches do not count as B4's:
-    chip_smoke.py alone uses it, as a full-width reference on the same card
-    and to time the walk against, in turns.  Returns closest_hit_packed's
+    the card tests alone use it, as a full-width reference on the same
+    card.  Returns closest_hit_packed's
     outputs, and the rows with ``mat``; the plain twin on the CPU."""
     _check(o, d, tris, mat)
     if o.device.type == "cpu":

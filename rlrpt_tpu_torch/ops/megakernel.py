@@ -17,8 +17,8 @@ Two implementations of one frame function:
   (``csrc/mega_default.cu``).  On a CUDA tensor it launches the kernel
   (or raises); on a CPU tensor it runs the plain twin.
 * ``mega_default_frame_plain`` — the plain torch twin: the same step
-  algebra, vectorised over slots.  The CPU tests and chip_smoke.py hold
-  the kernel against it.
+  algebra, vectorised over slots.  The tests hold the kernel against it
+  on the card.
 
 The JAX launcher's AABB chunk cull (``cull``: on by default for a scene
 of more than one 256-triangle chunk, and forced off for one chunk) is

@@ -72,33 +72,6 @@ from rlrpt_tpu_torch.utils.image import mape_score
 BLOCK = 128        # csrc/path_common.cuh kBlock: slots per CUDA block
 WARP = 32
 
-# The least time the card could take for a kernel's work (bound_ms): the
-# larger of its f32 operations over the H100 SXM's 67 TFLOP/s (no tensor
-# cores; an FMA counts as two) and its bytes (each input read once, each
-# output written once) over 3.35 TB/s.  Counted from the sources, per
-# segment traced (a closest hit and the bounce after it):
-PEAK_F32 = 67e12
-PEAK_BYTES = 3.35e12
-MT_OPS = 50   # f32 operations of one ray-triangle test: 46 adds and
-#             # multiplies, 4 compares (csrc/path_common.cuh:hit_tris; the
-#             # division of a hit aside)
-SEGMENT_OPS = {   # f32 operations of a step besides the hit test
-    "B1": 75,     # uniforms, hemisphere frame and direction, throughput,
-    #             # next origin (advance + UniformSampler)
-    "B3": 125,    # the same with CdfSampler: bin column, ~7 probes, pdf,
-    #             # concentric map
-    "B3 uniform": 111,   # B3's without the bin column, the probes and the
-    #                    # pdf's two entries; a uniform sector and its pdf
-    #                    # (AblateSampler<false>)
-    "B3 fetch": 119,     # "uniform"'s plus the bin column and the first
-    #                    # entry folded into the sector (AblateSampler<true>)
-    "B2": 131,    # B3's plus the TD target and the pending brdf
-}
-APPLY_OPS = 10    # f32 operations per (sector, column) cell per iteration
-BOX_OPS = 26      # f32 operations of one slab test in the BVH walk: 6
-#                 # subtracts, 6 multiplies, 10 min/max, the far scale, 3
-#                 # compares (csrc/path_common.cuh:box_near and its callers);
-#                 # a visited inner node tests its two children's boxes
 # (spp, pix_mux, r_tile); r_tile 1024 / pix_mux 32 is the JAX bench.py choice
 B1_POINTS = [(spp, pm, 128) for spp in (1, 32) for pm in (1, 2, 4, 8)]
 B1_POINTS += [(1, 32, 1024), (32, 32, 1024)]
@@ -218,42 +191,6 @@ def lane_efficiency(iters: torch.Tensor, group: int) -> float:
     return float(it.sum()) / float(group * it.max(dim=1).values.sum())
 
 
-def bound_ms(ops: float, nbytes: float) -> tuple[float, str]:
-    """(least time in ms, what sets it) for ops f32 operations and nbytes
-    of device memory traffic."""
-    t_ops, t_bytes = ops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
-def frame_bound(kernel: str, out, n_tris: int, table_bytes: int = 0,
-                extra_ops: float = 0.0) -> tuple[float, str]:
-    """bound_ms of a megakernel frame from its own outputs: segments =
-    the sum of path_sum (every step of every path); bytes = the tables
-    read and rad, path_sum, iters written."""
-    rad, path_sum, iters = out[:3]
-    segments = float(path_sum.double().sum())
-    ops = segments * (MT_OPS * n_tris + SEGMENT_OPS[kernel]) + extra_ops
-    nbytes = (n_tris * (48 + 64) + table_bytes + rad.numel() * 4
-              + path_sum.numel() * 4 + iters.numel() * 4)
-    return bound_ms(ops, nbytes)
-
-
-def walk_frame_bound(out, bvh, visits: int, tests: int) -> tuple[float,
-                                                                   str]:
-    """bound_ms of a culled B1 frame (the walk in the slot loop), counted
-    as B4's: its walks' inner-node visits (two box tests each) and
-    triangle tests (megakernel.walk_counts), plus each segment's own step;
-    bytes = the tree, the permuted table, its order and the material rows
-    read once, and rad, path_sum, iters written."""
-    rad, path_sum, iters = out[:3]
-    segments = float(path_sum.double().sum())
-    ops = (visits * 2 * BOX_OPS + tests * MT_OPS
-           + segments * SEGMENT_OPS["B1"])
-    nbytes = (bvh.nodes.numel() * 4 + bvh.n_tris * (48 + 4 + 64)
-              + rad.numel() * 4 + path_sum.numel() * 4 + iters.numel() * 4)
-    return bound_ms(ops, nbytes)
-
-
 def card_state() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,power.draw,"
@@ -270,29 +207,6 @@ def kernel_ms(fn, reps: int) -> float:
     start.record()
     for _ in range(reps):
         fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def graph_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over reps launches captured in one CUDA
-    graph and replayed, after one warm-up: no host time falls between the
-    launches, so a kernel shorter than its wrapper's host time is timed by
-    the device, where kernel_ms would time the host.  fn must be
-    capturable: device tensors only, no host sync."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps

@@ -4,10 +4,10 @@ CUDA card.
     python -m rlrpt_tpu_torch.tools.sarsa_fast_profile [--rounds N]
         [--no-profile]
 
-At the fine-map point of ``chip_smoke.py`` phase 11 (Cornell box,
-720x720, 8 spp, 80-bounce cap, area_per_sample 0.001, pix_mux 4) it
-builds the volume set and its answer table once (their seconds are
-printed, and are in no frame's), runs WARM learning frames of
+At the fine-map point (Cornell box, 720x720, 8 spp, 80-bounce cap,
+area_per_sample 0.001, pix_mux 4) it builds the volume set and its
+answer table once (their seconds are printed, and are in no frame's),
+runs WARM learning frames of
 ``render_frame_sarsa_wavefront`` and then:
 
 * profiles one learning frame with torch.profiler.  Device busy time is

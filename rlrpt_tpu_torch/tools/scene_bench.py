@@ -20,15 +20,8 @@ sec_per_frame (host clock around render_default_mega, packing, the
 tree's build and assembly included, fenced by a synchronize),
 avg_path_length, rays_per_sec, ray_tri_tests_per_sec (the brute force's
 tests a second: rays x T, culled or not) and, on the card, kernel_ms
-(CUDA events around B1's launches on the same tables and tree) and
-bound_share: bound_ms over kernel_ms.  bound_ms is the sweep's operations
-bound (``mega_sweep.frame_bound``: 50 f32 operations per ray-triangle
-test plus the segment's own, at 67 TFLOP/s) on an off row, and on an on
-row the counted bound of the walks (``mega_sweep.walk_frame_bound``: 26
-f32 operations a box test and 50 a triangle test, counted by the
-count-only build of the culled kernel, plus the segment's own; or the
-bytes at 3.35 TB/s, whichever is larger).  On the CPU kernel_ms,
-bound_ms and bound_share are null: the twin's time is no device metric.
+(CUDA events around B1's launches on the same tables and tree).  On the
+CPU kernel_ms is null: the twin's time is no device metric.
 The card's name and power limit are printed first.  ``bench_scene``
 times one Scene and camera, so callers can bench a scene that is no
 preset.
@@ -48,8 +41,7 @@ from rlrpt_tpu_torch.ops import megakernel as mk
 from rlrpt_tpu_torch.scene import presets
 from rlrpt_tpu_torch.scene.scene import Scene, morton_sort_surfaces
 from rlrpt_tpu_torch.ops.bvh import build_bvh
-from rlrpt_tpu_torch.tools.mega_sweep import (card_state, frame_bound,
-                                              kernel_ms, walk_frame_bound)
+from rlrpt_tpu_torch.tools.mega_sweep import card_state, kernel_ms
 
 
 def bench_scene(name: str, scene: Scene, camera: Camera, cfg: RenderConfig,
@@ -90,7 +82,7 @@ def bench_scene(name: str, scene: Scene, camera: Camera, cfg: RenderConfig,
            "sec_per_frame": dt, "avg_path_length": plen,
            "rays_per_sec": rays / dt,
            "ray_tri_tests_per_sec": rays * n_tris / dt,
-           "kernel_ms": None, "bound_ms": None, "bound_share": None,
+           "kernel_ms": None,
            "device": (torch.cuda.get_device_name(device) if cuda
                       else "cpu")}
     if cuda:
@@ -99,14 +91,8 @@ def bench_scene(name: str, scene: Scene, camera: Camera, cfg: RenderConfig,
         n_slots = mk.n_slots_for(cfg.n_pixels, r_tile, pix_mux)
         args = (seed, cam, tris, mat, cfg, n_slots, pix_mux)
         tree = build_bvh(tris) if cull else None
-        out = mk.mega_default_frame(*args, tree)
-        if cull:
-            bound, _ = walk_frame_bound(out, tree,
-                                        *mk.walk_counts(*args, tree))
-        else:
-            bound, _ = frame_bound("B1", out, n_tris)
-        ms = kernel_ms(lambda: mk.mega_default_frame(*args, tree), frames)
-        row.update(kernel_ms=ms, bound_ms=bound, bound_share=bound / ms)
+        row["kernel_ms"] = kernel_ms(
+            lambda: mk.mega_default_frame(*args, tree), frames)
     return row
 
 

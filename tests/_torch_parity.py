@@ -2,6 +2,12 @@
 
 Inputs are made with numpy from fixed seeds and handed to both packages;
 the JAX megakernels run in interpret mode at precision="highest".
+
+The card cases (marked ``chip``, taking the ``card`` fixture) hold each
+CUDA kernel against its torch twin on the card and skip without one; they
+build their inputs with the port alone.  Run them on the card with
+``python -m pytest -m chip tests/test_torch_*.py``; tests/conftest.py
+keeps JAX on the CPU there too.
 """
 
 import jax
@@ -14,6 +20,9 @@ from rlrpt_tpu.scene import build_scene as jax_build_scene
 from rlrpt_tpu.scene import cornell_box as jax_cornell_box
 from rlrpt_tpu.scene import obj_importer as jobj
 from rlrpt_tpu.scene import presets as jpresets
+from rlrpt_tpu_torch.ops.guided_mega_train import init_bin_q
+from rlrpt_tpu_torch.scene import build_scene, cornell_box, generated, presets
+from rlrpt_tpu_torch.scene.scene import morton_sort_surfaces
 from rlrpt_tpu_torch.utils.convert import scene_from_numpy
 
 
@@ -25,6 +34,37 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="session")
+def card():
+    """The CUDA card; a case that takes it skips where torch sees none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="session")
+def card_scenes(card, tmp_path_factory):
+    """name -> a scene of the card cases, on the card: the Cornell box,
+    clutter_scene, the test room and the generated torus room at
+    bunny.obj's size (4,980 triangles), also Morton-sorted."""
+    torus = generated.torus_room(
+        tmp_path_factory.mktemp("torus") / "torus_room.obj",
+        *generated.BUNNY_SIZE)
+    room = torus.load(device=card)
+    return {"cornell": cornell_box(device=card),
+            "clutter": clutter_scene(card),
+            "test_room": presets.load_scene("test_room", device=card),
+            "torus_room": room,
+            "torus_room_morton": morton_sort_surfaces(room)}
+
+
+def assert_same_frame(a, b) -> None:
+    """Two megakernel frames' rad, path_sum and iters, bit for bit."""
+    for name, x, y in zip(("rad", "path_sum", "iters"), a, b):
+        assert torch.equal(x, y), name
+    assert float(a[1].double().sum()) > 0
 
 
 def kernel_seed(key) -> int:
@@ -52,11 +92,9 @@ def jax_preset(p):
         light_power=p.light_power, flip_winding=p.flip_winding)
 
 
-def cornell_plus_clutter(n_extra: int = 250, seed: int = 7):
-    """The Cornell box plus `n_extra` small random surface triangles inside
-    it (JAX scene): 288 triangles pad to 512, two 256-triangle chunks, so
-    the JAX launcher takes its streaming multi-chunk (AABB-culled) path."""
-    c = jax_cornell_box()
+def _clutter(c, n_extra: int, seed: int) -> tuple:
+    """build_scene's arguments for a Cornell box ``c`` (either package's)
+    plus `n_extra` small random surface triangles inside it."""
     ns = c.n_surfaces
     rng = np.random.default_rng(seed)
     cen = rng.uniform(-0.9, 0.9, (n_extra, 3)).astype(np.float32)
@@ -64,12 +102,33 @@ def cornell_plus_clutter(n_extra: int = 250, seed: int = 7):
         np.float32)
     rgb = rng.uniform(0.1, 0.9, (n_extra, 3)).astype(np.float32)
     a = np.asarray
-    return jax_build_scene(
-        np.concatenate([a(c.v0)[:ns], tri[:, 0]]),
-        np.concatenate([a(c.v1)[:ns], tri[:, 1]]),
-        np.concatenate([a(c.v2)[:ns], tri[:, 2]]),
-        np.concatenate([a(c.diffuse_c)[:ns], rgb]),
-        a(c.v0)[ns:], a(c.v1)[ns:], a(c.v2)[ns:], a(c.emission)[ns:])
+    return (np.concatenate([a(c.v0)[:ns], tri[:, 0]]),
+            np.concatenate([a(c.v1)[:ns], tri[:, 1]]),
+            np.concatenate([a(c.v2)[:ns], tri[:, 2]]),
+            np.concatenate([a(c.diffuse_c)[:ns], rgb]),
+            a(c.v0)[ns:], a(c.v1)[ns:], a(c.v2)[ns:], a(c.emission)[ns:])
+
+
+def cornell_plus_clutter(n_extra: int = 250, seed: int = 7):
+    """The Cornell box plus `n_extra` small random surface triangles inside
+    it (JAX scene): 288 triangles pad to 512, two 256-triangle chunks, so
+    the JAX launcher takes its streaming multi-chunk (AABB-culled) path."""
+    return jax_build_scene(*_clutter(jax_cornell_box(), n_extra, seed))
+
+
+def clutter_scene(device="cpu"):
+    """cornell_plus_clutter built by the port alone, on ``device``."""
+    return build_scene(*_clutter(cornell_box(device="cpu"), 250, 7),
+                       device=device)
+
+
+def skewed_q(t_pad: int, uv_bins: int, skew: float, device="cpu"):
+    """The initial binned Q (11x11 sectors, radiance 100/121) skewed per
+    entry by exp(skew * U[0, 1)) from numpy seed 3."""
+    q, _ = init_bin_q(t_pad, uv_bins, 11, 100.0 / 121, device="cpu")
+    u = np.random.default_rng(3).random(q.shape)
+    return (q * torch.from_numpy(np.exp(skew * u).astype(np.float32))).to(
+        device)
 
 
 def assert_frame_parity(img_t, aux_t, img_j, aux_j):

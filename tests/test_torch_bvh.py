@@ -1,7 +1,8 @@
 """The closest-hit kernel's bounding-volume hierarchy (rlrpt_tpu_torch/ops/
 bvh.py): the build's invariants, and its plain walk held bit for bit
 against the brute-force twin ``closest_hit_plain`` (t, index and material
-rows), which chip_smoke.py holds against the CUDA kernel on the card.
+rows), which tests/test_torch_intersect_pallas.py holds against the CUDA
+kernel on the card.
 
 Scenes: no triangle, one, two identical ones, the Cornell box, the test
 room, the generated torus room at 12 x 12 quads (300 triangles, two

@@ -1,16 +1,17 @@
 """The BVH build kernel's plain version (rlrpt_tpu_torch/ops/bvh.py:
 build_bvh_plain, the level steps of csrc/bvh_build.cu in torch float64)
 held bit for bit against the numpy build (``_build_host``, the tree's
-definition): the nodes' bits, order, tris_sorted and depth.  chip_smoke.py
-holds the kernel to both on the card.  The JAX package builds no tree (its
+definition): the nodes' bits, order, tris_sorted and depth.  On the card
+(``-m chip``) the kernel is held to both on every table below and on
+soups of up to 20,000 triangles.  The JAX package builds no tree (its
 culled megakernel computes 256-triangle chunk boxes instead), so no case
 here runs JAX.
 
 Tables: the Cornell box, the test room, the Cornell box plus 250 small
-triangles as chip_smoke.py's clutter_scene makes it, and the generated
-torus room at bunny.obj's size (4,980 triangles); T in {0, 1, 4, 5};
-triangles whose centroids all coincide; zero-area triangles; duplicated
-triangles; negative zeros; and triangle soups drawn by hypothesis.
+triangles (``clutter_scene``), and the generated torus room at bunny.obj's
+size (4,980 triangles), also Morton-sorted; T in {0, 1, 4, 5}; triangles
+whose centroids all coincide; zero-area triangles; duplicated triangles;
+negative zeros; and triangle soups drawn by hypothesis.
 """
 
 import numpy as np
@@ -23,8 +24,9 @@ from hypothesis.extra import numpy as hnp
 from rlrpt_tpu_torch import _cuda
 from rlrpt_tpu_torch.ops import bvh as bv
 from rlrpt_tpu_torch.ops import intersect_pallas as ip
-from rlrpt_tpu_torch.scene import build_scene, cornell_box, generated, presets
-from _torch_parity import one_torch_thread  # noqa: F401
+from rlrpt_tpu_torch.scene import generated, presets
+from rlrpt_tpu_torch.scene.scene import morton_sort_surfaces
+from _torch_parity import card, clutter_scene, one_torch_thread  # noqa: F401
 
 
 def _rows(v0, v1, v2):
@@ -34,26 +36,6 @@ def _rows(v0, v1, v2):
     z = np.zeros((v0.shape[0], 1), np.float32)
     return torch.from_numpy(np.concatenate([v0, z, v1 - v0, z, v2 - v0, z],
                                            axis=1))
-
-
-def _clutter():
-    """chip_smoke.py's clutter_scene: the Cornell box plus 250 small
-    random triangles (numpy seed 7), 288 triangles."""
-    c = cornell_box(device="cpu")
-    ns = c.n_surfaces
-    rng = np.random.default_rng(7)
-    cen = rng.uniform(-0.9, 0.9, (250, 3)).astype(np.float32)
-    tri = cen[:, None, :] + rng.normal(0, 0.03, (250, 3, 3)).astype(
-        np.float32)
-    rgb = rng.uniform(0.1, 0.9, (250, 3)).astype(np.float32)
-    a = lambda t: t.numpy()  # noqa: E731
-    return build_scene(
-        np.concatenate([a(c.v0)[:ns], tri[:, 0]]),
-        np.concatenate([a(c.v1)[:ns], tri[:, 1]]),
-        np.concatenate([a(c.v2)[:ns], tri[:, 2]]),
-        np.concatenate([a(c.diffuse_c)[:ns], rgb]),
-        a(c.v0)[ns:], a(c.v1)[ns:], a(c.v2)[ns:], a(c.emission)[ns:],
-        device="cpu")
 
 
 def _coincident(n, seed):
@@ -103,18 +85,21 @@ def scenes(tmp_path_factory):
         *generated.BUNNY_SIZE)
     out = {name: ip.pack_triangles(presets.load_scene(name, device="cpu"))
            for name in ("cornell", "test_room")}
-    out["clutter"] = ip.pack_triangles(_clutter())
-    out["torus_room"] = ip.pack_triangles(torus.load(device="cpu"))
+    out["clutter"] = ip.pack_triangles(clutter_scene())
+    room = torus.load(device="cpu")
+    out["torus_room"] = ip.pack_triangles(room)
+    out["torus_room_morton"] = ip.pack_triangles(morton_sort_surfaces(room))
     return out
 
 
 def _assert_same(a: bv.Bvh, b: bv.Bvh) -> None:
+    """The same tree bit for bit, on any devices."""
+    bits = lambda t: t.cpu().view(torch.int32)  # noqa: E731
     assert a.nodes.shape == b.nodes.shape
-    assert torch.equal(a.nodes.view(torch.int32), b.nodes.view(torch.int32))
+    assert torch.equal(bits(a.nodes), bits(b.nodes))
     assert a.order.dtype == b.order.dtype == torch.int32
-    assert torch.equal(a.order, b.order)
-    assert torch.equal(a.tris_sorted.view(torch.int32),
-                       b.tris_sorted.view(torch.int32))
+    assert torch.equal(a.order.cpu(), b.order.cpu())
+    assert torch.equal(bits(a.tris_sorted), bits(b.tris_sorted))
     assert a.depth == b.depth
 
 
@@ -143,6 +128,37 @@ def test_plain_equals_numpy_on_edge_cases(name):
     if name.startswith("coincident"):
         # every centroid at one point: a split by index at each level
         assert plain.depth == int(np.ceil(np.log2(tris.shape[0] / 4)))
+
+
+def _soup(n, grid=0):
+    """n triangles of normal corners (numpy seed n), on a 1/grid grid when
+    ``grid`` (ties in the bins and the SAH costs)."""
+    c = np.random.default_rng(n).normal(size=(n, 3, 3))
+    if grid:
+        c = np.round(c * grid) / grid
+    return _rows(c[:, 0], c[:, 1], c[:, 2])
+
+
+SOUPS = {"normal_37": (37, 0), "grid8_300": (300, 8),
+         "normal_2000": (2000, 0), "grid16_20000": (20000, 16)}
+
+
+@pytest.mark.chip
+@pytest.mark.parametrize("name", ["cornell", "test_room", "clutter",
+                                  "torus_room", "torus_room_morton", *EDGE,
+                                  *SOUPS])
+def test_kernel_builds_the_numpy_tree_on_the_card(card, scenes, name):
+    """build_bvh on a CUDA table (the build kernel) gives the numpy
+    build's and build_bvh_plain's tree, bit for bit."""
+    tris = (scenes[name] if name in scenes else
+            _soup(*SOUPS[name]) if name in SOUPS else _edge_table(name))
+    host = bv.build_bvh(tris)
+    _assert_same(bv.build_bvh_plain(tris), host)
+    before = bv.KERNEL_BUILD.launches
+    kern = bv.build_bvh(tris.to(card))
+    assert bv.KERNEL_BUILD.launches == before + 1
+    assert kern.nodes.device.type == "cuda"
+    _assert_same(kern, host)
 
 
 @settings(max_examples=100, deadline=None)
@@ -197,7 +213,7 @@ def test_walk_simt_counts_need_the_card(scenes):
     tables it refuses them and still gives the twin's visits and tests."""
     from rlrpt_tpu_torch.config import RenderConfig
     from rlrpt_tpu_torch.ops import megakernel as mk
-    tris, mat = mk.pack_scene(_clutter())
+    tris, mat = mk.pack_scene(clutter_scene())
     cfg = RenderConfig(width=8, height=8, samples_per_pixel=1,
                        max_ray_bounces=4)
     args = (3, (0.0, 0.0, -3.0, 1.0, 0.0, 1.0, 0.0), tris, mat, cfg,

@@ -24,6 +24,7 @@ from rlrpt_tpu_torch.deep import deep_wavefront as dw
 from rlrpt_tpu_torch.deep import neural_q as nq
 from rlrpt_tpu_torch.scene import cornell_box
 from rlrpt_tpu_torch.utils import profiling
+from _torch_parity import card  # noqa: F401
 
 CFG = RenderConfig(width=16, height=16, samples_per_pixel=1,
                    max_ray_bounces=5)
@@ -144,9 +145,7 @@ SITES = {"mesh.py": "live_count", "sarsa_wavefront.py": "flush",
 
 
 @pytest.mark.chip
-def test_every_host_wait_of_a_frame_is_counted(monkeypatch):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
+def test_every_host_wait_of_a_frame_is_counted(card, monkeypatch):
     cfg = RenderConfig(width=128, height=128, samples_per_pixel=1,
                        max_ray_bounces=80)
     dl = DeepLearningConfig()

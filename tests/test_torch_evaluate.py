@@ -6,8 +6,7 @@ against one shared GT falls among JAX's over four keys, and --append
 merges as JAX's does (tests/test_evaluate.py:31).
 
 Small sizes: the JAX smoke size (32 px, GT 16 spp, tests of 8 spp, 6
-bounces), the port on its plain twins.  The learned rows' MAPEs are held
-on the card (chip_smoke.py [19]), where the protocol runs at full size.
+bounces), the port on its plain twins.
 """
 
 import ast
@@ -132,7 +131,7 @@ def test_rows_and_keys_match_jax():
             assert r["spp"] == 8
     guided = next(r for r in rows if r["method"] == "sarsa_guided")
     assert guided["uv_bins"] == 4 and guided["sector_grid"] == 11
-    # the budget rows' keys too (run on the card, chip_smoke.py [19])
+    # the budget rows' keys too
     assert set(jax_keys) == set(JAX_METHODS) | {"sarsa_mega_budget",
                                                 "default_budget"}
 

@@ -4,8 +4,9 @@ host helpers vs rlrpt_tpu.
 The CDF rebuild agrees to 1 bf16 ulp (torch's sum and scan round in
 another order than XLA's); the guided twin draws the JAX kernel's
 samples, so images agree per pixel up to paths where f32 rounding flips a
-hit or a uv bin.  The CUDA kernel is held against the twin on the
-card by chip_smoke.py.
+hit or a uv bin.  On the card (``-m chip``) the CUDA kernel and its two
+``ablate`` builds give the twin's frame bit for bit, and a CUDA table
+with a decreasing column is refused before any launch.
 """
 
 import jax
@@ -27,11 +28,34 @@ from rlrpt_tpu_torch.ops import megakernel as mk
 from rlrpt_tpu_torch.scene import cornell_box
 from rlrpt_tpu_torch.utils.convert import (bin_q_from_numpy,
                                            tri_bin_cdf_from_numpy)
-from _torch_parity import (assert_frame_parity, cornell_plus_clutter,  # noqa: F401
-                           kernel_seed, one_torch_thread, torch_scene)
+from _torch_parity import (assert_frame_parity, assert_same_frame,  # noqa: F401
+                           card, card_scenes, cornell_plus_clutter,
+                           kernel_seed, one_torch_thread, skewed_q,
+                           torch_scene)
 
 CAM = (0.0, 0.0, -3.0)
 T_PAD = 40            # cornell: 38 triangles
+SMALL = dict(width=64, height=64, samples_per_pixel=4, max_ray_bounces=10)
+MAIN = dict(width=720, height=720, samples_per_pixel=32, max_ray_bounces=80)
+# the card cases: (scene, uv_bins, skew of the table's Q, RenderConfig
+# keywords, r_tile, pix_mux, seed, ablate); "main_path" is the learning
+# job's guided frame at the launcher's r_tile and pix_mux
+CARD_CASES = {
+    "initial": ("cornell", 4, 0.0, SMALL, 128, 1, 777, "none"),
+    "skewed": ("cornell", 4, 3.0, SMALL, 128, 1, 777, "none"),
+    "clutter_skewed": ("clutter", 4, 3.0, SMALL, 128, 1, 777, "none"),
+    "test_room_skewed": ("test_room", 4, 3.0, dict(SMALL, max_ray_bounces=80),
+                         128, 1, 32, "none"),
+    "torus_room_per_triangle": ("torus_room", 1, 3.0, dict(
+        SMALL, samples_per_pixel=2, max_ray_bounces=80), 128, 1, 42, "none"),
+    "main_path": ("cornell", 4, 0.0, MAIN, mk.R_TILE, mk.PIX_MUX, 6, "none"),
+    **{f"{m}_{size}": ("cornell", 4, 0.0, kw, mk.R_TILE, mk.PIX_MUX, seed, m)
+       for m in ("uniform", "fetch")
+       for size, kw, seed in (
+           ("128", dict(width=128, height=128, samples_per_pixel=4,
+                        max_ray_bounces=80), 31),
+           ("main_path", MAIN, 6))},
+}
 
 
 def _q(uv_bins: int, sector_grid: int, skew: float = 0.0, seed: int = 0):
@@ -159,6 +183,45 @@ def test_ablate_modes_checked():
     for a, b in zip(out["uniform"], out["fetch"]):
         assert torch.equal(a, b)
     assert not torch.equal(out["none"][0], out["uniform"][0])
+
+
+def _card_frame(card_scenes, name, uv_bins, skew, kw, r_tile, pix_mux):
+    """mega_guided_frame's arguments after the seed for a card case: the
+    scene's tables and its skewed table, on the card."""
+    scene = card_scenes[name]
+    t_pad = mk._t_pad(scene.n_triangles)
+    cfg = RenderConfig(**kw)
+    table = gt.rebuild_bin_cdf(skewed_q(t_pad, uv_bins, skew, scene.v0.device),
+                               11, uv_bins, t_pad)
+    tris, mat = mk.pack_scene(scene)
+    return (mk.camera_vector(Camera.create(CAM)), tris, mat,
+            table.cdf.T.contiguous(), 11, uv_bins, cfg,
+            mk.n_slots_for(cfg.n_pixels, r_tile, pix_mux), pix_mux)
+
+
+@pytest.mark.chip
+@pytest.mark.parametrize("case", list(CARD_CASES))
+def test_kernel_is_the_twin_on_the_card(card_scenes, case):
+    *frame, seed, ablate = CARD_CASES[case]
+    args = (seed, *_card_frame(card_scenes, *frame))
+    kernel = gm._KERNELS[ablate]
+    before = kernel.launches
+    out = gm.mega_guided_frame(*args, ablate=ablate)
+    assert kernel.launches == before + 1
+    assert_same_frame(out, gm.mega_guided_frame_plain(*args, ablate=ablate))
+
+
+@pytest.mark.chip
+def test_a_decreasing_column_is_refused_on_the_card(card_scenes):
+    """The binary search needs non-decreasing columns: check_cdf reads the
+    CUDA table's order back and raises before any launch."""
+    cam, tris, mat, cdf_t, *rest = _card_frame(card_scenes, "cornell", 4,
+                                               0.0, SMALL, 128, 1)
+    cdf_t[17, 40] = cdf_t[17, 39] - 0.125
+    before = gm.KERNEL.launches
+    with pytest.raises(ValueError, match="decrease"):
+        gm.mega_guided_frame(777, cam, tris, mat, cdf_t, *rest)
+    assert gm.KERNEL.launches == before
 
 
 def test_guided_unbiased_under_skewed_table():

@@ -4,8 +4,10 @@ The JAX kernel runs in interpret mode at precision="highest" with one ray
 tile covering every slot (r_tile 512 >= n_slots), which is the port's
 one-batch-per-iteration schedule.  Both sides get the same table each
 frame (the JAX rebuild, handed over with tri_bin_cdf_from_numpy) and carry
-their own q and visits.  The CUDA kernel is held against the twin on the
-card by chip_smoke.py.
+their own q and visits.  On the card (``-m chip``) the CUDA kernel, and its
+timed build, give the twin's frame and visits bit for bit, and B3's frame
+for the same seed and table; q within rtol 1e-4 of the twin's (the
+kernel's atomics add the TD targets and the irradiance in another order).
 """
 
 import jax
@@ -25,14 +27,33 @@ from rlrpt_tpu_torch.ops import hemisphere as hs
 from rlrpt_tpu_torch.ops import megakernel as mk
 from rlrpt_tpu_torch.scene import cornell_box
 from rlrpt_tpu_torch.utils.convert import tri_bin_cdf_from_numpy
-from _torch_parity import (assert_frame_parity, cornell_plus_clutter,  # noqa: F401
-                           kernel_seed, one_torch_thread, torch_scene)
+from rlrpt_tpu_torch.utils import profiling
+from _torch_parity import (assert_frame_parity, assert_same_frame,  # noqa: F401
+                           card, card_scenes, cornell_plus_clutter,
+                           kernel_seed, one_torch_thread, skewed_q,
+                           torch_scene)
 
 CAM = (0.0, 0.0, -3.0)
 T_PAD = 40            # cornell: 38 triangles
 G = 11
 THR = RadianceVolumeConfig(grid_resolution=G).radiance_threshold
 INIT = RadianceVolumeConfig(grid_resolution=G).initial_radiance
+SMALL = dict(width=64, height=64, samples_per_pixel=4, max_ray_bounces=10)
+# the card cases: (scene, skew of Q, RenderConfig keywords, pix_mux, seed,
+# numpy seed of the visits in, or None for zeros); "main_path" is the
+# learning job's frame from the initial Q at the launcher's pix_mux
+CARD_CASES = {
+    **{f"{q}_rr_{rr}": ("cornell", skew, dict(SMALL, russian_roulette=on),
+                        1, 888, 5)
+       for q, skew in (("initial", 0.0), ("skewed", 3.0))
+       for rr, on in (("off", False), ("on", True))},
+    "test_room_skewed": ("test_room", 3.0, dict(SMALL, max_ray_bounces=80),
+                         1, 33, 18),
+    "main_path": ("cornell", 0.0, dict(width=720, height=720,
+                                       samples_per_pixel=32,
+                                       max_ray_bounces=80), mk.PIX_MUX, 6,
+                  None),
+}
 
 
 def _train(uv_bins: int, n_frames: int, cfg: RenderConfig, seed0: int,
@@ -159,6 +180,52 @@ def test_image_is_the_guided_frame_and_inputs_untouched():
     assert float((v1 - v0).sum()) == float(td.sum()) > 0
     assert not torch.equal(q1, q0)
     assert mk.KERNEL.launches == gt.KERNEL.launches == 0
+
+
+@pytest.mark.chip
+@pytest.mark.parametrize("case", list(CARD_CASES))
+def test_kernel_is_the_twin_on_the_card(card_scenes, case):
+    name, skew, kw, pix_mux, seed, v_seed = CARD_CASES[case]
+    scene = card_scenes[name]
+    dev = scene.v0.device
+    t_pad = mk._t_pad(scene.n_triangles)
+    cfg = RenderConfig(**kw)
+    n_slots = mk.n_slots_for(cfg.n_pixels, mk.R_TILE, pix_mux)
+    q_in = skewed_q(t_pad, 4, skew, dev)
+    v_in = torch.zeros_like(q_in) if v_seed is None else torch.from_numpy(
+        np.random.default_rng(v_seed).integers(0, 3, q_in.shape).astype(
+            np.float32)).to(dev)
+    cdf_t = gt.rebuild_bin_cdf(q_in, G, 4, t_pad).cdf.T.contiguous()
+    cam = mk.camera_vector(Camera.create(CAM))
+    tris, mat = mk.pack_scene(scene)
+    args = (seed, cam, tris, mat, cdf_t,
+            gt.bin_luminance(scene, t_pad, 4)[0].contiguous(),
+            hs.sector_cos_thetas(G, dev).contiguous(), q_in, v_in, G, 4, THR,
+            cfg, n_slots, pix_mux)
+    before = gt.KERNEL.launches
+    out = gt.mega_train_frame(*args)
+    assert gt.KERNEL.launches == before + 1
+    clock = torch.zeros((gt.train_blocks(n_slots, dev),
+                         len(profiling.CLOCK_COLS)), dtype=torch.int64,
+                        device=dev)
+    before = gt.KERNEL_TIMED.launches
+    timed = gt.mega_train_frame(*args, clock=clock)
+    assert gt.KERNEL_TIMED.launches == before + 1
+    assert int(clock[:, profiling.CLOCK_COLS.index("total")].sum()) > 0
+    twin = gt.mega_train_frame_plain(*args)
+    guided = gm.mega_guided_frame(seed, cam, tris, mat, cdf_t, G, 4, cfg,
+                                  n_slots, pix_mux)
+    for frame in (timed, twin):
+        assert_same_frame(out[:3], frame[:3])
+        assert torch.equal(out[4], frame[4])
+    assert_same_frame(out[:3], guided)
+    for q, v, td in (out[3:], twin[3:]):
+        assert torch.isfinite(q).all() and not torch.equal(q, q_in)
+        assert float((v - v_in).double().sum()) == float(td.double().sum())
+        assert float(td.double().sum()) > 0
+    for q in (out[3], timed[3]):
+        rel = ((q - twin[3]).abs() / twin[3].abs().clamp(min=1e-30)).max()
+        assert float(rel) <= 1e-4
 
 
 def test_learning_frame_unbiased():

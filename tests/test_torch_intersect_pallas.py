@@ -2,8 +2,11 @@
 vs the JAX Pallas kernels in interpret mode.
 
 Rays: the JAX test's 40x40 camera rays plus one bounce batch (random
-directions about the hit normals from numpy seed 1).  The CUDA kernel is
-held against the twin on the card by chip_smoke.py.
+directions about the hit normals from numpy seed 1).  On the card (``-m
+chip``) the kernels walk the scene's tree and give the twin's t, index and
+material rows bit for bit, and the brute-force sweep kernel's: on camera
+and bounce rays, at a full and a half active_count, and on rays aimed at
+every triangle's vertices and edges and grazing its plane.
 """
 
 import jax
@@ -17,12 +20,21 @@ from rlrpt_tpu.camera import primary_rays
 from rlrpt_tpu.ops import intersect_pallas as jip
 from rlrpt_tpu.ops.intersect import closest_hit as jax_closest_hit
 from rlrpt_tpu.scene import cornell_box as jax_cornell_box
+from rlrpt_tpu_torch.camera import Camera, pixel_rays
+from rlrpt_tpu_torch.ops import bvh as bv
 from rlrpt_tpu_torch.ops import intersect_pallas as ip
+from rlrpt_tpu_torch.ops.hemisphere import sample_uniform_direction
 from rlrpt_tpu_torch.ops.intersect import closest_hit
-from _torch_parity import (cornell_plus_clutter, one_torch_thread,  # noqa: F401
-                           torch_scene)
+from _torch_parity import (card, card_scenes, cornell_plus_clutter,  # noqa: F401
+                           one_torch_thread, torch_scene)
 
 N_PRIMARY = 1600
+CAM = (0.0, 0.0, -3.0)
+CARD_SCENES = ("cornell", "clutter", "test_room", "torus_room")
+# name, launcher, kernel, takes the material rows
+LAUNCHERS = (("B4a", ip.closest_hit_mat_mxu, ip.KERNEL_MAT, True),
+             ("B4b", ip.closest_hit_packed, ip.KERNEL_F32, False),
+             ("B4c", ip.closest_hit_packed_mxu, ip.KERNEL_MXU, False))
 
 
 def _rays(js):
@@ -184,3 +196,113 @@ def test_wrapper_validates_and_counts_nothing_on_cpu():
                           torch.full((38,), 1 << 24))
     assert (ip.KERNEL_F32.launches, ip.KERNEL_MXU.launches,
             ip.KERNEL_MAT.launches) == (0, 0, 0)
+
+
+def _card_tables(scene):
+    """pack_scene_mxu's tables with class ids (index mod 7) in column 11."""
+    cls = torch.arange(scene.n_triangles, device=scene.v0.device) % 7
+    return ip.pack_scene_mxu(scene, cls)
+
+
+def _camera_and_bounce_rays(tris, mat, size: int, seed: int):
+    """size x size jittered camera rays from CAM, then one bounce ray from
+    each camera ray's hit (uniform about its normal; the hits by the sweep
+    kernel): (o, d), contiguous, on the table's device."""
+    gen = torch.Generator(device=tris.device).manual_seed(seed)
+    jitter = torch.rand((size, size, 2), generator=gen, device=tris.device)
+    o, d = (a.contiguous() for a in pixel_rays(
+        jitter, Camera.create(CAM), size, size, float(size)))
+    t, _, rows = ip.closest_hit_sweep(o, d, tris, o.shape[0], mat)
+    hit = t < 1e38
+    nd, _ = sample_uniform_direction(gen, rows[:, 0:3])
+    o2 = o + torch.where(hit, t, 0.0)[:, None] * d + 1e-4 * nd
+    return (torch.cat([o, o2[hit]]).contiguous(),
+            torch.cat([d, nd[hit]]).contiguous())
+
+
+def _edge_rays(tris, seed: int):
+    """Rays aimed exactly at every triangle's vertices, edge midpoints and
+    a random point of each edge (so at both sides of every shared edge),
+    from the camera and from random origins inside [-0.95, 0.95]^3, and
+    rays grazing each triangle's plane (from outside the triangle towards
+    its centroid, tilted off the plane by 1e-7 to 1e-2 rad): (o, d) on
+    the table's device."""
+    rng = np.random.default_rng(seed)
+    r = tris.cpu().numpy()
+    v0 = r[:, 0:3]
+    v1, v2 = v0 + r[:, 4:7], v0 + r[:, 8:11]
+    pts = []
+    for a, b in ((v0, v1), (v1, v2), (v2, v0)):
+        s = rng.uniform(0, 1, (len(a), 1)).astype(np.float32)
+        pts += [a, (a + b) * np.float32(0.5), a + s * (b - a)]
+    pts = np.concatenate(pts)
+    org = np.concatenate([np.broadcast_to(np.float32(CAM), pts.shape),
+                          rng.uniform(-0.95, 0.95, pts.shape)])
+    d = np.concatenate([pts, pts]) - org
+    cen = (v0.astype(np.float64) + v1 + v2) / 3
+    n = np.cross(v1 - v0, v2 - v0).astype(np.float64)
+    n /= np.maximum(np.linalg.norm(n, axis=1, keepdims=True), 1e-30)
+    g_o = cen + 3.0 * ((v0 + v1) / 2 - cen)
+    g_d = cen - g_o
+    g_d /= np.maximum(np.linalg.norm(g_d, axis=1, keepdims=True), 1e-30)
+    g_d += 10.0 ** rng.uniform(-7, -2, (len(v0), 1)) * rng.choice(
+        [-1.0, 1.0], (len(v0), 1)) * n
+    o = np.concatenate([org, g_o]).astype(np.float32)
+    d = np.concatenate([d, g_d]).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return torch.from_numpy(o).to(tris.device), torch.from_numpy(d).to(
+        tris.device)
+
+
+def _assert_same_hits(got, want, count: int) -> None:
+    """t's bits, index and (B4a) rows' bits equal; rays past count
+    missed."""
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert bool((got[0][count:] >= 1e38).all())
+
+
+@pytest.mark.chip
+@pytest.mark.parametrize("name", CARD_SCENES)
+def test_walks_are_the_twin_on_the_card(card_scenes, name):
+    """B4a-c through the scene's tree at half the rays' count (a device
+    int32), and B4c's launcher without a tree and with an int count,
+    against the twin; the torus room at 256x256 camera rays (the twin
+    tests all 4,980 triangles a ray), the others at 720x720."""
+    tris, mat = _card_tables(card_scenes[name])
+    tree = bv.build_bvh(tris)
+    o, d = _camera_and_bounce_rays(tris, mat, 256 if name == "torus_room"
+                                   else 720, 11)
+    half = o.shape[0] // 2
+    live = torch.tensor([half], dtype=torch.int32, device=o.device)
+    for _, fn, kernel, rows in LAUNCHERS:
+        tables = (tris, mat) if rows else (tris,)
+        before = kernel.launches
+        got = fn(o, d, *tables, live, bvh=tree)
+        assert kernel.launches == before + 1
+        _assert_same_hits(got, ip.closest_hit_plain(o, d, tris, half,
+                                                    *tables[1:]), half)
+    _assert_same_hits(ip.closest_hit_packed_mxu(o, d, tris, o.shape[0]),
+                      ip.closest_hit_plain(o, d, tris, o.shape[0]),
+                      o.shape[0])
+
+
+@pytest.mark.chip
+@pytest.mark.parametrize("name", CARD_SCENES)
+def test_walks_are_the_sweep_on_the_card(card_scenes, name):
+    """B4a-c through the tree against closest_hit_sweep (every ray against
+    every triangle) on 720x720 camera rays and their bounce rays, at the
+    full and at half the count, and on the edge, vertex and grazing
+    rays."""
+    tris, mat = _card_tables(card_scenes[name])
+    tree = bv.build_bvh(tris)
+    o, d = _camera_and_bounce_rays(tris, mat, 720, 11)
+    e_o, e_d = _edge_rays(tris, 7)
+    for r_o, r_d, count in ((o, d, o.shape[0]), (o, d, o.shape[0] // 2),
+                            (e_o, e_d, e_o.shape[0])):
+        live = torch.tensor([count], dtype=torch.int32, device=o.device)
+        want = ip.closest_hit_sweep(r_o, r_d, tris, live, mat)
+        for _, fn, _, rows in LAUNCHERS:
+            got = fn(r_o, r_d, *((tris, mat) if rows else (tris,)), live,
+                     bvh=tree)
+            _assert_same_hits(got, want[:len(got)], count)

@@ -5,8 +5,10 @@ hierarchy inside the slot loop.  Its twin (``run_slots_plain`` with the
 plain walk as its closest hit) is held bit for bit against the sweep's
 twin, and the culled render against the JAX package's culled render in
 interpret mode, per pixel; the default cull decision against JAX's; the
-tree builds a culled call makes; scene_bench's --cull rows.  The CUDA
-kernel is held against both twins on the card by chip_smoke.py [18].
+tree builds a culled call makes; scene_bench's --cull rows.  On the card
+(``-m chip``) the culled kernel gives the sweep kernel's frame bit for bit
+at 720x720, and its twin's at 128x128, where the count-only build counts
+the twin's visits and tests.
 """
 
 import json
@@ -25,7 +27,8 @@ from rlrpt_tpu_torch.config import RenderConfig
 from rlrpt_tpu_torch.ops import bvh as bv
 from rlrpt_tpu_torch.ops import megakernel as mk
 from rlrpt_tpu_torch.scene import cornell_box, generated, presets
-from _torch_parity import (assert_frame_parity, cornell_plus_clutter,  # noqa: F401
+from _torch_parity import (assert_frame_parity, assert_same_frame,  # noqa: F401
+                           card, card_scenes, cornell_plus_clutter,
                            kernel_seed, one_torch_thread, torch_scene)
 
 CAM = (0.0, 0.0, -3.0)
@@ -33,6 +36,40 @@ CLUTTER_CFG = dict(width=24, height=24, samples_per_pixel=4,
                    max_ray_bounces=8)
 CORNELL_CFG = dict(width=32, height=32, samples_per_pixel=4,
                    max_ray_bounces=10)
+
+
+def _card_frame(scene, size: int, spp: int, seed: int):
+    """(the culled frame's arguments, its tree) at size x size, 80
+    bounces, the launcher's r_tile and pix_mux, on the card."""
+    cfg = RenderConfig(width=size, height=size, samples_per_pixel=spp,
+                       max_ray_bounces=80)
+    tris, mat = mk.pack_scene(scene)
+    return (seed, mk.camera_vector(Camera.create(CAM)), tris, mat, cfg,
+            mk.n_slots_for(cfg.n_pixels, mk.R_TILE, mk.PIX_MUX),
+            mk.PIX_MUX), bv.build_bvh(tris)
+
+
+@pytest.mark.chip
+@pytest.mark.parametrize("spp", [1, 32])
+@pytest.mark.parametrize("name,seed", [("clutter", 52), ("torus_room", 51)])
+def test_culled_kernel_is_the_sweep_on_the_card(card_scenes, name, seed, spp):
+    args, tree = _card_frame(card_scenes[name], 720, spp, seed)
+    before = mk.KERNEL_CULL.launches
+    culled = mk.mega_default_frame(*args, tree)
+    assert mk.KERNEL_CULL.launches == before + 1
+    assert_same_frame(culled, mk.mega_default_frame(*args))
+
+
+@pytest.mark.chip
+@pytest.mark.parametrize("name,seed", [("clutter", 52), ("torus_room", 51)])
+def test_culled_kernel_is_its_twin_on_the_card(card_scenes, name, seed):
+    """The twin walks the tree one torch op a step, so 128x128, 1 spp."""
+    args, tree = _card_frame(card_scenes[name], 128, 1, seed)
+    counts = {"visits": 0, "tests": 0}
+    assert_same_frame(mk.mega_default_frame(*args, tree),
+                      mk.mega_default_frame_plain(*args, tree, counts))
+    assert mk.walk_counts(*args, tree) == (counts["visits"], counts["tests"])
+    assert counts["tests"] > 0
 
 
 def _frames(scene, seed, cfg, r_tile, pix_mux):
@@ -168,5 +205,4 @@ def test_scene_bench_cull_rows(capsys, tmp_path, monkeypatch):
     assert [(r["scene"], r["cull"]) for r in rows] == [
         ("cornell", False), (torus.name, False), (torus.name, True)]
     assert rows[1]["avg_path_length"] == rows[2]["avg_path_length"]
-    assert all(r["kernel_ms"] is None and r["bound_ms"] is None
-               for r in rows)
+    assert all(r["kernel_ms"] is None for r in rows)

@@ -4,8 +4,9 @@ tracer, statistically.
 
 The twin draws the JAX kernel's samples (same int seed, counter hash,
 n_slots and pix_mux), so images agree per pixel up to paths where f32
-rounding flips a hit.  The CUDA kernel itself is held against the twin on
-the card by chip_smoke.py.
+rounding flips a hit.  On the card (``-m chip``) the CUDA kernel gives the
+twin's frame bit for bit (both round every f32 operation alike: the
+kernels build with -fmad=false).
 """
 
 import jax
@@ -22,10 +23,28 @@ from rlrpt_tpu_torch.config import RenderConfig
 from rlrpt_tpu_torch.integrators.default_tracer import render_default
 from rlrpt_tpu_torch.ops import megakernel as mk
 from rlrpt_tpu_torch.scene import cornell_box
-from _torch_parity import (assert_frame_parity, cornell_plus_clutter,  # noqa: F401
+from _torch_parity import (assert_frame_parity, assert_same_frame,  # noqa: F401
+                           card, card_scenes, cornell_plus_clutter,
                            kernel_seed, one_torch_thread, torch_scene)
 
 CAM = (0.0, 0.0, -3.0)
+SMALL = dict(width=64, height=64, samples_per_pixel=4, max_ray_bounces=10)
+# the card cases: (scene, RenderConfig keywords, r_tile, pix_mux, seed);
+# "main_path" is the bench point at the launcher's r_tile and pix_mux
+CARD_CASES = {
+    "cornell_rr_off": ("cornell", SMALL, 128, 4, 20240),
+    "cornell_rr_on": ("cornell", dict(SMALL, russian_roulette=True), 128, 4,
+                      20240),
+    "clutter": ("clutter", SMALL, 128, 4, 20240),
+    "test_room": ("test_room", dict(SMALL, max_ray_bounces=80), 128, 1, 31),
+    "torus_room": ("torus_room", dict(SMALL, samples_per_pixel=2,
+                                      max_ray_bounces=80), 128, 1, 41),
+    "torus_room_morton": ("torus_room_morton", dict(
+        SMALL, samples_per_pixel=2, max_ray_bounces=80), 128, 1, 41),
+    "main_path": ("cornell", dict(width=720, height=720, samples_per_pixel=1,
+                                  max_ray_bounces=80), mk.R_TILE,
+                  mk.PIX_MUX, 5),
+}
 
 
 def _both(jax_scene, key, r_tile, pix_mux, **cfg):
@@ -59,6 +78,20 @@ def test_twin_matches_jax_multichunk():
         scene, jax.random.PRNGKey(1), 128, 4, width=24, height=24,
         samples_per_pixel=4, max_ray_bounces=8)
     assert_frame_parity(img_t, aux_t, img_j, aux_j)
+
+
+@pytest.mark.chip
+@pytest.mark.parametrize("case", list(CARD_CASES))
+def test_kernel_is_the_twin_on_the_card(card_scenes, case):
+    name, kw, r_tile, pix_mux, seed = CARD_CASES[case]
+    cfg = RenderConfig(**kw)
+    tris, mat = mk.pack_scene(card_scenes[name])
+    args = (seed, mk.camera_vector(Camera.create(CAM)), tris, mat, cfg,
+            mk.n_slots_for(cfg.n_pixels, r_tile, pix_mux), pix_mux)
+    before = mk.KERNEL.launches
+    out = mk.mega_default_frame(*args)
+    assert mk.KERNEL.launches == before + 1
+    assert_same_frame(out, mk.mega_default_frame_plain(*args))
 
 
 @pytest.mark.parametrize("n", [1, 8, 38, 255, 256, 257, 600])

@@ -13,6 +13,13 @@ are held against JAX's 2-device run: the torch-loop paths statistically
 (tests/test_parallel.py's bounds: mean within 0.35x, or within 3x the
 seed-to-seed noise), the megakernel paths on JAX's per-device kernel
 seeds at the bounds of tests/test_torch_guided_mega*.py.
+
+On the card (``-m chip``) every dp and multiscene entry point runs in a
+world of one over NCCL beside the single-process call it shards: bit for
+bit where the world of one draws the same numbers (the megakernel frames,
+the SARSA and deep wavefronts, the joint training), q within rtol 1e-4
+where atomics add in another order, and statistically where the streams
+differ (the default and lockstep tracers, the batch render).
 """
 
 import dataclasses
@@ -31,19 +38,35 @@ from rlrpt_tpu.parallel.mesh import make_mesh as j_make_mesh
 from rlrpt_tpu.radiance.grid_bucket import build_volume_class_table as jtable
 from rlrpt_tpu.radiance.volumes import build_radiance_volumes as jbuild
 from rlrpt_tpu.scene import cornell_box as jax_cornell_box
+import torch.distributed as dist
+
+from rlrpt_tpu_torch.camera import Camera
 from rlrpt_tpu_torch.config import (DeepLearningConfig, RadianceVolumeConfig,
                                     RenderConfig)
+from rlrpt_tpu_torch.deep import deep_wavefront as dw
+from rlrpt_tpu_torch.deep import neural_q as nq
 from rlrpt_tpu_torch.deep.neural_q import train_on_batches
+from rlrpt_tpu_torch.integrators.default_tracer import render_default
+from rlrpt_tpu_torch.integrators.reinforcement_tracer import \
+    render_frame_sarsa
+from rlrpt_tpu_torch.integrators.sarsa_wavefront import \
+    render_frame_sarsa_wavefront
 from rlrpt_tpu_torch.nn.adam import adam_init
+from rlrpt_tpu_torch.ops import guided_mega as gm
+from rlrpt_tpu_torch.ops import guided_mega_train as gt
+from rlrpt_tpu_torch.ops import megakernel as mk
+from rlrpt_tpu_torch.parallel import dp, multihost, multiscene
 from rlrpt_tpu_torch.parallel import mesh as pmesh
 from rlrpt_tpu_torch.parallel.multihost import spawn
+from rlrpt_tpu_torch.radiance.grid_bucket import build_volume_class_table
 from rlrpt_tpu_torch.radiance.volumes import (build_radiance_volumes,
                                               expected_sarsa_update)
-from rlrpt_tpu_torch.scene import cornell_box
+from rlrpt_tpu_torch.scene import cornell_box, presets
 from rlrpt_tpu_torch.utils.convert import dq_network_from_numpy
+from rlrpt_tpu_torch.utils.rng import fold_in
 from _torch_dist_worker import run
-from _torch_parity import (assert_frame_parity, kernel_seed,  # noqa: F401
-                           one_torch_thread)
+from _torch_parity import (assert_frame_parity, card,  # noqa: F401
+                           kernel_seed, one_torch_thread)
 
 A = np.asarray
 CAM = (0.0, 0.0, -3.0)
@@ -406,3 +429,192 @@ def test_megakernel_dps_refuse_an_spp_the_world_does_not_divide():
                  t_pad=T_PAD)
     for msgs in outs:
         assert msgs == ["spp 3 must divide the mesh size 2"] * 2, msgs
+
+
+# ---- the entry points in a world of one over NCCL, on the card ---------------
+
+@pytest.fixture(scope="module")
+def nccl(card):
+    """A world of one over NCCL (its ranks meet on the loopback), torn
+    down after the module."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("NCCL_SOCKET_IFNAME", "lo")
+        multihost.initialize(f"127.0.0.1:{multihost.free_port()}", 1, 0,
+                             device=card)
+        try:
+            mesh = pmesh.make_mesh(device=card)
+            assert (mesh.backend, mesh.size) == ("nccl", 1)
+            yield mesh
+        finally:
+            dist.destroy_process_group()
+
+
+def _z(a, b) -> float:
+    """The difference of two frames' means over its standard error, from
+    the per-pixel differences (two independent frames)."""
+    a, b = a.double().reshape(-1, 3).mean(-1), b.double().reshape(
+        -1, 3).mean(-1)
+    return float((a.mean() - b.mean()) / ((a - b).var() / a.numel()).sqrt())
+
+
+def _same(xs, ys) -> None:
+    for x, y in zip(xs, ys, strict=True):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.chip
+def test_render_default_dp_on_the_card(nccl):
+    """The plain default tracer sharded: its mean within 4 standard errors
+    of B1's at 32 spp (other random streams)."""
+    scene, camera = cornell_box(device=nccl.device), Camera.create(CAM)
+    kw = dict(width=256, height=256, max_ray_bounces=80)
+    img, _ = dp.render_default_dp(1984, scene, camera, RenderConfig(
+        samples_per_pixel=8, ray_tile=256 * 256, **kw), nccl)
+    ref, _ = mk.render_default_mega(1985, scene, camera, RenderConfig(
+        samples_per_pixel=32, **kw), nccl.device)
+    assert torch.isfinite(img).all()
+    assert abs(_z(img, ref)) < 4.0
+
+
+@pytest.mark.chip
+def test_binned_dps_are_the_launchers_on_the_card(nccl):
+    """Three sarsa_mega_train_dp frames (B2), then render_guided_mega_dp
+    (B3): each frame's image and visits are the launcher's at the rank-0
+    seed, its q within rtol 1e-4 (B2's atomics), the visit invariant
+    exact; the guided frame the launcher's."""
+    dev = nccl.device
+    scene, camera = cornell_box(device=dev), Camera.create(CAM)
+    rl = RadianceVolumeConfig(grid_resolution=11)
+    cfg = RenderConfig(width=256, height=256, samples_per_pixel=32,
+                       max_ray_bounces=80)
+    q, v = gt.init_bin_q(40, 4, 11, rl.initial_radiance, device=dev)
+    for f in range(3):
+        table = gt.rebuild_bin_cdf(q, 11, 4, 40)
+        img, q_dp, v_dp, aux = dp.sarsa_mega_train_dp(
+            fold_in(1984, f), scene, camera, table, q, v, cfg,
+            rl.radiance_threshold, nccl)
+        img1, q1, v1, _ = gt.render_sarsa_mega_train(
+            pmesh.rank_seed(fold_in(1984, f), 0), scene, camera, table, q, v,
+            cfg, rl.radiance_threshold, dev)
+        _same((img, v_dp), (img1, v1))
+        assert float((v_dp - v).double().sum()) == int(
+            aux["td_scatter_count"]) > 0
+        torch.testing.assert_close(q_dp, q1, rtol=1e-4, atol=0.0)
+        q, v = q_dp, v_dp
+    table = gt.rebuild_bin_cdf(q, 11, 4, 40)
+    img, _ = dp.render_guided_mega_dp(1987, scene, camera, table, cfg, nccl)
+    img1, _ = gm.render_guided_mega(pmesh.rank_seed(1987, 0), scene, camera,
+                                    table, cfg, dev)
+    assert torch.equal(img, img1)
+
+
+@pytest.mark.chip
+def test_fine_map_dps_on_the_card(nccl):
+    """render_frame_sarsa_wavefront_dp (B4a) is the single-process frame
+    at the rank-0 seed: image and visits bit for bit, q within rtol 1e-4
+    (index_add_ on the card adds in any order); render_frame_sarsa_dp
+    (lockstep, B4b) draws other streams: its mean within 4 standard
+    errors of the single-process frame's.  Both keep the visit
+    invariant."""
+    dev = nccl.device
+    scene, camera = cornell_box(device=dev), Camera.create(CAM)
+    rl = RadianceVolumeConfig(area_per_sample=0.01)
+    vols = build_radiance_volumes(scene, rl)
+    table = build_volume_class_table(vols, scene)
+    cfg = RenderConfig(width=128, height=128, samples_per_pixel=8,
+                       max_ray_bounces=80)
+    img, vols_dp, aux = dp.render_frame_sarsa_wavefront_dp(
+        1985, scene, camera, vols, table, cfg, rl, nccl)
+    img1, vols1, _ = render_frame_sarsa_wavefront(
+        pmesh.rank_seed(1985, 0), scene, camera, vols, table, cfg, rl,
+        pix_mux=4)
+    _same((img, vols_dp.visits), (img1, vols1.visits))
+    torch.testing.assert_close(vols_dp.q, vols1.q, rtol=1e-4, atol=1e-6)
+    assert int((vols_dp.visits - vols.visits).sum()) == int(
+        aux["td_scatter_count"]) > 0
+    cfg = dataclasses.replace(cfg, samples_per_pixel=4)
+    img, vols_dp, aux = dp.render_frame_sarsa_dp(1992, scene, camera, vols,
+                                                 cfg, rl, nccl)
+    img1, _, _ = render_frame_sarsa(pmesh.rank_seed(1992, 0), scene, camera,
+                                    vols, cfg, rl)
+    assert int((vols_dp.visits - vols.visits).sum()) == int(
+        aux["td_scatter_count"]) > 0
+    assert abs(_z(img, img1)) < 4.0
+
+
+@pytest.mark.chip
+def test_deep_dps_on_the_card(nccl):
+    """The pretrained and the training wavefront dp frames (B4a) are the
+    single-process frames at the rank-0 seed, the trained net, its Adam
+    moments and epsilon too; the lockstep neural_q_train_step_dp's mean
+    within 4 standard errors of a single-process frame's."""
+    dev = nccl.device
+    scene, camera = cornell_box(device=dev), Camera.create(CAM)
+    dl, rl = DeepLearningConfig(), RadianceVolumeConfig()
+    cfg = RenderConfig(width=128, height=128, samples_per_pixel=4,
+                       max_ray_bounces=80)
+    net, _ = nq.init_neural_q(7, scene, dl, 12, device=dev)
+    img, _ = dp.render_frame_pretrained_wavefront_dp(
+        1986, scene, camera, net, cfg, rl, dl, nccl)
+    img1, _ = dw.render_frame_pretrained_wavefront(
+        pmesh.rank_seed(1986, 0), scene, camera, net, cfg, rl, dl, pix_mux=4)
+    assert torch.equal(img, img1)
+    cfg = dataclasses.replace(cfg, samples_per_pixel=1)
+    (net_a, opt_a), (net_b, opt_b) = (nq.init_neural_q(8, scene, dl, 12,
+                                                       device=dev)
+                                      for _ in range(2))
+    img, _, _, eps, _ = dp.render_frame_neural_q_wavefront_dp(
+        1987, scene, camera, net_a, opt_a, dl.epsilon_start, cfg, rl, dl,
+        nccl, pix_mux=8)
+    img1, _, _, eps1, _ = dw.render_frame_neural_q_wavefront(
+        pmesh.rank_seed(1987, 0), scene, camera, net_b, opt_b,
+        dl.epsilon_start, cfg, rl, dl, pix_mux=8)
+    assert eps == eps1 == nq.decay_epsilon(dl.epsilon_start, 1, dl)
+    _same((img, *net_a.parameters(), *opt_a.mu, *opt_a.nu),
+          (img1, *net_b.parameters(), *opt_b.mu, *opt_b.nu))
+    (net_a, opt_a), (net_b, opt_b) = (nq.init_neural_q(9, scene, dl, 12,
+                                                       device=dev)
+                                      for _ in range(2))
+    tp, *_, loss = dp.neural_q_train_step_dp(1988, scene, camera, net_a,
+                                             opt_a, 0.3, cfg, rl, dl, nccl)
+    img1, *_ = nq.render_frame_neural_q(pmesh.rank_seed(1988, 0), scene,
+                                        camera, net_b, opt_b, 0.3, cfg, rl,
+                                        dl)
+    assert torch.isfinite(tp).all() and np.isfinite(float(loss))
+    assert abs(_z(tp, img1)) < 4.0
+
+
+@pytest.mark.chip
+def test_multiscene_dps_on_the_card(nccl):
+    """The batch render of Cornell and the test room: each image's mean
+    within 4 standard errors of the single-process default render's (other
+    random streams); the joint training
+    frame (both scenes on the one rank, one after the other) is two
+    single-process training frames on the padded scenes, net and Adam
+    state too."""
+    dev = nccl.device
+    room = presets.get("test_room")
+    scenes = [cornell_box(device=dev), room.load(device=dev)]
+    cams = [Camera.create(CAM), Camera.create(room.camera_position)]
+    cfg = RenderConfig(width=256, height=256, samples_per_pixel=8,
+                       max_ray_bounces=80, ray_tile=256 * 256)
+    imgs = multiscene.render_multiscene_dp(1989, scenes, cams, cfg, nccl)
+    for k, (sc, cam) in enumerate(zip(scenes, cams)):
+        ref, _ = render_default(1990 + k, sc, cam, cfg, dev)
+        assert abs(_z(imgs[k], ref)) < 4.0
+    dl, rl = DeepLearningConfig(), RadianceVolumeConfig()
+    cfg = RenderConfig(width=128, height=128, samples_per_pixel=1,
+                       max_ray_bounces=80)
+    (net_a, opt_a, batched), (net_b, opt_b, _) = (
+        multiscene.init_multiscene_neural_q(10, scenes, dl, 12, device=dev)
+        for _ in range(2))
+    imgs, _, _, eps, _ = multiscene.train_multiscene_deep_dp(
+        1991, scenes, cams, net_a, opt_a, 0.05, cfg, rl, dl, nccl,
+        batched=batched)
+    ref = [dw.render_frame_neural_q_wavefront(
+        pmesh.rank_seed(1991, 0), multiscene.scene_at(batched, k), cam,
+        net_b, opt_b, 0.05, cfg, rl, dl, pix_mux=2)[0]
+        for k, cam in enumerate(cams)]
+    assert abs(eps - 0.05) < 1e-6
+    _same((*imgs, *net_a.parameters(), *opt_a.mu),
+          (*ref, *net_b.parameters(), *opt_b.mu))

@@ -6,9 +6,7 @@ or a source dies.
 
 The test marked ``chip`` needs a CUDA card and skips without one: a
 learning job waits for the card only in ``check_cdf``, once a frame, and
-a default render not at all.  This file imports no JAX, so it runs on the
-card's machine, without tests/conftest.py (which does):
-``python -m pytest --noconftest -m chip tests/test_torch_prep_cache.py``.
+a default render not at all.
 """
 
 import collections
@@ -30,6 +28,7 @@ from rlrpt_tpu_torch.ops import intersect_pallas as ip
 from rlrpt_tpu_torch.ops import megakernel as mk
 from rlrpt_tpu_torch.scene import cornell_box
 from rlrpt_tpu_torch.utils import prep_cache, profiling
+from _torch_parity import card  # noqa: F401
 
 G, UV, T_PAD = 11, 4, 40          # the Cornell box: 38 triangles
 CAM = Camera.create([0.0, 0.0, -3.0])
@@ -195,14 +194,12 @@ def test_a_learning_frame_is_the_same_cold_and_warm():
 
 
 @pytest.mark.chip
-def test_a_learning_job_waits_only_in_check_cdf():
+def test_a_learning_job_waits_only_in_check_cdf(card):
     """Under torch's sync debug mode, over one learning job (10 learning
     frames each followed by a rebuild, a guided render) and one default
     render on the card: torch sees 11 waits, all in check_cdf, and the
     recorder counts the same; every table lookup hits."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    dev = torch.device("cuda")
+    dev = card
     cfg = RenderConfig(width=128, height=128, samples_per_pixel=4,
                        max_ray_bounces=80)
     scene = cornell_box(device=dev)

@@ -4,7 +4,8 @@ samplers, utils/stats) against rlrpt_tpu's on the CPU.
 Both sides start from the same state: the JAX objects' arrays go to the
 port through utils/convert.py, and random inputs are made with numpy from
 fixed seeds.  The samplers' deterministic cores take the uniforms JAX
-draws, so their sectors match draw for draw.
+draws, so their sectors match draw for draw.  On the card (``-m chip``)
+the dense nearest-volume search is held against a float64 brute force.
 """
 
 import dataclasses
@@ -36,7 +37,8 @@ from rlrpt_tpu_torch.scene import cornell_box
 from rlrpt_tpu_torch.scene.geometry import sample_points_on_triangles
 from rlrpt_tpu_torch.utils import convert
 from rlrpt_tpu_torch.utils.stats import StatsLogger, read_stats
-from _torch_parity import one_torch_thread, torch_scene  # noqa: F401
+from rlrpt_tpu_torch.scene.scene import surface_areas
+from _torch_parity import card, one_torch_thread, torch_scene  # noqa: F401
 
 A = np.asarray
 
@@ -286,6 +288,35 @@ def test_dense_search_matches_jax(maps):
                                               query_tile=1000)
     assert (kt.numpy() == kj).all(axis=1).mean() >= 0.999
     assert np.array_equal(vt.numpy(), vj)
+
+
+@pytest.mark.chip
+def test_dense_search_on_the_card(card):
+    """On the card, with cuBLAS's f32 matmul (TF32 off), against a float64
+    brute force at the fine map's Cornell volumes (area_per_sample
+    0.001): the same volume for >= 99.9% of 20,000 surface points."""
+    scene = cornell_box(device=card)
+    vols = tv.build_radiance_volumes(
+        scene, RadianceVolumeConfig(area_per_sample=0.001))
+    ns = scene.n_surfaces
+    v0, v1, v2 = (a[:ns].cpu().numpy().astype(np.float64)
+                  for a in (scene.v0, scene.v1, scene.v2))
+    area = surface_areas(scene)
+    rng = np.random.default_rng(12)
+    qp, qt = sample_points_on_triangles(
+        rng, v0, v1, v2, rng.multinomial(20_000, area / area.sum()))
+    qpos = torch.as_tensor(qp, device=card)
+    qnrm = scene.normal[torch.as_tensor(qt, device=card)]
+    got = nn_search.find_closest_volume(vols, qpos, qnrm)
+    want = []
+    for i in range(0, qpos.shape[0], 1024):
+        d2 = ((qpos[i:i + 1024, None].double()
+               - vols.position[None].double()) ** 2).sum(-1)
+        same = (qnrm[i:i + 1024, None] == vols.normal[None]).all(-1)
+        want.append(torch.argmin(d2 + torch.where(same, 0.0, 1e12), -1))
+    want = torch.cat(want)
+    assert vols.n_volumes > 20_000
+    assert float((got == want).double().mean()) >= 0.999
 
 
 def test_grid_and_class_table_bit_equal():

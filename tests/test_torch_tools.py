@@ -6,7 +6,7 @@ interactive viewer headless (tests/test_interactive.py) and its camera
 moves against the JAX camera's; and the entry points' device defaults.
 
 Tiny sizes on the plain twins: the lines' keys and counts, not their
-times, which only the card gives (chip_smoke.py [20]).
+times, which only the card gives.
 """
 
 import ast

@@ -3,9 +3,8 @@
 
 On the CPU: the op-by-op loop is chosen for a CPU tensor and under a mesh,
 and a traced call records no replay or capture; the benchmark's reader
-``train_graph_pct.deep`` reads the replay counts.  On the card (``-m chip``;
-``python -m pytest --noconftest -m chip tests/test_torch_train_graph.py``,
-since tests/conftest.py imports JAX): graphed training is bit for bit the
+``train_graph_pct.deep`` reads the replay counts.  On the card (``-m
+chip``): graphed training is bit for bit the
 op-by-op loop's, a copied network captures graphs of its own and leaves
 the original alone, and a profiled replay's GEMMs are in the device trace.
 """
@@ -25,6 +24,7 @@ from rlrpt_tpu_torch.config import DeepLearningConfig
 from rlrpt_tpu_torch.deep import neural_q as nq
 from rlrpt_tpu_torch.scene import cornell_box
 from rlrpt_tpu_torch.utils import profiling
+from _torch_parity import card  # noqa: F401
 
 B = 4096
 ROOT = Path(__file__).resolve().parents[1]
@@ -35,13 +35,6 @@ def fresh_recorder():
     profiling.RECORDER.reset()
     yield
     profiling.RECORDER.reset()
-
-
-@pytest.fixture
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    return torch.device("cuda")
 
 
 def _net(device, dl, seed=5):
