@@ -34,13 +34,21 @@ counted.  Nothing inside an iteration waits for the host.  Randomness
 comes from one ``torch.Generator``.  The network and the Adam state are
 updated in place.
 
+An iteration's sampling and transport (the next sector and direction
+from the Q rows, the throughput, the banking of finished samples and the
+regeneration) is one launch of ``ops.deep_transport.sample_transport``:
+a CUDA kernel on the card, its plain twin on the CPU.  The frame draws
+the step's uniforms for it, in the order the twin once drew them.
+
 Tracing (``utils.profiling``), only while a profiler records: spans
 ``trace_frame_deep_wavefront.<phase>`` (pack: the tables and the tree;
-hit, forward, td, train, sample, transport: an iteration's stages;
-compact and flush: a drain), the host waits ``sync.live_count`` (the
-live-count read), ``sync.flush`` (the flush's two masked indexes) and
-``sync.camera`` (the origin's copy to the card), and the frame's counts
-``deep_wavefront.frames``, ``.steps`` (host) and ``.iterations``,
+hit, forward, td, train: an iteration's stages; sample: the draws of the
+step's uniforms; transport: the sample-and-transport launch and its
+outputs; compact and flush: a drain), the host waits ``sync.live_count``
+(the live-count read), ``sync.flush`` (the flush's two masked indexes)
+and ``sync.camera`` (the origin's copy to the card), and the frame's
+counts ``deep_wavefront.frames``, ``.steps``, ``.transport_launches``
+(host: the steps that went through the kernel) and ``.iterations``,
 ``.rays``, ``.rows_forwarded`` (device: live iterations, live rays
 traced, surface hits forwarded).  A ``Capture`` in the module attribute
 ``CAPTURE`` keeps chosen iterations' tensors for a comparison from
@@ -51,7 +59,6 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-import math
 from typing import NamedTuple
 
 import torch
@@ -61,8 +68,7 @@ from rlrpt_tpu_torch.config import (DeepLearningConfig, RadianceVolumeConfig,
                                     RenderConfig)
 from rlrpt_tpu_torch.deep.neural_q import (_generator, _q_forward,
                                            bootstrap_max, decay_epsilon,
-                                           f32, sample_q_directions_u,
-                                           train_on_batches)
+                                           f32, train_on_batches)
 from rlrpt_tpu_torch.integrators.sarsa_wavefront import (DRAIN_FACTOR,
                                                          INF_CUT,
                                                          MIN_DRAIN_W,
@@ -73,6 +79,9 @@ from rlrpt_tpu_torch.nn.adam import AdamState
 from rlrpt_tpu_torch.nn.dq_network import DQNetwork
 from rlrpt_tpu_torch.ops.hemisphere import sector_cos_thetas
 from rlrpt_tpu_torch.ops.bvh import build_bvh
+from rlrpt_tpu_torch.ops.deep_transport import KERNEL as TRANSPORT
+from rlrpt_tpu_torch.ops.deep_transport import (Frame, lane_epsilon,
+                                               sample_transport)
 from rlrpt_tpu_torch.ops.intersect_pallas import (closest_hit_mat_mxu,
                                                   pack_scene_mxu)
 from rlrpt_tpu_torch.parallel.mesh import any_rank, psum
@@ -232,14 +241,18 @@ def trace_frame_deep_wavefront(generator_or_seed, scene: Scene,
     i32 = dict(dtype=torch.int32, device=device)
     i64 = dict(dtype=torch.int64, device=device)
     cos_tbl = sector_cos_thetas(gr, device)
-    eps0 = f32(epsilon)
     if mlp_dtype == "bf16":
         fwd_net = copy.deepcopy(net).to(torch.bfloat16)
         verts = scene.vertices_flat.to(torch.bfloat16)
     with profiling.host_sync("camera", tris):
         cam_o = torch.tensor(camera.position, **f32d)
     lane = torch.arange(1, w0 + 1, **i32)
-    ksel_base = torch.arange(pix_mux, **i64)
+    fr = Frame(n_surfaces=ns, w0=w0, n_pix=n_pix, pix_end=pix_end,
+               pix_mux=pix_mux, spp=spp, camera=camera, cfg=cfg, gr=gr,
+               grid_rho=rl.grid_rho,
+               epsilon=((f32(epsilon), dl.epsilon_decay, dl.epsilon_min)
+                        if train else None))
+    launches = TRANSPORT.launches
 
     pix0 = pix_lo + torch.arange(w0, **i64)
     in_image = (pix0 < n_pix) & (pix0 < pix_end)
@@ -268,8 +281,7 @@ def trace_frame_deep_wavefront(generator_or_seed, scene: Scene,
             # last live lane + 1 (0 when none is live), on the device
             m = torch.max(torch.where(act, lane[:wp], 0)).reshape(1)
             t, tri, mrow = closest_hit_mat_mxu(c.o, c.d, tris, mat, m, bvh)
-            normal, diffuse3 = mrow[:, 0:3], mrow[:, 3:6]
-            emission3, lum = mrow[:, 6:9], mrow[:, 10]
+            lum = mrow[:, 10]
             missed = act & (t >= INF_CUT)
             hit_light = act & ~missed & (tri >= ns)
             hit_surface = act & ~missed & (tri < ns)
@@ -326,102 +338,20 @@ def trace_frame_deep_wavefront(generator_or_seed, scene: Scene,
                 stats["td_sq_sum"] += td_sq
 
         with span("trace_frame_deep_wavefront.sample"):
-            contrib = (torch.where(missed[:, None],
-                                   c.tp * cfg.environment_light, 0.0)
-                       + torch.where(hit_light[:, None], c.tp * emission3,
-                                     0.0))
-
-            # the next direction from Q * cos
-            if train:
-                eps_lane = torch.clamp(
-                    eps0 - dl.epsilon_decay * c.sord.float(),
-                    min=dl.epsilon_min)
-            else:
-                eps_lane = 0.0
+            # the step's uniforms: the sampler's, Russian roulette's, the
+            # regenerated camera rays' jitter
             u = torch.rand((wp, 5), generator=gen, device=device)
-            new_d, sector, pdf = sample_q_directions_u(
-                u, qs, normal, eps_lane, gr, rl.grid_rho, cos_tbl)
-
+            u_rr = (torch.rand((wp,), generator=gen, device=device)
+                    if cfg.russian_roulette else None)
+            u_pix = torch.rand((wp, 2), generator=gen, device=device)
         with span("trace_frame_deep_wavefront.transport"):
-            cos_theta = torch.sum(normal * new_d, dim=-1)
-            brdf3 = diffuse3 / math.pi
-            pdf_safe = torch.clamp(pdf, min=1e-12)
-            exhausted = hit_surface & (c.bounce + 1 >= cfg.max_ray_bounces)
-            survive = hit_surface & ~exhausted
-            # the bounce cap contributes tp * brdf, no direction factor
-            sample_rad = (c.sample_rad + contrib
-                          + torch.where(exhausted[:, None], c.tp * brdf3,
-                                        0.0))
-            tp = torch.where(survive[:, None],
-                             c.tp * brdf3 * (cos_theta / pdf_safe)[:, None],
-                             c.tp)
-            rr_killed = torch.zeros_like(survive)
-            if cfg.russian_roulette:
-                p = torch.clamp(tp.max(dim=-1).values, cfg.rr_min_prob, 1.0)
-                do_rr = survive & (c.bounce + 1 >= cfg.rr_start_bounce)
-                rr_killed = do_rr & (torch.rand((wp,), generator=gen,
-                                                device=device) >= p)
-                tp = torch.where((do_rr & ~rr_killed)[:, None],
-                                 tp / p[:, None], tp)
-                survive = survive & ~rr_killed
-
-            o = torch.where(survive[:, None], qpos + cfg.eps * new_d, c.o)
-            d = torch.where(survive[:, None], new_d, c.d)
-            bounce = torch.where(survive, c.bounce + 1, c.bounce)
-            prev_loc = torch.where(survive[:, None], qpos, c.prev_loc)
-            action = torch.where(survive, sector, -1)
-
-            # stats of finished samples
-            done = missed | hit_light
-            fin = (bounce + 1).double()
-            stats["path_sum"] += (torch.where(done | rr_killed, fin,
-                                              0.0).sum()
-                                  + exhausted.sum().double()
-                                  * cfg.max_ray_bounces)
-            finished = act & ~survive
-            stats["zclp"] += (finished & (sample_rad.mean(-1)
-                                          < cfg.throughput_threshold)).sum()
-            # guidance shows on the light-terminated subset: the Cornell
-            # box is open at the camera side, so better guidance turns
-            # short escaping paths into longer light-finding ones
-            stats["light_hits"] += hit_light.sum()
-            stats["light_path_sum"] += torch.where(hit_light, fin,
-                                                   0.0).sum()
-
-            # bank finished samples into the slot's k-th row
-            slot_rad = c.slot_rad + (
-                (ksel_base == c.kmx[:, None])[:, :, None]
-                * torch.where(finished[:, None], sample_rad,
-                              0.0)[:, None, :])
-
-            # regeneration: the next sample, else the next multiplexed
-            # pixel
-            next_pix = c.pixel + w0
-            step_k = (finished & (c.remaining <= 0) & (c.kmx + 1 < pix_mux)
-                      & (next_pix < n_pix) & (next_pix < pix_end))
-            pixel = torch.where(step_k, next_pix, c.pixel)
-            kmx = torch.where(step_k, c.kmx + 1, c.kmx)
-            remaining = torch.where(step_k, spp, c.remaining)
-            regen = finished & (remaining > 0)
-            rd = _primary_dirs(gen, pixel, camera, cfg)
-            # a pixel's next sample advances its ordinal, a new pixel
-            # resets it
-            sord = torch.where(regen, torch.where(step_k, 0, c.sord + 1),
-                               c.sord)
-            out = _State(
-                o=torch.where(regen[:, None], cam_o, o),
-                d=torch.where(regen[:, None], rd, d),
-                tp=torch.where(regen[:, None], 1.0, tp), pixel=pixel,
-                kmx=kmx, bounce=torch.where(regen, 0, bounce),
-                remaining=torch.where(regen, remaining - 1, remaining),
-                sord=sord, active=survive | regen,
-                sample_rad=torch.where(regen[:, None], 0.0, sample_rad),
-                slot_rad=slot_rad, prev_loc=prev_loc,
-                action=torch.where(regen, -1, action))
+            out, sector, pdf = sample_transport(c, t, tri, mrow, qpos, qs, u,
+                                                u_rr, u_pix, cos_tbl, stats,
+                                                fr)
         if rec is not None:
             rec.update(state=c, t=t, tri=tri, mrow=mrow, qpos=qpos, qs=qs,
-                       u=u, eps=eps_lane, sector=sector, pdf=pdf, out=out,
-                       live=act.any())
+                       u=u, eps=lane_epsilon(c.sord, fr.epsilon),
+                       sector=sector, pdf=pdf, out=out, live=act.any())
         return out
 
     widths = _phase_widths(w0, DRAIN_FACTOR, MIN_DRAIN_W)
@@ -465,6 +395,8 @@ def trace_frame_deep_wavefront(generator_or_seed, scene: Scene,
     if counting:
         rec_.counts["deep_wavefront.frames"] += 1
         rec_.counts["deep_wavefront.steps"] += k
+        rec_.counts["deep_wavefront.transport_launches"] += (
+            TRANSPORT.launches - launches)
         rec_.tally("deep_wavefront.iterations",
                    stats["phase_iterations"].sum())
     if cap is not None:

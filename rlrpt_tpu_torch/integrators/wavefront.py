@@ -43,10 +43,15 @@ SYNC_EVERY = 8
 def _primary_dirs(generator, pixel, camera: Camera, cfg: RenderConfig):
     """Jittered primary ray directions for pixel ids (ref: ray.cu:
     145-159)."""
-    px = (pixel % cfg.width).float()
-    py = torch.div(pixel, cfg.width, rounding_mode="floor").float()
     u = torch.rand(pixel.shape + (2,), generator=generator,
                    device=pixel.device)
+    return primary_dirs_u(u, pixel, camera, cfg)
+
+
+def primary_dirs_u(u, pixel, camera: Camera, cfg: RenderConfig):
+    """_primary_dirs on the given sub-pixel jitter ``u`` (..., 2)."""
+    px = (pixel % cfg.width).float()
+    py = torch.div(pixel, cfg.width, rounding_mode="floor").float()
     d = torch.stack([px + u[..., 0] - cfg.width / 2.0,
                      py + u[..., 1] - cfg.height / 2.0,
                      torch.full_like(px, cfg.focal)], dim=-1)
