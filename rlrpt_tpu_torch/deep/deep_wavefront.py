@@ -73,7 +73,10 @@ from rlrpt_tpu_torch.integrators.sarsa_wavefront import (DRAIN_FACTOR,
                                                          INF_CUT,
                                                          MIN_DRAIN_W,
                                                          _compact, _flush,
+                                                         _live_above,
                                                          _phase_widths)
+from rlrpt_tpu_torch.integrators.sarsa_wavefront import \
+    Capture as _SlotCapture
 from rlrpt_tpu_torch.integrators.wavefront import _primary_dirs
 from rlrpt_tpu_torch.nn.adam import AdamState
 from rlrpt_tpu_torch.nn.dq_network import DQNetwork
@@ -84,7 +87,7 @@ from rlrpt_tpu_torch.ops.deep_transport import (Frame, lane_epsilon,
                                                sample_transport)
 from rlrpt_tpu_torch.ops.intersect_pallas import (closest_hit_mat_mxu,
                                                   pack_scene_mxu)
-from rlrpt_tpu_torch.parallel.mesh import any_rank, psum
+from rlrpt_tpu_torch.parallel.mesh import psum
 from rlrpt_tpu_torch.scene.scene import Scene
 from rlrpt_tpu_torch.utils import profiling
 
@@ -122,7 +125,7 @@ def flat_state(net: DQNetwork, opt_state: AdamState) -> tuple:
     return torch.cat(parts), opt_state.count.clone()
 
 
-class Capture:
+class Capture(_SlotCapture):
     """What a frame keeps of itself while armed (``CAPTURE``).
 
     ``iterations``: the frame's steps (counted from 0 over every phase) to
@@ -139,39 +142,8 @@ class Capture:
     tensors are new each step and never written again, so a record holds
     them; the net and the Adam state, trained in place, are copied.
     ``flushes``: every flush's (pixel, kmx, slot_rad) copies, in order;
-    ``w0``, the slots; ``steps``, the frame's steps."""
-
-    def __init__(self, iterations=(), tail: bool = False):
-        self.iterations = frozenset(iterations)
-        self.tail = tail
-        self.records: dict = {}
-        self.tail_records: list = []
-        self.flushes: list = []
-        self.w0 = None
-        self.steps = 0
-
-    def want(self, step: int, last_phase: bool):
-        """The record to fill for this step, or None."""
-        if step in self.iterations:
-            rec = self.records[step] = {}
-        elif self.tail and last_phase:
-            rec = {}
-        else:
-            return None
-        if self.tail and last_phase:
-            self.tail_records = (self.tail_records + [rec])[-SYNC_EVERY:]
-        return rec
-
-    def flush(self, pixel, kmx, slot_rad) -> None:
-        self.flushes.append((pixel.clone(), kmx.clone(), slot_rad.clone()))
-
-
-def _live_above(active: torch.Tensor, width: int, mesh) -> bool:
-    """Whether more than ``width`` slots are live (on any rank): the
-    loop's one read of the card."""
-    flag = active.sum() > width
-    with profiling.host_sync("live_count", flag):
-        return any_rank(flag, mesh)
+    ``w0``, the slots; ``steps``, the frame's steps.  The bookkeeping
+    (``want``, ``flush``) is the SARSA wavefront's ``Capture``'s."""
 
 
 def trace_frame_deep_wavefront(generator_or_seed, scene: Scene,

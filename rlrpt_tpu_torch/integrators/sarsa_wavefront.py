@@ -37,7 +37,24 @@ iterations (the JAX package decides inside a while_loop).  The live count
 never rises, so a late read only delays a phase exit; an iteration with no
 live slot changes nothing and is not counted.  Randomness comes from one
 ``torch.Generator`` (JAX: threefry), so images match the JAX package's in
-distribution, not per pixel.
+distribution, not per pixel.  A step draws its uniforms in a fixed order:
+the sampler's, Russian roulette's, the regenerated camera rays' jitter.
+
+Tracing (``utils.profiling``), only while a profiler records: spans
+``trace_frame_sarsa_wavefront.<phase>`` (pack: the packed tables, the
+tree, the carried CDF rows and the scratch; hit, volume, td, sample,
+transport: a step's closest hit, nearest volume and row gather, TD
+scatter, apply and irradiance refresh, sector draw, and throughput,
+banking and regeneration; compact and flush: a drain) and
+``render_frame_sarsa_wavefront.rebuild``; the host waits ``sync.live_count``
+(the live-count read), ``sync.flush`` (the flush's two masked indexes),
+``sync.camera`` (the origin's copy to the card) and ``sync.class_ids``
+(the class table's range check in ``pack_scene_mxu``); the counts
+``sarsa_wavefront.frames``, ``.steps`` (host) and ``.iterations``,
+``.rays``, ``.td_rows`` (device: live iterations, live rays traced,
+pending updates applied).  A ``Capture`` in the module attribute
+``CAPTURE`` keeps chosen steps' tensors for a comparison from outside;
+without one the frame checks the attribute once a step.
 """
 
 from __future__ import annotations
@@ -49,7 +66,8 @@ import torch
 
 from rlrpt_tpu_torch.camera import Camera
 from rlrpt_tpu_torch.config import RadianceVolumeConfig, RenderConfig
-from rlrpt_tpu_torch.integrators.wavefront import _primary_dirs
+from rlrpt_tpu_torch.integrators.wavefront import (_primary_dirs,
+                                                   primary_dirs_u)
 from rlrpt_tpu_torch.ops.hemisphere import sector_cos_thetas
 from rlrpt_tpu_torch.ops.bvh import build_bvh
 from rlrpt_tpu_torch.ops.intersect_pallas import (closest_hit_mat_mxu,
@@ -61,16 +79,17 @@ from rlrpt_tpu_torch.parallel.mesh import any_rank, psum
 from rlrpt_tpu_torch.radiance.grid_bucket import (VolumeClassTable,
                                                   find_closest_volume_grid,
                                                   find_closest_volume_table)
-from rlrpt_tpu_torch.radiance.volumes import (RadianceVolumes,
+from rlrpt_tpu_torch.radiance.volumes import (RadianceVolumes, _uniforms,
                                               apply_sarsa_contributions,
                                               hier_cdf_tables,
                                               irradiance_estimates,
                                               rebuild_cdf,
-                                              sample_from_cdf_hier,
-                                              sample_from_cdf_rows,
+                                              sample_from_cdf_hier_u,
+                                              sample_from_cdf_rows_u,
                                               sarsa_contributions,
                                               td_scratch)
 from rlrpt_tpu_torch.scene.scene import Scene
+from rlrpt_tpu_torch.utils import profiling
 
 INF_CUT = 1.0e38
 SYNC_EVERY = 2
@@ -78,6 +97,10 @@ SYNC_EVERY = 2
 #: Width divisor between drain phases and the narrowest phase run.
 DRAIN_FACTOR = 4
 MIN_DRAIN_W = 512
+
+#: A ``Capture`` armed by a caller that checks chosen steps from outside
+#: the frame (the benchmark's comparison), or None.
+CAPTURE = None
 
 
 class _State(NamedTuple):
@@ -100,6 +123,64 @@ class _State(NamedTuple):
 
 
 _SLOT_FIELDS = _State._fields
+
+
+class Capture:
+    """What a frame keeps of itself while armed (``CAPTURE``).
+
+    ``iterations``: the frame's steps (counted from 0 over every phase) to
+    record; ``tail``: also record the final phase's steps, keeping the last
+    SYNC_EVERY (the last step with a live slot is among them).  A record
+    is a dict of the step's tensors: its input state ``state`` (a
+    ``_State``), the hit (``t``, ``tri``, ``mrow``; ``mrow`` None under
+    hit_mode "f32"), the nearest volumes ``next_vol``, the tables before
+    the update (``q``, ``visits``, and ``cdfplus``, the carried CDF rows
+    with the irradiance column), the TD ``target`` and the ``pending``
+    mask, the tables after it (``q_after``, ``visits_after``, and ``irr``,
+    the refreshed irradiance column), the sampler's uniforms ``r`` and
+    ``u`` (the row sampler's; None under "hier"), its ``sector`` and
+    ``pdf``, the regenerated rays' jitter ``u_pix``, and the output state
+    ``out``; plus ``step``, ``phase``, ``width`` and ``live``.  The
+    step's tensors and the Q and visit tables are new each step and never
+    written again, so a record holds them; the carried rows, refreshed in
+    place, are copied, in armed steps only.  ``flushes``: every flush's
+    (pixel, kmx, slot_rad) copies, in order; ``w0``, the slots;
+    ``steps``, the frame's steps; ``q_final``, ``visits_final`` and
+    ``cdf``, the frame's Q and visits before the CDF rebuild in
+    ``render_frame_sarsa_wavefront`` and the CDF after it."""
+
+    def __init__(self, iterations=(), tail: bool = False):
+        self.iterations = frozenset(iterations)
+        self.tail = tail
+        self.records: dict = {}
+        self.tail_records: list = []
+        self.flushes: list = []
+        self.w0 = None
+        self.steps = 0
+        self.q_final = self.visits_final = self.cdf = None
+
+    def want(self, step: int, last_phase: bool):
+        """The record to fill for this step, or None."""
+        if step in self.iterations:
+            rec = self.records[step] = {}
+        elif self.tail and last_phase:
+            rec = {}
+        else:
+            return None
+        if self.tail and last_phase:
+            self.tail_records = (self.tail_records + [rec])[-SYNC_EVERY:]
+        return rec
+
+    def flush(self, pixel, kmx, slot_rad) -> None:
+        self.flushes.append((pixel.clone(), kmx.clone(), slot_rad.clone()))
+
+
+def _live_above(active: torch.Tensor, width: int, mesh) -> bool:
+    """Whether more than ``width`` slots are live (on any rank): the
+    loop's one read of the card."""
+    flag = active.sum() > width
+    with profiling.host_sync("live_count", flag):
+        return any_rank(flag, mesh)
 
 
 def _compact(s, wp: int):
@@ -183,33 +264,41 @@ def trace_frame_sarsa_wavefront(generator_or_seed, scene: Scene,
     gen = generator_or_seed
     if not isinstance(gen, torch.Generator):
         gen = torch.Generator(device=device).manual_seed(int(gen))
-    scene = scene.to(device)
+    span = profiling.span
+    counting = profiling.recording()
+    rec_ = profiling.RECORDER
+    cap = CAPTURE
     is_table = isinstance(grid, VolumeClassTable)
-    if hit_mode == "mxu":
-        tris, mat = pack_scene_mxu(
-            scene, tri_class=grid.tri_class if is_table else None)
-    else:
-        tris = pack_triangles(scene)
-    bvh = build_bvh(tris)   # once a frame, on the table's device
+    v, s = vols.n_volumes, vols.n_sectors
+    f32 = dict(dtype=torch.float32, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    i64 = dict(dtype=torch.int64, device=device)
+    with span("trace_frame_sarsa_wavefront.pack"):
+        scene = scene.to(device)
+        if hit_mode == "mxu" and is_table:
+            # pack_scene_mxu checks the class ids' range on the host
+            with profiling.host_sync("class_ids", grid.tri_class):
+                tris, mat = pack_scene_mxu(scene, tri_class=grid.tri_class)
+        elif hit_mode == "mxu":
+            tris, mat = pack_scene_mxu(scene)
+        else:
+            tris = pack_triangles(scene)
+        bvh = build_bvh(tris)   # once a frame, on the table's device
+        if sampler == "hier":
+            cdf_c, cdf_f = hier_cdf_tables(vols.cdf, rl.grid_resolution)
+        sec_cos = sector_cos_thetas(vols.grid_resolution, device)
+        cdfplus = torch.cat([vols.cdf, irradiance_estimates(vols)[:, None]],
+                            dim=1).to(torch.bfloat16 if cdf_dtype == "bf16"
+                                      else torch.float32)
+        scratch = td_scratch(v, s, device)
+        with profiling.host_sync("camera", tris):
+            cam_o = torch.tensor(camera.position, **f32)
     ns = scene.n_surfaces
     n_pix = cfg.n_pixels
     n_local = n_pix if n_pix_local is None else n_pix_local
     pix_end = pix_lo + n_local
     spp = cfg.samples_per_pixel
-    v, s = vols.n_volumes, vols.n_sectors
     w0 = -(-n_local // pix_mux)        # slots; slot i owns i + k*w0, k<mux
-    f32 = dict(dtype=torch.float32, device=device)
-    i32 = dict(dtype=torch.int32, device=device)
-    i64 = dict(dtype=torch.int64, device=device)
-
-    if sampler == "hier":
-        cdf_c, cdf_f = hier_cdf_tables(vols.cdf, rl.grid_resolution)
-    sec_cos = sector_cos_thetas(vols.grid_resolution, device)
-    cdfplus = torch.cat([vols.cdf, irradiance_estimates(vols)[:, None]],
-                        dim=1).to(torch.bfloat16 if cdf_dtype == "bf16"
-                                  else torch.float32)
-    scratch = td_scratch(v, s, device)
-    cam_o = torch.tensor(camera.position, **f32)
     lane = torch.arange(1, w0 + 1, **i32)
     ksel_base = torch.arange(pix_mux, **i64)
 
@@ -231,158 +320,208 @@ def trace_frame_sarsa_wavefront(generator_or_seed, scene: Scene,
     zclp = torch.zeros((), **i64)
     td_count = torch.zeros((), **i64)
 
-    def step(c: _State, wp: int) -> _State:
+    def step(c: _State, wp: int, rec: dict | None) -> _State:
         nonlocal vols, path_sum, zclp, td_count
         act = c.active
-        # last live lane + 1 (0 when none is live), on the device
-        m = torch.max(torch.where(act, lane[:wp], 0)).reshape(1)
-        if hit_mode == "mxu":
-            t, tri, mrow = closest_hit_mat_mxu(c.o, c.d, tris, mat, m, bvh)
-            normal, diffuse3 = mrow[:, 0:3], mrow[:, 3:6]
-            emission3, lum = mrow[:, 6:9], mrow[:, 10]
-            cls = mrow[:, 11].round().to(torch.int32) if is_table else None
-            tri = tri.long()
-        else:
-            t, tri = closest_hit_packed(c.o, c.d, tris, m, bvh)
-            tri = tri.long()
-            normal, diffuse3 = scene.normal[tri], scene.diffuse_c[tri]
-            emission3, lum = scene.emission[tri], scene.luminance[tri]
-            cls = None
-        missed = act & (t >= INF_CUT)
-        hit_light = act & ~missed & (tri >= ns)
-        hit_surface = act & ~missed & (tri < ns)
-        hit_pos = c.o + t[:, None] * c.d
+        with span("trace_frame_sarsa_wavefront.hit"):
+            # last live lane + 1 (0 when none is live), on the device
+            m = torch.max(torch.where(act, lane[:wp], 0)).reshape(1)
+            if hit_mode == "mxu":
+                t, tri, mrow = closest_hit_mat_mxu(c.o, c.d, tris, mat, m,
+                                                   bvh)
+                normal, diffuse3 = mrow[:, 0:3], mrow[:, 3:6]
+                emission3, lum = mrow[:, 6:9], mrow[:, 10]
+                cls = mrow[:, 11].round().to(torch.int32) if is_table \
+                    else None
+                tri = tri.long()
+            else:
+                t, tri = closest_hit_packed(c.o, c.d, tris, m, bvh)
+                tri = tri.long()
+                mrow = None
+                normal, diffuse3 = scene.normal[tri], scene.diffuse_c[tri]
+                emission3, lum = scene.emission[tri], scene.luminance[tri]
+                cls = None
+            missed = act & (t >= INF_CUT)
+            hit_light = act & ~missed & (tri >= ns)
+            hit_surface = act & ~missed & (tri < ns)
+            hit_pos = c.o + t[:, None] * c.d
+        if counting:
+            rec_.tally("sarsa_wavefront.rays", act.sum())
 
-        # nearest volume at the new vertex
-        if is_table:
-            next_vol = find_closest_volume_table(grid, hit_pos, tri, cls=cls)
-        else:
-            next_vol = find_closest_volume_grid(grid, hit_pos, normal)
+        with span("trace_frame_sarsa_wavefront.volume"):
+            # nearest volume at the new vertex
+            if is_table:
+                next_vol = find_closest_volume_table(grid, hit_pos, tri,
+                                                     cls=cls)
+            else:
+                next_vol = find_closest_volume_grid(grid, hit_pos, normal)
+            # fused CDF row + irradiance-bootstrap gather; the f32 cast
+            # after it keeps the sampler's hi - lo pdf exact for bf16 rows
+            vrow = cdfplus[next_vol].float()
+            irr_b = vrow[:, -1]
+        if rec is not None:
+            rec.update(state=c, t=t, tri=tri, mrow=mrow, next_vol=next_vol,
+                       q=vols.q, visits=vols.visits, cdfplus=cdfplus.clone())
 
-        # fused CDF row + irradiance-bootstrap gather; the f32 cast after
-        # it keeps the sampler's hi - lo pdf exact for bf16 rows
-        vrow = cdfplus[next_vol].float()
-        irr_b = vrow[:, -1]
+        with span("trace_frame_sarsa_wavefront.td"):
+            # TD update of the previously chosen sector (ref: reinforcement_
+            # path_tracing.cu:69-78; targets per hit type radiance_map.cu:
+            # 111-146)
+            target = torch.where(
+                missed, c.cur_brdf * cfg.environment_light,
+                torch.where(hit_light, c.cur_brdf * lum, c.cur_brdf * irr_b))
+            pending = act & (c.cur_sector >= 0)
+            td_add = pending.sum()
+            if counting:
+                rec_.tally("sarsa_wavefront.td_rows", td_add)
+            sum_t, cnt = sarsa_contributions(
+                c.cur_vol, torch.clamp(c.cur_sector, min=0), target, pending,
+                v, s, scratch)
+            if mesh is not None:
+                td_add = psum(td_add.reshape(1), mesh)[0]
+                sum_t, cnt = psum(torch.stack([sum_t, cnt]), mesh)
+            td_count = td_count + td_add
+            vols = apply_sarsa_contributions(vols, sum_t, cnt,
+                                             rl.radiance_threshold)
+            cdfplus[:, -1] = irradiance_estimates(vols, sec_cos).to(
+                cdfplus.dtype)
+        if rec is not None:
+            rec.update(target=target, pending=pending, q_after=vols.q,
+                       visits_after=vols.visits, irr=cdfplus[:, -1].clone())
 
-        # TD update of the previously chosen sector (ref: reinforcement_
-        # path_tracing.cu:69-78; targets per hit type radiance_map.cu:
-        # 111-146)
-        target = torch.where(
-            missed, c.cur_brdf * cfg.environment_light,
-            torch.where(hit_light, c.cur_brdf * lum, c.cur_brdf * irr_b))
-        pending = act & (c.cur_sector >= 0)
-        td_add = pending.sum()
-        sum_t, cnt = sarsa_contributions(
-            c.cur_vol, torch.clamp(c.cur_sector, min=0), target, pending, v,
-            s, scratch)
-        if mesh is not None:
-            td_add = psum(td_add.reshape(1), mesh)[0]
-            sum_t, cnt = psum(torch.stack([sum_t, cnt]), mesh)
-        td_count = td_count + td_add
-        vols = apply_sarsa_contributions(vols, sum_t, cnt,
-                                         rl.radiance_threshold)
-        cdfplus[:, -1] = irradiance_estimates(vols, sec_cos).to(
-            cdfplus.dtype)
+        with span("trace_frame_sarsa_wavefront.sample"):
+            # importance-sample the next direction
+            fr = make_frame(normal) if frame_mode == "hit" else \
+                vols.frame[next_vol]
+            if sampler == "hier":
+                r = u = None
+                u1, u2, uj = _uniforms(gen, wp, (1,), (1,), (2,))
+                new_d, sector, pdf = sample_from_cdf_hier_u(
+                    u1, u2, uj, cdf_c, cdf_f, fr, next_vol, rl.grid_rho,
+                    rl.grid_resolution)
+            else:
+                r, u = _uniforms(gen, wp, (1,), (2,))
+                new_d, sector, pdf = sample_from_cdf_rows_u(
+                    r, u, vrow[:, :-1], fr, rl.grid_rho, rl.grid_resolution)
 
-        sample_rad = (c.sample_rad
-                      + torch.where(missed[:, None],
-                                    c.tp * cfg.environment_light, 0.0)
-                      + torch.where(hit_light[:, None], c.tp * emission3,
-                                    0.0))
+        with span("trace_frame_sarsa_wavefront.transport"):
+            sample_rad = (c.sample_rad
+                          + torch.where(missed[:, None],
+                                        c.tp * cfg.environment_light, 0.0)
+                          + torch.where(hit_light[:, None], c.tp * emission3,
+                                        0.0))
+            cos_theta = torch.sum(normal * new_d, dim=-1)
+            pdf_safe = torch.clamp(pdf, min=1e-12)
+            exhausted = hit_surface & (c.bounce + 1 >= cfg.max_ray_bounces)
+            survive = hit_surface & ~exhausted
+            tp = torch.where(survive[:, None],
+                             c.tp * (diffuse3 / math.pi)
+                             * (cos_theta / pdf_safe)[:, None], c.tp)
+            rr_killed = torch.zeros_like(survive)
+            if cfg.russian_roulette:
+                p = torch.clamp(tp.max(dim=-1).values, cfg.rr_min_prob, 1.0)
+                do_rr = survive & (c.bounce + 1 >= cfg.rr_start_bounce)
+                u_rr = torch.rand((wp,), generator=gen, device=device)
+                rr_killed = do_rr & (u_rr >= p)
+                tp = torch.where((do_rr & ~rr_killed)[:, None],
+                                 tp / p[:, None], tp)
+                survive = survive & ~rr_killed
 
-        # importance-sample the next direction
-        fr = make_frame(normal) if frame_mode == "hit" else \
-            vols.frame[next_vol]
-        if sampler == "hier":
-            new_d, sector, pdf = sample_from_cdf_hier(
-                gen, cdf_c, cdf_f, fr, next_vol, rl.grid_rho,
-                rl.grid_resolution)
-        else:
-            new_d, sector, pdf = sample_from_cdf_rows(
-                gen, vrow[:, :-1], fr, rl.grid_rho, rl.grid_resolution)
-        cos_theta = torch.sum(normal * new_d, dim=-1)
-        pdf_safe = torch.clamp(pdf, min=1e-12)
-        exhausted = hit_surface & (c.bounce + 1 >= cfg.max_ray_bounces)
-        survive = hit_surface & ~exhausted
-        tp = torch.where(survive[:, None],
-                         c.tp * (diffuse3 / math.pi)
-                         * (cos_theta / pdf_safe)[:, None], c.tp)
-        rr_killed = torch.zeros_like(survive)
-        if cfg.russian_roulette:
-            p = torch.clamp(tp.max(dim=-1).values, cfg.rr_min_prob, 1.0)
-            do_rr = survive & (c.bounce + 1 >= cfg.rr_start_bounce)
-            u = torch.rand((wp,), generator=gen, device=device)
-            rr_killed = do_rr & (u >= p)
-            tp = torch.where((do_rr & ~rr_killed)[:, None], tp / p[:, None],
-                             tp)
-            survive = survive & ~rr_killed
+            o = torch.where(survive[:, None], hit_pos + cfg.eps * new_d, c.o)
+            d = torch.where(survive[:, None], new_d, c.d)
+            bounce = torch.where(survive, c.bounce + 1, c.bounce)
+            # pending TD state for the next vertex (ref: reinforcement_path_
+            # tracing.cu:104-110)
+            cur_vol = torch.where(survive, next_vol, c.cur_vol)
+            cur_sector = torch.where(survive, sector, -1)
+            cur_brdf = torch.where(survive, lum / math.pi, c.cur_brdf)
 
-        o = torch.where(survive[:, None], hit_pos + cfg.eps * new_d, c.o)
-        d = torch.where(survive[:, None], new_d, c.d)
-        bounce = torch.where(survive, c.bounce + 1, c.bounce)
-        # pending TD state for the next vertex (ref: reinforcement_path_
-        # tracing.cu:104-110)
-        cur_vol = torch.where(survive, next_vol, c.cur_vol)
-        cur_sector = torch.where(survive, sector, -1)
-        cur_brdf = torch.where(survive, lum / math.pi, c.cur_brdf)
+            # stats of finished samples
+            fin = (bounce + 1).double()
+            path_sum = (path_sum
+                        + torch.where(missed | hit_light | rr_killed, fin,
+                                      0.0).sum()
+                        + exhausted.sum().double() * cfg.max_ray_bounces)
+            finished = act & ~survive
+            zero = finished & (sample_rad.mean(-1)
+                               < cfg.throughput_threshold)
+            zclp = zclp + zero.sum()
 
-        # stats of finished samples
-        fin = (bounce + 1).double()
-        path_sum = (path_sum
-                    + torch.where(missed | hit_light | rr_killed, fin,
-                                  0.0).sum()
-                    + exhausted.sum().double() * cfg.max_ray_bounces)
-        finished = act & ~survive
-        zero = finished & (sample_rad.mean(-1) < cfg.throughput_threshold)
-        zclp = zclp + zero.sum()
+            # bank finished samples into the slot's k-th row
+            slot_rad = c.slot_rad + (
+                (ksel_base == c.kmx[:, None])[:, :, None]
+                * torch.where(finished[:, None], sample_rad, 0.0)[:, None, :])
 
-        # bank finished samples into the slot's k-th row
-        slot_rad = c.slot_rad + ((ksel_base == c.kmx[:, None])[:, :, None]
-                                 * torch.where(finished[:, None], sample_rad,
-                                               0.0)[:, None, :])
-
-        # regeneration: the next sample, else the next multiplexed pixel
-        # (the pixel stride stays w0 in every phase)
-        next_pix = c.pixel + w0
-        step_k = (finished & (c.remaining <= 0) & (c.kmx + 1 < pix_mux)
-                  & (next_pix < n_pix) & (next_pix < pix_end))
-        pixel = torch.where(step_k, next_pix, c.pixel)
-        kmx = torch.where(step_k, c.kmx + 1, c.kmx)
-        remaining = torch.where(step_k, spp, c.remaining)
-        regen = finished & (remaining > 0)
-        rd = _primary_dirs(gen, pixel, camera, cfg)
-        return _State(
-            o=torch.where(regen[:, None], cam_o, o),
-            d=torch.where(regen[:, None], rd, d),
-            tp=torch.where(regen[:, None], 1.0, tp), pixel=pixel, kmx=kmx,
-            bounce=torch.where(regen, 0, bounce),
-            remaining=torch.where(regen, remaining - 1, remaining),
-            active=survive | regen,
-            sample_rad=torch.where(regen[:, None], 0.0, sample_rad),
-            slot_rad=slot_rad, cur_vol=cur_vol,
-            cur_sector=torch.where(regen, -1, cur_sector),
-            cur_brdf=cur_brdf)
+            # regeneration: the next sample, else the next multiplexed
+            # pixel (the pixel stride stays w0 in every phase)
+            next_pix = c.pixel + w0
+            step_k = (finished & (c.remaining <= 0) & (c.kmx + 1 < pix_mux)
+                      & (next_pix < n_pix) & (next_pix < pix_end))
+            pixel = torch.where(step_k, next_pix, c.pixel)
+            kmx = torch.where(step_k, c.kmx + 1, c.kmx)
+            remaining = torch.where(step_k, spp, c.remaining)
+            regen = finished & (remaining > 0)
+            u_pix = torch.rand((wp, 2), generator=gen, device=device)
+            rd = primary_dirs_u(u_pix, pixel, camera, cfg)
+            out = _State(
+                o=torch.where(regen[:, None], cam_o, o),
+                d=torch.where(regen[:, None], rd, d),
+                tp=torch.where(regen[:, None], 1.0, tp), pixel=pixel,
+                kmx=kmx, bounce=torch.where(regen, 0, bounce),
+                remaining=torch.where(regen, remaining - 1, remaining),
+                active=survive | regen,
+                sample_rad=torch.where(regen[:, None], 0.0, sample_rad),
+                slot_rad=slot_rad, cur_vol=cur_vol,
+                cur_sector=torch.where(regen, -1, cur_sector),
+                cur_brdf=cur_brdf)
+        if rec is not None:
+            rec.update(r=r, u=u, sector=sector, pdf=pdf, u_pix=u_pix,
+                       out=out, live=act.any())
+        return out
 
     widths = _phase_widths(w0, drain_factor, min_drain_w)
     phase_iters = []
+    k = 0                     # the frame's steps so far
+    if cap is not None:
+        cap.w0 = w0
     for i, wp in enumerate(widths):
         w_next = widths[i + 1] if i + 1 < len(widths) else 0
         iters = torch.zeros((), **i64)
         n = 0
-        while n % SYNC_EVERY or any_rank(st.active.sum() > w_next, mesh):
+        while n % SYNC_EVERY or _live_above(st.active, w_next, mesh):
             iters = iters + st.active.any()
-            st = step(st, wp)
+            rec = None if cap is None else cap.want(k, w_next == 0)
+            if rec is not None:
+                rec.update(step=k, phase=i, width=wp)
+            st = step(st, wp, rec)
             n += 1
+            k += 1
         phase_iters.append(iters)
         if w_next:
-            st = _compact(st, wp)
+            with span("trace_frame_sarsa_wavefront.compact"):
+                st = _compact(st, wp)
             # the tail [w_next:] is dead (live <= w_next, compacted to the
             # front): flush its banked radiance before slicing it away
-            _flush(image, st.pixel[w_next:], st.kmx[w_next:],
-                   st.slot_rad[w_next:], w0, pix_lo)
+            with span("trace_frame_sarsa_wavefront.flush"):
+                if cap is not None:
+                    cap.flush(st.pixel[w_next:], st.kmx[w_next:],
+                              st.slot_rad[w_next:])
+                with profiling.host_sync("flush", image, waits=2):
+                    _flush(image, st.pixel[w_next:], st.kmx[w_next:],
+                           st.slot_rad[w_next:], w0, pix_lo)
             st = _State(*(a[:w_next] for a in st))
-    _flush(image, st.pixel, st.kmx, st.slot_rad, w0, pix_lo)
+    with span("trace_frame_sarsa_wavefront.flush"):
+        if cap is not None:
+            cap.flush(st.pixel, st.kmx, st.slot_rad)
+        with profiling.host_sync("flush", image, waits=2):
+            _flush(image, st.pixel, st.kmx, st.slot_rad, w0, pix_lo)
     phase_iters = torch.stack(phase_iters)
+    if counting:
+        rec_.counts["sarsa_wavefront.frames"] += 1
+        rec_.counts["sarsa_wavefront.steps"] += k
+        rec_.tally("sarsa_wavefront.iterations", phase_iters.sum())
+    if cap is not None:
+        cap.steps = k
     return (image, vols, path_sum, zclp, phase_iters.sum(), td_count,
             phase_iters, tuple(widths))
 
@@ -411,7 +550,14 @@ def render_frame_sarsa_wavefront(generator_or_seed, scene: Scene,
             pix_mux=pix_mux, hit_mode=hit_mode, sampler=sampler,
             frame_mode=frame_mode, drain_factor=drain_factor,
             min_drain_w=min_drain_w, cdf_dtype=cdf_dtype)
-    vols = rebuild_cdf(vols, rl.distribution_threshold, rl.defensive_mix)
+    cap = CAPTURE
+    if cap is not None:
+        cap.q_final, cap.visits_final = vols.q, vols.visits
+    with profiling.span("render_frame_sarsa_wavefront.rebuild"):
+        vols = rebuild_cdf(vols, rl.distribution_threshold,
+                           rl.defensive_mix)
+    if cap is not None:
+        cap.cdf = vols.cdf
     spp = cfg.samples_per_pixel
     img = (image / spp).reshape(cfg.height, cfg.width, 3)
     aux = {"avg_path_length": path_sum / (cfg.n_pixels * spp),
