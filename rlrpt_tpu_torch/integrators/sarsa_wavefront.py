@@ -23,8 +23,15 @@ wavefront of ray slots:
   bucket grid (VolumeGrid); the mat row's normal is exact f32, so the
   grid's exact-normal filter reads it directly;
 * the TD bootstrap irradiance is column S of the carried CDF rows
-  (``cdfplus``), refreshed from the updated Q grid every iteration, so the
-  sampler's row gather brings it along.
+  (``cdfplus``), refreshed from the updated Q grid every iteration; the
+  volume stage gathers that column alone;
+* a step's sector draw and transport are one launch of
+  ``ops.sarsa_transport.sample_transport`` (``csrc/sarsa_transport.cu``),
+  which reads each lane's CDF row in place in ``cdfplus`` (the step never
+  writes its columns ``:S``); under sampler "hier" the frame draws the
+  sector with the two-level tables and the same kernel transports
+  (``ops.sarsa_transport.transport``).  On the CPU both run their plain
+  twins, the frame's former torch code of the two stages.
 
 A batch of TD updates is one wavefront iteration (mixed bounce depths and
 samples), where the lockstep tracer's is one bounce of one sample; the
@@ -42,15 +49,17 @@ the sampler's, Russian roulette's, the regenerated camera rays' jitter.
 
 Tracing (``utils.profiling``), only while a profiler records: spans
 ``trace_frame_sarsa_wavefront.<phase>`` (pack: the packed tables, the
-tree, the carried CDF rows and the scratch; hit, volume, td, sample,
-transport: a step's closest hit, nearest volume and row gather, TD
-scatter, apply and irradiance refresh, sector draw, and throughput,
-banking and regeneration; compact and flush: a drain) and
+tree, the carried CDF rows and the scratch; hit, volume, td: a step's
+closest hit, nearest volume and bootstrap-column gather, and TD scatter,
+apply and irradiance refresh; sample: the step's uniforms (and the
+two-level sampler's draw); transport: the kernel's launch, or its twins
+on the CPU; compact and flush: a drain) and
 ``render_frame_sarsa_wavefront.rebuild``; the host waits ``sync.live_count``
 (the live-count read), ``sync.flush`` (the flush's two masked indexes),
 ``sync.camera`` (the origin's copy to the card) and ``sync.class_ids``
 (the class table's range check in ``pack_scene_mxu``); the counts
-``sarsa_wavefront.frames``, ``.steps`` (host) and ``.iterations``,
+``sarsa_wavefront.frames``, ``.steps``, ``.transport_launches`` (host:
+the launches of the sample-and-transport kernel) and ``.iterations``,
 ``.rays``, ``.td_rows`` (device: live iterations, live rays traced,
 pending updates applied).  A ``Capture`` in the module attribute
 ``CAPTURE`` keeps chosen steps' tensors for a comparison from outside;
@@ -59,7 +68,6 @@ without one the frame checks the attribute once a step.
 
 from __future__ import annotations
 
-import math
 from typing import NamedTuple
 
 import torch
@@ -75,6 +83,10 @@ from rlrpt_tpu_torch.ops.intersect_pallas import (closest_hit_mat_mxu,
                                                   pack_scene_mxu,
                                                   pack_triangles)
 from rlrpt_tpu_torch.ops.linalg import make_frame
+from rlrpt_tpu_torch.ops.sarsa_transport import KERNEL as TRANSPORT
+from rlrpt_tpu_torch.ops.sarsa_transport import (Frame, Hit,
+                                                 sample_transport,
+                                                 transport)
 from rlrpt_tpu_torch.parallel.mesh import any_rank, psum
 from rlrpt_tpu_torch.radiance.grid_bucket import (VolumeClassTable,
                                                   find_closest_volume_grid,
@@ -85,7 +97,6 @@ from rlrpt_tpu_torch.radiance.volumes import (RadianceVolumes, _uniforms,
                                               irradiance_estimates,
                                               rebuild_cdf,
                                               sample_from_cdf_hier_u,
-                                              sample_from_cdf_rows_u,
                                               sarsa_contributions,
                                               td_scratch)
 from rlrpt_tpu_torch.scene.scene import Scene
@@ -300,7 +311,11 @@ def trace_frame_sarsa_wavefront(generator_or_seed, scene: Scene,
     spp = cfg.samples_per_pixel
     w0 = -(-n_local // pix_mux)        # slots; slot i owns i + k*w0, k<mux
     lane = torch.arange(1, w0 + 1, **i32)
-    ksel_base = torch.arange(pix_mux, **i64)
+    fr = Frame(w0=w0, n_pix=n_pix, pix_end=pix_end, pix_mux=pix_mux,
+               spp=spp, camera=camera, cfg=cfg, gr=rl.grid_resolution,
+               grid_rho=rl.grid_rho)
+    frames = vols.frame if frame_mode == "volume" else None
+    launches = TRANSPORT.launches
 
     pix0 = pix_lo + torch.arange(w0, **i64)
     in_image = (pix0 < n_pix) & (pix0 < pix_end)
@@ -316,12 +331,12 @@ def trace_frame_sarsa_wavefront(generator_or_seed, scene: Scene,
         cur_sector=torch.full((w0,), -1, **i64),
         cur_brdf=torch.zeros((w0,), **f32))
     image = torch.zeros((n_local, 3), **f32)
-    path_sum = torch.zeros((), dtype=torch.float64, device=device)
-    zclp = torch.zeros((), **i64)
+    stats = {"path_sum": torch.zeros((), dtype=torch.float64, device=device),
+             "zclp": torch.zeros((), **i64)}
     td_count = torch.zeros((), **i64)
 
     def step(c: _State, wp: int, rec: dict | None) -> _State:
-        nonlocal vols, path_sum, zclp, td_count
+        nonlocal vols, td_count
         act = c.active
         with span("trace_frame_sarsa_wavefront.hit"):
             # last live lane + 1 (0 when none is live), on the device
@@ -355,10 +370,8 @@ def trace_frame_sarsa_wavefront(generator_or_seed, scene: Scene,
                                                      cls=cls)
             else:
                 next_vol = find_closest_volume_grid(grid, hit_pos, normal)
-            # fused CDF row + irradiance-bootstrap gather; the f32 cast
-            # after it keeps the sampler's hi - lo pdf exact for bf16 rows
-            vrow = cdfplus[next_vol].float()
-            irr_b = vrow[:, -1]
+            # the TD bootstrap: the irradiance column of the volume's row
+            irr_b = cdfplus[next_vol, -1].float()
         if rec is not None:
             rec.update(state=c, t=t, tri=tri, mrow=mrow, next_vol=next_vol,
                        q=vols.q, visits=vols.visits, cdfplus=cdfplus.clone())
@@ -390,90 +403,32 @@ def trace_frame_sarsa_wavefront(generator_or_seed, scene: Scene,
                        visits_after=vols.visits, irr=cdfplus[:, -1].clone())
 
         with span("trace_frame_sarsa_wavefront.sample"):
-            # importance-sample the next direction
-            fr = make_frame(normal) if frame_mode == "hit" else \
-                vols.frame[next_vol]
+            # the step's uniforms: the sampler's, Russian roulette's, the
+            # regenerated camera rays' jitter
             if sampler == "hier":
                 r = u = None
                 u1, u2, uj = _uniforms(gen, wp, (1,), (1,), (2,))
+                basis = make_frame(normal) if frames is None else \
+                    frames[next_vol]
                 new_d, sector, pdf = sample_from_cdf_hier_u(
-                    u1, u2, uj, cdf_c, cdf_f, fr, next_vol, rl.grid_rho,
+                    u1, u2, uj, cdf_c, cdf_f, basis, next_vol, rl.grid_rho,
                     rl.grid_resolution)
             else:
                 r, u = _uniforms(gen, wp, (1,), (2,))
-                new_d, sector, pdf = sample_from_cdf_rows_u(
-                    r, u, vrow[:, :-1], fr, rl.grid_rho, rl.grid_resolution)
+            u_rr = (torch.rand((wp,), generator=gen, device=device)
+                    if cfg.russian_roulette else None)
+            u_pix = torch.rand((wp, 2), generator=gen, device=device)
 
         with span("trace_frame_sarsa_wavefront.transport"):
-            sample_rad = (c.sample_rad
-                          + torch.where(missed[:, None],
-                                        c.tp * cfg.environment_light, 0.0)
-                          + torch.where(hit_light[:, None], c.tp * emission3,
-                                        0.0))
-            cos_theta = torch.sum(normal * new_d, dim=-1)
-            pdf_safe = torch.clamp(pdf, min=1e-12)
-            exhausted = hit_surface & (c.bounce + 1 >= cfg.max_ray_bounces)
-            survive = hit_surface & ~exhausted
-            tp = torch.where(survive[:, None],
-                             c.tp * (diffuse3 / math.pi)
-                             * (cos_theta / pdf_safe)[:, None], c.tp)
-            rr_killed = torch.zeros_like(survive)
-            if cfg.russian_roulette:
-                p = torch.clamp(tp.max(dim=-1).values, cfg.rr_min_prob, 1.0)
-                do_rr = survive & (c.bounce + 1 >= cfg.rr_start_bounce)
-                u_rr = torch.rand((wp,), generator=gen, device=device)
-                rr_killed = do_rr & (u_rr >= p)
-                tp = torch.where((do_rr & ~rr_killed)[:, None],
-                                 tp / p[:, None], tp)
-                survive = survive & ~rr_killed
-
-            o = torch.where(survive[:, None], hit_pos + cfg.eps * new_d, c.o)
-            d = torch.where(survive[:, None], new_d, c.d)
-            bounce = torch.where(survive, c.bounce + 1, c.bounce)
-            # pending TD state for the next vertex (ref: reinforcement_path_
-            # tracing.cu:104-110)
-            cur_vol = torch.where(survive, next_vol, c.cur_vol)
-            cur_sector = torch.where(survive, sector, -1)
-            cur_brdf = torch.where(survive, lum / math.pi, c.cur_brdf)
-
-            # stats of finished samples
-            fin = (bounce + 1).double()
-            path_sum = (path_sum
-                        + torch.where(missed | hit_light | rr_killed, fin,
-                                      0.0).sum()
-                        + exhausted.sum().double() * cfg.max_ray_bounces)
-            finished = act & ~survive
-            zero = finished & (sample_rad.mean(-1)
-                               < cfg.throughput_threshold)
-            zclp = zclp + zero.sum()
-
-            # bank finished samples into the slot's k-th row
-            slot_rad = c.slot_rad + (
-                (ksel_base == c.kmx[:, None])[:, :, None]
-                * torch.where(finished[:, None], sample_rad, 0.0)[:, None, :])
-
-            # regeneration: the next sample, else the next multiplexed
-            # pixel (the pixel stride stays w0 in every phase)
-            next_pix = c.pixel + w0
-            step_k = (finished & (c.remaining <= 0) & (c.kmx + 1 < pix_mux)
-                      & (next_pix < n_pix) & (next_pix < pix_end))
-            pixel = torch.where(step_k, next_pix, c.pixel)
-            kmx = torch.where(step_k, c.kmx + 1, c.kmx)
-            remaining = torch.where(step_k, spp, c.remaining)
-            regen = finished & (remaining > 0)
-            u_pix = torch.rand((wp, 2), generator=gen, device=device)
-            rd = primary_dirs_u(u_pix, pixel, camera, cfg)
-            out = _State(
-                o=torch.where(regen[:, None], cam_o, o),
-                d=torch.where(regen[:, None], rd, d),
-                tp=torch.where(regen[:, None], 1.0, tp), pixel=pixel,
-                kmx=kmx, bounce=torch.where(regen, 0, bounce),
-                remaining=torch.where(regen, remaining - 1, remaining),
-                active=survive | regen,
-                sample_rad=torch.where(regen[:, None], 0.0, sample_rad),
-                slot_rad=slot_rad, cur_vol=cur_vol,
-                cur_sector=torch.where(regen, -1, cur_sector),
-                cur_brdf=cur_brdf)
+            hit = Hit(missed, hit_light, hit_surface, hit_pos, normal,
+                      diffuse3, emission3, lum, next_vol)
+            if sampler == "hier":
+                out = transport(c, hit, sector, pdf, new_d, u_rr, u_pix,
+                                stats, fr)
+            else:
+                out, sector, pdf = sample_transport(c, hit, cdfplus, frames,
+                                                    r, u, u_rr, u_pix, stats,
+                                                    fr)
         if rec is not None:
             rec.update(r=r, u=u, sector=sector, pdf=pdf, u_pix=u_pix,
                        out=out, live=act.any())
@@ -519,11 +474,13 @@ def trace_frame_sarsa_wavefront(generator_or_seed, scene: Scene,
     if counting:
         rec_.counts["sarsa_wavefront.frames"] += 1
         rec_.counts["sarsa_wavefront.steps"] += k
+        rec_.counts["sarsa_wavefront.transport_launches"] += (
+            TRANSPORT.launches - launches)
         rec_.tally("sarsa_wavefront.iterations", phase_iters.sum())
     if cap is not None:
         cap.steps = k
-    return (image, vols, path_sum, zclp, phase_iters.sum(), td_count,
-            phase_iters, tuple(widths))
+    return (image, vols, stats["path_sum"], stats["zclp"], phase_iters.sum(),
+            td_count, phase_iters, tuple(widths))
 
 
 def render_frame_sarsa_wavefront(generator_or_seed, scene: Scene,

@@ -4,8 +4,9 @@ without a profiler; with one, every stage's span and counters that equal
 the frames' own aux; frames, tables and stats bit for bit the same with
 tracing on or off and with the capture hook armed or not.  On the card
 (``-m chip``), every host wait of a 720x720 8-spp learning frame is one the
-program counts, site for site, against torch's sync debug mode, and with
-no profiler nothing records."""
+program counts, site for site, against torch's sync debug mode, every
+step launches the sector-draw-and-transport kernel once, and with no
+profiler nothing records."""
 
 import collections
 import warnings
@@ -89,6 +90,8 @@ def test_counters_equal_the_frames_own_aux(made):
     assert rec.calls["trace_frame_sarsa_wavefront.compact"] == 2
     assert rec.calls["trace_frame_sarsa_wavefront.flush"] == 4
     assert not rec.syncs                    # host waits count on the card
+    # the twins on the CPU, the kernel on the card
+    assert rec.counts["sarsa_wavefront.transport_launches"] == 0
 
 
 def test_frames_are_the_same_traced_and_captured(made):
@@ -167,6 +170,10 @@ def test_every_host_wait_of_a_frame_is_counted(card):
           f"{rec.counts['sarsa_wavefront.steps']}, iterations "
           f"{int(auxes[0]['wavefront_iterations'])}")
     assert seen == counted
+    assert set(rec.syncs) == set(SITE_FILES)
+    # the step's sector draw and transport: one launch, no wait
+    assert (rec.counts["sarsa_wavefront.transport_launches"]
+            == rec.counts["sarsa_wavefront.steps"])
     assert rec.syncs["bvh_info"] == rec.syncs["camera"] == 1
     assert rec.syncs["class_ids"] == 1
     # a read every SYNC_EVERY (2) steps of a phase, and its last
