@@ -154,7 +154,9 @@ def rebuild_bin_cdf(q: torch.Tensor, sector_grid: int, uv_bins: int,
     and the bf16 table is JAX's bit for bit; else torch.sum and
     torch.cumsum (the default on the card, where the ordered sums' ~70
     launches cost a 32-spp learning frame ~9%, scripts/rebuild_timing.py).
-    The kernels and their twins take the same table either way."""
+    The kernels and their twins take the same table either way.  While a
+    profiler records, the table's zero-probability sectors are tallied
+    (``tally_zero_sectors``)."""
     if jax_order is None:
         jax_order = q.device.type == "cpu"
     s = sector_grid * sector_grid
@@ -173,8 +175,31 @@ def rebuild_bin_cdf(q: torch.Tensor, sector_grid: int, uv_bins: int,
         out = torch.full((s_pad, q.shape[1]), 2.0, dtype=torch.float32,
                          device=q.device)
         out[:s] = cdf
-        return TriBinCDF(cdf=out.to(dtype), sector_grid=sector_grid,
-                         uv_bins=uv_bins, t_pad=t_pad)
+        table = out.to(dtype)
+    if profiling.recording():
+        tally_zero_sectors(table, s)
+    return TriBinCDF(cdf=table, sector_grid=sector_grid, uv_bins=uv_bins,
+                     t_pad=t_pad)
+
+
+def tally_zero_sectors(table: torch.Tensor, n_sectors: int) -> None:
+    """Add to the recorder's device tallies, with no wait, the sectors of
+    an (S_pad, C) table that the guided kernels can never draw
+    (``rebuild_bin_cdf.zero_sectors``: pdf hi - lo 0 as their sampler reads
+    it, csrc/path_common.cuh:CdfSampler, lo 0 before sector 0 and hi 1 for
+    the last) and the sectors looked at (``rebuild_bin_cdf.sectors``).
+    Every column counts, as the rebuild is handed no triangle count: the
+    padding triangles' and the lights' columns keep the initial Q, whose
+    bf16 table has 4 of 121 sectors at 0 (10 of 144 at 12x12)."""
+    c = table[:n_sectors].float()
+    one = torch.ones_like(c[:1])
+    hi = torch.cat([c[:n_sectors - 1], one])
+    lo = torch.cat([torch.zeros_like(one), c[:n_sectors - 1]])
+    rec = profiling.RECORDER
+    rec.tally("rebuild_bin_cdf.zero_sectors", (hi <= lo).sum())
+    rec.tally("rebuild_bin_cdf.sectors", torch.full(
+        (), n_sectors * table.shape[1], dtype=torch.int64,
+        device=table.device))
 
 
 # ---- the learning frame ----------------------------------------------------

@@ -18,7 +18,9 @@ Modes ported so far:
   sarsa-mega  the binned expected-SARSA pipeline: --frames learning frames
               (ops.guided_mega_train, CUDA kernel B2) with a CDF rebuild
               after each, then a guided render with the learned map
-              (ops.guided_mega, CUDA kernel B3)
+              (ops.guided_mega, CUDA kernel B3); --grid-resolution 12
+              runs 11x11 sectors, as the JAX tool does, unless
+              --keep-grid is given
   voronoi     primary hits coloured by their nearest radiance volume
   importance  a path trace guided by a frozen map: --load-q, else one
               precomputed with --precompute-spp paths per sector
@@ -92,6 +94,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=1984)
     p.add_argument("--out", default="render.png", help=".png or .bmp")
     p.add_argument("--grid-resolution", type=int, default=12)
+    p.add_argument("--keep-grid", action="store_true",
+                   help="sarsa-mega: run --grid-resolution as given (the "
+                        "default maps 12 to 11, as the JAX tool does)")
     p.add_argument("--area-per-sample", type=float, default=0.001)
     p.add_argument("--pix-mux", type=int, default=4,
                    help="pixels per wavefront slot (sarsa-fast, the deep "
@@ -170,7 +175,7 @@ def render(args: argparse.Namespace):
         init_bin_q, rebuild_bin_cdf, render_sarsa_mega_train)
     from rlrpt_tpu_torch.ops.megakernel import _t_pad
     rl = RadianceVolumeConfig(grid_resolution=args.grid_resolution)
-    if rl.grid_resolution == 12:
+    if rl.grid_resolution == 12 and not args.keep_grid:
         rl = dataclasses.replace(rl, grid_resolution=11)
     gr, ub = rl.grid_resolution, 4
     t_pad = _t_pad(scene.n_triangles)

@@ -122,10 +122,12 @@ def clutter_scene(device="cpu"):
                        device=device)
 
 
-def skewed_q(t_pad: int, uv_bins: int, skew: float, device="cpu"):
-    """The initial binned Q (11x11 sectors, radiance 100/121) skewed per
+def skewed_q(t_pad: int, uv_bins: int, skew: float, device="cpu",
+             sector_grid: int = 11):
+    """The initial binned Q (G x G sectors, radiance 100/G^2) skewed per
     entry by exp(skew * U[0, 1)) from numpy seed 3."""
-    q, _ = init_bin_q(t_pad, uv_bins, 11, 100.0 / 121, device="cpu")
+    q, _ = init_bin_q(t_pad, uv_bins, sector_grid, 100.0 / sector_grid ** 2,
+                      device="cpu")
     u = np.random.default_rng(3).random(q.shape)
     return (q * torch.from_numpy(np.exp(skew * u).astype(np.float32))).to(
         device)

@@ -37,19 +37,24 @@ CAM = (0.0, 0.0, -3.0)
 T_PAD = 40            # cornell: 38 triangles
 SMALL = dict(width=64, height=64, samples_per_pixel=4, max_ray_bounces=10)
 MAIN = dict(width=720, height=720, samples_per_pixel=32, max_ray_bounces=80)
-# the card cases: (scene, uv_bins, skew of the table's Q, RenderConfig
-# keywords, r_tile, pix_mux, seed, ablate); "main_path" is the learning
-# job's guided frame at the launcher's r_tile and pix_mux
+# the card cases: (scene, uv_bins, sector grid, skew of the table's Q,
+# RenderConfig keywords, r_tile, pix_mux, seed, ablate); "main_path" is
+# the learning job's guided frame at the launcher's r_tile and pix_mux;
+# "test_room_g12" the test room at the reference's own 12x12 sectors
 CARD_CASES = {
-    "initial": ("cornell", 4, 0.0, SMALL, 128, 1, 777, "none"),
-    "skewed": ("cornell", 4, 3.0, SMALL, 128, 1, 777, "none"),
-    "clutter_skewed": ("clutter", 4, 3.0, SMALL, 128, 1, 777, "none"),
-    "test_room_skewed": ("test_room", 4, 3.0, dict(SMALL, max_ray_bounces=80),
-                         128, 1, 32, "none"),
-    "torus_room_per_triangle": ("torus_room", 1, 3.0, dict(
+    "initial": ("cornell", 4, 11, 0.0, SMALL, 128, 1, 777, "none"),
+    "skewed": ("cornell", 4, 11, 3.0, SMALL, 128, 1, 777, "none"),
+    "clutter_skewed": ("clutter", 4, 11, 3.0, SMALL, 128, 1, 777, "none"),
+    "test_room_skewed": ("test_room", 4, 11, 3.0,
+                         dict(SMALL, max_ray_bounces=80), 128, 1, 32, "none"),
+    "torus_room_per_triangle": ("torus_room", 1, 11, 3.0, dict(
         SMALL, samples_per_pixel=2, max_ray_bounces=80), 128, 1, 42, "none"),
-    "main_path": ("cornell", 4, 0.0, MAIN, mk.R_TILE, mk.PIX_MUX, 6, "none"),
-    **{f"{m}_{size}": ("cornell", 4, 0.0, kw, mk.R_TILE, mk.PIX_MUX, seed, m)
+    "main_path": ("cornell", 4, 11, 0.0, MAIN, mk.R_TILE, mk.PIX_MUX, 6,
+                  "none"),
+    "test_room_g12": ("test_room", 4, 12, 3.0,
+                      dict(SMALL, max_ray_bounces=80), 128, 1, 35, "none"),
+    **{f"{m}_{size}": ("cornell", 4, 11, 0.0, kw, mk.R_TILE, mk.PIX_MUX, seed,
+                       m)
        for m in ("uniform", "fetch")
        for size, kw, seed in (
            ("128", dict(width=128, height=128, samples_per_pixel=4,
@@ -185,17 +190,19 @@ def test_ablate_modes_checked():
     assert not torch.equal(out["none"][0], out["uniform"][0])
 
 
-def _card_frame(card_scenes, name, uv_bins, skew, kw, r_tile, pix_mux):
+def _card_frame(card_scenes, name, uv_bins, grid, skew, kw, r_tile,
+                pix_mux):
     """mega_guided_frame's arguments after the seed for a card case: the
     scene's tables and its skewed table, on the card."""
     scene = card_scenes[name]
     t_pad = mk._t_pad(scene.n_triangles)
     cfg = RenderConfig(**kw)
-    table = gt.rebuild_bin_cdf(skewed_q(t_pad, uv_bins, skew, scene.v0.device),
-                               11, uv_bins, t_pad)
+    table = gt.rebuild_bin_cdf(skewed_q(t_pad, uv_bins, skew, scene.v0.device,
+                                        sector_grid=grid),
+                               grid, uv_bins, t_pad)
     tris, mat = mk.pack_scene(scene)
     return (mk.camera_vector(Camera.create(CAM)), tris, mat,
-            table.cdf.T.contiguous(), 11, uv_bins, cfg,
+            table.cdf.T.contiguous(), grid, uv_bins, cfg,
             mk.n_slots_for(cfg.n_pixels, r_tile, pix_mux), pix_mux)
 
 
@@ -216,7 +223,7 @@ def test_a_decreasing_column_is_refused_on_the_card(card_scenes):
     """The binary search needs non-decreasing columns: check_cdf reads the
     CUDA table's order back and raises before any launch."""
     cam, tris, mat, cdf_t, *rest = _card_frame(card_scenes, "cornell", 4,
-                                               0.0, SMALL, 128, 1)
+                                               11, 0.0, SMALL, 128, 1)
     cdf_t[17, 40] = cdf_t[17, 39] - 0.125
     before = gm.KERNEL.launches
     with pytest.raises(ValueError, match="decrease"):

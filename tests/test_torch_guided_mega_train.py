@@ -39,20 +39,25 @@ G = 11
 THR = RadianceVolumeConfig(grid_resolution=G).radiance_threshold
 INIT = RadianceVolumeConfig(grid_resolution=G).initial_radiance
 SMALL = dict(width=64, height=64, samples_per_pixel=4, max_ray_bounces=10)
-# the card cases: (scene, skew of Q, RenderConfig keywords, pix_mux, seed,
-# numpy seed of the visits in, or None for zeros); "main_path" is the
-# learning job's frame from the initial Q at the launcher's pix_mux
+MAIN = dict(width=720, height=720, samples_per_pixel=32, max_ray_bounces=80)
+# the card cases: (scene, sector grid, skew of Q, RenderConfig keywords,
+# pix_mux, seed, numpy seed of the visits in, or None for zeros);
+# "main_path" is the learning job's frame from the initial Q at the
+# launcher's pix_mux, "test_room_g12*" the test room at the reference's
+# own 12x12 sectors (144 sectors: B2's apply deals 12 column groups x 18
+# chunks, B3's search takes 8 probes)
 CARD_CASES = {
-    **{f"{q}_rr_{rr}": ("cornell", skew, dict(SMALL, russian_roulette=on),
-                        1, 888, 5)
+    **{f"{q}_rr_{rr}": ("cornell", G, skew,
+                        dict(SMALL, russian_roulette=on), 1, 888, 5)
        for q, skew in (("initial", 0.0), ("skewed", 3.0))
        for rr, on in (("off", False), ("on", True))},
-    "test_room_skewed": ("test_room", 3.0, dict(SMALL, max_ray_bounces=80),
+    "test_room_skewed": ("test_room", G, 3.0, dict(SMALL, max_ray_bounces=80),
                          1, 33, 18),
-    "main_path": ("cornell", 0.0, dict(width=720, height=720,
-                                       samples_per_pixel=32,
-                                       max_ray_bounces=80), mk.PIX_MUX, 6,
-                  None),
+    "main_path": ("cornell", G, 0.0, MAIN, mk.PIX_MUX, 6, None),
+    "test_room_g12": ("test_room", 12, 3.0, dict(SMALL, max_ray_bounces=80),
+                      1, 34, 19),
+    "test_room_g12_main_path": ("test_room", 12, 0.0, MAIN, mk.PIX_MUX, 7,
+                                None),
 }
 
 
@@ -185,23 +190,24 @@ def test_image_is_the_guided_frame_and_inputs_untouched():
 @pytest.mark.chip
 @pytest.mark.parametrize("case", list(CARD_CASES))
 def test_kernel_is_the_twin_on_the_card(card_scenes, case):
-    name, skew, kw, pix_mux, seed, v_seed = CARD_CASES[case]
+    name, grid, skew, kw, pix_mux, seed, v_seed = CARD_CASES[case]
     scene = card_scenes[name]
     dev = scene.v0.device
     t_pad = mk._t_pad(scene.n_triangles)
     cfg = RenderConfig(**kw)
     n_slots = mk.n_slots_for(cfg.n_pixels, mk.R_TILE, pix_mux)
-    q_in = skewed_q(t_pad, 4, skew, dev)
+    q_in = skewed_q(t_pad, 4, skew, dev, sector_grid=grid)
     v_in = torch.zeros_like(q_in) if v_seed is None else torch.from_numpy(
         np.random.default_rng(v_seed).integers(0, 3, q_in.shape).astype(
             np.float32)).to(dev)
-    cdf_t = gt.rebuild_bin_cdf(q_in, G, 4, t_pad).cdf.T.contiguous()
+    cdf_t = gt.rebuild_bin_cdf(q_in, grid, 4, t_pad).cdf.T.contiguous()
     cam = mk.camera_vector(Camera.create(CAM))
     tris, mat = mk.pack_scene(scene)
+    thr = RadianceVolumeConfig(grid_resolution=grid).radiance_threshold
     args = (seed, cam, tris, mat, cdf_t,
             gt.bin_luminance(scene, t_pad, 4)[0].contiguous(),
-            hs.sector_cos_thetas(G, dev).contiguous(), q_in, v_in, G, 4, THR,
-            cfg, n_slots, pix_mux)
+            hs.sector_cos_thetas(grid, dev).contiguous(), q_in, v_in, grid, 4,
+            thr, cfg, n_slots, pix_mux)
     before = gt.KERNEL.launches
     out = gt.mega_train_frame(*args)
     assert gt.KERNEL.launches == before + 1
@@ -213,7 +219,7 @@ def test_kernel_is_the_twin_on_the_card(card_scenes, case):
     assert gt.KERNEL_TIMED.launches == before + 1
     assert int(clock[:, profiling.CLOCK_COLS.index("total")].sum()) > 0
     twin = gt.mega_train_frame_plain(*args)
-    guided = gm.mega_guided_frame(seed, cam, tris, mat, cdf_t, G, 4, cfg,
+    guided = gm.mega_guided_frame(seed, cam, tris, mat, cdf_t, grid, 4, cfg,
                                   n_slots, pix_mux)
     for frame in (timed, twin):
         assert_same_frame(out[:3], frame[:3])

@@ -139,6 +139,24 @@ def test_cli_renders_test_room(tmp_path, mode):
     assert img.shape == (16, 16, 3) and img.max() > 0
 
 
+@pytest.mark.parametrize("keep, sectors", [([], 121), (["--keep-grid"], 144)],
+                         ids=["jax_mapping", "keep_grid"])
+def test_sarsa_mega_keeps_the_grid_when_asked(keep, sectors):
+    """--grid-resolution 12 learns on 11x11 sectors (the JAX tool's
+    mapping) unless --keep-grid runs the reference's own 12x12; the
+    sectors past the grid's are padding rows of the tables (to a multiple
+    of 8), which no frame visits."""
+    args = render.build_parser().parse_args(
+        ["--mode", "sarsa-mega", "--frames", "1", "--scene", "test_room",
+         "--grid-resolution", "12", *keep, *SMALL])
+    img, aux = render.render(args)
+    q, visits = aux["q"], aux["visits"]
+    assert q.shape == (-(-sectors // 8) * 8, 24 * 16)
+    assert float(visits[:sectors].sum()) == aux["frames"][0]["visits"] > 0
+    assert float(visits[sectors:].sum()) == 0
+    assert float(q[:sectors].min()) > 0 and img.shape == (16, 16, 3)
+
+
 @pytest.mark.parametrize("name", list(presets.PRESETS))
 def test_every_preset_renders_or_names_its_model(name, tmp_path,
                                                  monkeypatch):
