@@ -22,7 +22,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = ("mega_default.cu", "mega_guided.cu", "mega_train.cu",
            "closest_hit.cu", "bvh_build.cu", "deep_transport.cu",
-           "sarsa_transport.cu")
+           "sarsa_transport.cu", "sarsa_td.cu")
 HEADERS = ("path_common.cuh",)
 # -fmad=false: no a*b+c contraction, so the kernels round every f32
 # operation as the torch twins' separate ops do on the card.  With

@@ -23,8 +23,20 @@ wavefront of ray slots:
   bucket grid (VolumeGrid); the mat row's normal is exact f32, so the
   grid's exact-normal filter reads it directly;
 * the TD bootstrap irradiance is column S of the carried CDF rows
-  (``cdfplus``), refreshed from the updated Q grid every iteration; the
-  volume stage gathers that column alone;
+  (``cdfplus``), refreshed from the updated Q grid every iteration;
+* on the card, with the answer table, B4a's class ids and no mesh, a
+  step's nearest volume and TD update are four launches of
+  ``ops.sarsa_td`` (``csrc/sarsa_td.cu``): the table's lookup; the
+  targets; the scatter into a scratch kept zero between steps; the apply,
+  in place on the frame's own copy of Q and visits, of the entries that
+  received targets, with the irradiance of their rows.  Elsewhere (the
+  CPU, the bucket grid, hit_mode "f32", a mesh, whose ranks sum the
+  scatter before the apply) the TD update is the former torch code over
+  the whole table, and the lookup the kernel only where B4a's class ids
+  lie on the card (it is exact).  The names ``find_closest_volume_table``
+  and ``sarsa_contributions`` are the wrappers of ``ops.sarsa_td``,
+  called through this module, so a caller that patches them reaches both
+  routes;
 * a step's sector draw and transport are one launch of
   ``ops.sarsa_transport.sample_transport`` (``csrc/sarsa_transport.cu``),
   which reads each lane's CDF row in place in ``cdfplus`` (the step never
@@ -50,8 +62,8 @@ the sampler's, Russian roulette's, the regenerated camera rays' jitter.
 Tracing (``utils.profiling``), only while a profiler records: spans
 ``trace_frame_sarsa_wavefront.<phase>`` (pack: the packed tables, the
 tree, the carried CDF rows and the scratch; hit, volume, td: a step's
-closest hit, nearest volume and bootstrap-column gather, and TD scatter,
-apply and irradiance refresh; sample: the step's uniforms (and the
+closest hit, nearest volume, and TD targets, scatter, apply and
+irradiance refresh; sample: the step's uniforms (and the
 two-level sampler's draw); transport: the kernel's launch, or its twins
 on the CPU; compact and flush: a drain) and
 ``render_frame_sarsa_wavefront.rebuild``; the host waits ``sync.live_count``
@@ -59,15 +71,17 @@ on the CPU; compact and flush: a drain) and
 ``sync.camera`` (the origin's copy to the card) and ``sync.class_ids``
 (the class table's range check in ``pack_scene_mxu``); the counts
 ``sarsa_wavefront.frames``, ``.steps``, ``.transport_launches`` (host:
-the launches of the sample-and-transport kernel) and ``.iterations``,
-``.rays``, ``.td_rows`` (device: live iterations, live rays traced,
-pending updates applied).  A ``Capture`` in the module attribute
-``CAPTURE`` keeps chosen steps' tensors for a comparison from outside;
-without one the frame checks the attribute once a step.
+the launches of the sample-and-transport kernel), ``.td_kernel_steps``
+(host: the steps whose lookup and TD update ran on the kernels) and
+``.iterations``, ``.rays``, ``.td_rows`` (device: live iterations, live
+rays traced, pending updates applied).  A ``Capture`` in the module
+attribute ``CAPTURE`` keeps chosen steps' tensors for a comparison from
+outside; without one the frame checks the attribute once a step.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -83,21 +97,23 @@ from rlrpt_tpu_torch.ops.intersect_pallas import (closest_hit_mat_mxu,
                                                   pack_scene_mxu,
                                                   pack_triangles)
 from rlrpt_tpu_torch.ops.linalg import make_frame
+from rlrpt_tpu_torch.ops.sarsa_td import (apply_refresh,
+                                          find_closest_volume_table,
+                                          sarsa_contributions, targets_plain,
+                                          td_frame, td_targets)
 from rlrpt_tpu_torch.ops.sarsa_transport import KERNEL as TRANSPORT
 from rlrpt_tpu_torch.ops.sarsa_transport import (Frame, Hit,
                                                  sample_transport,
                                                  transport)
 from rlrpt_tpu_torch.parallel.mesh import any_rank, psum
 from rlrpt_tpu_torch.radiance.grid_bucket import (VolumeClassTable,
-                                                  find_closest_volume_grid,
-                                                  find_closest_volume_table)
+                                                  find_closest_volume_grid)
 from rlrpt_tpu_torch.radiance.volumes import (RadianceVolumes, _uniforms,
                                               apply_sarsa_contributions,
                                               hier_cdf_tables,
                                               irradiance_estimates,
                                               rebuild_cdf,
                                               sample_from_cdf_hier_u,
-                                              sarsa_contributions,
                                               td_scratch)
 from rlrpt_tpu_torch.scene.scene import Scene
 from rlrpt_tpu_torch.utils import profiling
@@ -152,10 +168,11 @@ class Capture:
     ``u`` (the row sampler's; None under "hier"), its ``sector`` and
     ``pdf``, the regenerated rays' jitter ``u_pix``, and the output state
     ``out``; plus ``step``, ``phase``, ``width`` and ``live``.  The
-    step's tensors and the Q and visit tables are new each step and never
-    written again, so a record holds them; the carried rows, refreshed in
-    place, are copied, in armed steps only.  ``flushes``: every flush's
-    (pixel, kmx, slot_rad) copies, in order; ``w0``, the slots;
+    step's tensors are new each step and never written again, so a record
+    holds them; the Q and visit tables and the carried rows, which the
+    kernels update in place, are copied, in armed steps only.
+    ``flushes``: every flush's (pixel, kmx, slot_rad) copies, in order;
+    ``w0``, the slots;
     ``steps``, the frame's steps; ``q_final``, ``visits_final`` and
     ``cdf``, the frame's Q and visits before the CDF rebuild in
     ``render_frame_sarsa_wavefront`` and the CDF after it."""
@@ -280,6 +297,11 @@ def trace_frame_sarsa_wavefront(generator_or_seed, scene: Scene,
     rec_ = profiling.RECORDER
     cap = CAPTURE
     is_table = isinstance(grid, VolumeClassTable)
+    # the kernels of ops.sarsa_td: on the card, for the answer table and
+    # B4a's class ids; a mesh sums the scatter over its ranks before the
+    # apply, so it keeps the whole-table torch code
+    td_kernels = (device.type == "cuda" and is_table and hit_mode == "mxu"
+                  and mesh is None)
     v, s = vols.n_volumes, vols.n_sectors
     f32 = dict(dtype=torch.float32, device=device)
     i32 = dict(dtype=torch.int32, device=device)
@@ -301,7 +323,15 @@ def trace_frame_sarsa_wavefront(generator_or_seed, scene: Scene,
         cdfplus = torch.cat([vols.cdf, irradiance_estimates(vols)[:, None]],
                             dim=1).to(torch.bfloat16 if cdf_dtype == "bf16"
                                       else torch.float32)
-        scratch = td_scratch(v, s, device)
+        if td_kernels:
+            # the frame's own Q and visits, which the kernels update in
+            # place, and a scratch kept zero between steps
+            td = td_frame(vols, cdfplus, sec_cos, rl.radiance_threshold,
+                          cfg.environment_light)
+            vols = dataclasses.replace(vols, q=td.q, visits=td.visits)
+        else:
+            td = None
+            scratch = td_scratch(v, s, device)
         with profiling.host_sync("camera", tris):
             cam_o = torch.tensor(camera.position, **f32)
     ns = scene.n_surfaces
@@ -370,37 +400,44 @@ def trace_frame_sarsa_wavefront(generator_or_seed, scene: Scene,
                                                      cls=cls)
             else:
                 next_vol = find_closest_volume_grid(grid, hit_pos, normal)
-            # the TD bootstrap: the irradiance column of the volume's row
-            irr_b = cdfplus[next_vol, -1].float()
         if rec is not None:
+            # copies: the kernels update the tables in place
             rec.update(state=c, t=t, tri=tri, mrow=mrow, next_vol=next_vol,
-                       q=vols.q, visits=vols.visits, cdfplus=cdfplus.clone())
+                       q=vols.q.clone(), visits=vols.visits.clone(),
+                       cdfplus=cdfplus.clone())
 
         with span("trace_frame_sarsa_wavefront.td"):
-            # TD update of the previously chosen sector (ref: reinforcement_
-            # path_tracing.cu:69-78; targets per hit type radiance_map.cu:
-            # 111-146)
-            target = torch.where(
-                missed, c.cur_brdf * cfg.environment_light,
-                torch.where(hit_light, c.cur_brdf * lum, c.cur_brdf * irr_b))
-            pending = act & (c.cur_sector >= 0)
-            td_add = pending.sum()
-            if counting:
-                rec_.tally("sarsa_wavefront.td_rows", td_add)
-            sum_t, cnt = sarsa_contributions(
-                c.cur_vol, torch.clamp(c.cur_sector, min=0), target, pending,
-                v, s, scratch)
-            if mesh is not None:
-                td_add = psum(td_add.reshape(1), mesh)[0]
-                sum_t, cnt = psum(torch.stack([sum_t, cnt]), mesh)
-            td_count = td_count + td_add
-            vols = apply_sarsa_contributions(vols, sum_t, cnt,
-                                             rl.radiance_threshold)
-            cdfplus[:, -1] = irradiance_estimates(vols, sec_cos).to(
-                cdfplus.dtype)
+            # TD update of the previously chosen sector, its bootstrap the
+            # irradiance column of the new volume's row
+            if td is not None:
+                target, pending = td_targets(td, c, missed, hit_light, lum,
+                                             next_vol)
+                sarsa_contributions(c.cur_vol, c.cur_sector, target, pending,
+                                    v, s, td.scratch)
+                apply_refresh(td)
+            else:
+                target, pending = targets_plain(c, missed, hit_light, lum,
+                                                next_vol, cdfplus,
+                                                cfg.environment_light)
+                td_add = pending.sum()
+                if counting:
+                    rec_.tally("sarsa_wavefront.td_rows", td_add)
+                sum_t, cnt = sarsa_contributions(c.cur_vol, c.cur_sector,
+                                                 target, pending, v, s,
+                                                 scratch)
+                if mesh is not None:
+                    td_add = psum(td_add.reshape(1), mesh)[0]
+                    sum_t, cnt = psum(torch.stack([sum_t, cnt]), mesh)
+                td_count = td_count + td_add
+                vols = apply_sarsa_contributions(vols, sum_t, cnt,
+                                                 rl.radiance_threshold)
+                cdfplus[:, -1] = irradiance_estimates(vols, sec_cos).to(
+                    cdfplus.dtype)
         if rec is not None:
-            rec.update(target=target, pending=pending, q_after=vols.q,
-                       visits_after=vols.visits, irr=cdfplus[:, -1].clone())
+            rec.update(target=target, pending=pending,
+                       q_after=vols.q.clone(),
+                       visits_after=vols.visits.clone(),
+                       irr=cdfplus[:, -1].clone())
 
         with span("trace_frame_sarsa_wavefront.sample"):
             # the step's uniforms: the sampler's, Russian roulette's, the
@@ -471,12 +508,18 @@ def trace_frame_sarsa_wavefront(generator_or_seed, scene: Scene,
         with profiling.host_sync("flush", image, waits=2):
             _flush(image, st.pixel, st.kmx, st.slot_rad, w0, pix_lo)
     phase_iters = torch.stack(phase_iters)
+    if td is not None:
+        td_count = td.count
     if counting:
         rec_.counts["sarsa_wavefront.frames"] += 1
         rec_.counts["sarsa_wavefront.steps"] += k
         rec_.counts["sarsa_wavefront.transport_launches"] += (
             TRANSPORT.launches - launches)
+        rec_.counts["sarsa_wavefront.td_kernel_steps"] += (
+            k if td is not None else 0)
         rec_.tally("sarsa_wavefront.iterations", phase_iters.sum())
+        if td is not None:
+            rec_.tally("sarsa_wavefront.td_rows", td_count)
     if cap is not None:
         cap.steps = k
     return (image, vols, stats["path_sum"], stats["zclp"], phase_iters.sum(),

@@ -5,8 +5,8 @@ the frames' own aux; frames, tables and stats bit for bit the same with
 tracing on or off and with the capture hook armed or not.  On the card
 (``-m chip``), every host wait of a 720x720 8-spp learning frame is one the
 program counts, site for site, against torch's sync debug mode, every
-step launches the sector-draw-and-transport kernel once, and with no
-profiler nothing records."""
+step launches the sector-draw-and-transport kernel once and takes the
+lookup and TD kernels, and with no profiler nothing records."""
 
 import collections
 import warnings
@@ -19,6 +19,7 @@ from torch.profiler import ProfilerActivity, profile
 from rlrpt_tpu_torch.camera import Camera
 from rlrpt_tpu_torch.config import RadianceVolumeConfig, RenderConfig
 from rlrpt_tpu_torch.integrators import sarsa_wavefront as sw
+from rlrpt_tpu_torch.ops import sarsa_td as td_ops
 from rlrpt_tpu_torch.radiance.grid_bucket import build_volume_class_table
 from rlrpt_tpu_torch.radiance.volumes import build_radiance_volumes
 from rlrpt_tpu_torch.scene import cornell_box
@@ -90,8 +91,9 @@ def test_counters_equal_the_frames_own_aux(made):
     assert rec.calls["trace_frame_sarsa_wavefront.compact"] == 2
     assert rec.calls["trace_frame_sarsa_wavefront.flush"] == 4
     assert not rec.syncs                    # host waits count on the card
-    # the twins on the CPU, the kernel on the card
+    # the twins on the CPU, the kernels on the card
     assert rec.counts["sarsa_wavefront.transport_launches"] == 0
+    assert rec.counts["sarsa_wavefront.td_kernel_steps"] == 0
 
 
 def test_frames_are_the_same_traced_and_captured(made):
@@ -150,6 +152,7 @@ def test_every_host_wait_of_a_frame_is_counted(card):
     torch.cuda.synchronize()
     assert not profiling.RECORDER.calls         # no profiler: no record
     profiling.RECORDER.reset()
+    launches = [k.launches for k in td_ops.KERNELS]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         torch.cuda.set_sync_debug_mode("warn")
         try:
@@ -171,9 +174,15 @@ def test_every_host_wait_of_a_frame_is_counted(card):
           f"{int(auxes[0]['wavefront_iterations'])}")
     assert seen == counted
     assert set(rec.syncs) == set(SITE_FILES)
-    # the step's sector draw and transport: one launch, no wait
-    assert (rec.counts["sarsa_wavefront.transport_launches"]
-            == rec.counts["sarsa_wavefront.steps"])
+    # the step's sector draw and transport: one launch, no wait; its
+    # lookup and TD update on the kernels, no wait; each stage once a step
+    steps = rec.counts["sarsa_wavefront.steps"]
+    assert rec.counts["sarsa_wavefront.transport_launches"] == steps
+    assert rec.counts["sarsa_wavefront.td_kernel_steps"] == steps
+    for stage in STAGES:
+        assert rec.calls[f"trace_frame_sarsa_wavefront.{stage}"] == steps
+    assert [k.launches - n for k, n in zip(td_ops.KERNELS, launches)] == [
+        steps] * len(td_ops.KERNELS)
     assert rec.syncs["bvh_info"] == rec.syncs["camera"] == 1
     assert rec.syncs["class_ids"] == 1
     # a read every SYNC_EVERY (2) steps of a phase, and its last
