@@ -42,17 +42,25 @@ the step's uniforms for it, in the order the twin once drew them.
 
 Tracing (``utils.profiling``), only while a profiler records: spans
 ``trace_frame_deep_wavefront.<phase>`` (pack: the tables and the tree;
-hit, forward, td, train: an iteration's stages; sample: the draws of the
-step's uniforms; transport: the sample-and-transport launch and its
-outputs; compact and flush: a drain), the host waits ``sync.live_count``
-(the live-count read), ``sync.flush`` (the flush's two masked indexes)
-and ``sync.camera`` (the origin's copy to the card), and the frame's
-counts ``deep_wavefront.frames``, ``.steps``, ``.transport_launches``
-(host: the steps that went through the kernel) and ``.iterations``,
-``.rays``, ``.rows_forwarded`` (device: live iterations, live rays
-traced, surface hits forwarded).  A ``Capture`` in the module attribute
-``CAPTURE`` keeps chosen iterations' tensors for a comparison from
-outside; without one the frame checks the attribute once a step.
+slots: the sector cosines, the camera's origin, the slot state, the image
+and the statistics; step: one step of the loop, its iteration count and
+tallies around the stages hit, forward, td, train: an iteration's stages;
+sample: the draws of the step's uniforms; transport: the
+sample-and-transport launch and its outputs; compact and flush: a drain;
+capture: an armed step's copies for ``CAPTURE`` (those after each
+minibatch lie in ``.train``); totals: the phases' iteration counts and the
+counters) and ``render_frame_neural_q_wavefront.assemble`` (and
+``render_frame_pretrained_wavefront.assemble``: the image's division and
+the aux), the host waits ``sync.live_count`` (the live-count reduction and
+read), ``sync.flush`` (the flush's two masked indexes) and ``sync.camera``
+(the origin's copy to the card), and the frame's counts
+``deep_wavefront.frames``, ``.steps``, ``.transport_launches`` (host: the
+steps that went through the kernel) and ``.iterations``, ``.rays``,
+``.rows_forwarded`` (device: live iterations, live rays traced, surface
+hits forwarded).  Every op of a frame lies inside one of these spans or a
+helper's.  A ``Capture`` in the module attribute ``CAPTURE`` keeps chosen
+iterations' tensors for a comparison from outside; without one the frame
+checks the attribute once a step.
 """
 
 from __future__ import annotations
@@ -212,13 +220,6 @@ def trace_frame_deep_wavefront(generator_or_seed, scene: Scene,
     f32d = dict(dtype=torch.float32, device=device)
     i32 = dict(dtype=torch.int32, device=device)
     i64 = dict(dtype=torch.int64, device=device)
-    cos_tbl = sector_cos_thetas(gr, device)
-    if mlp_dtype == "bf16":
-        fwd_net = copy.deepcopy(net).to(torch.bfloat16)
-        verts = scene.vertices_flat.to(torch.bfloat16)
-    with profiling.host_sync("camera", tris):
-        cam_o = torch.tensor(camera.position, **f32d)
-    lane = torch.arange(1, w0 + 1, **i32)
     fr = Frame(n_surfaces=ns, w0=w0, n_pix=n_pix, pix_end=pix_end,
                pix_mux=pix_mux, spp=spp, camera=camera, cfg=cfg, gr=gr,
                grid_rho=rl.grid_rho,
@@ -226,26 +227,35 @@ def trace_frame_deep_wavefront(generator_or_seed, scene: Scene,
                         if train else None))
     launches = TRANSPORT.launches
 
-    pix0 = pix_lo + torch.arange(w0, **i64)
-    in_image = (pix0 < n_pix) & (pix0 < pix_end)
-    st = _State(
-        o=cam_o.expand(w0, 3).clone(),
-        d=_primary_dirs(gen, pix0, camera, cfg),
-        tp=torch.ones((w0, 3), **f32d), pixel=pix0,
-        kmx=torch.zeros((w0,), **i64), bounce=torch.zeros((w0,), **i32),
-        remaining=torch.where(in_image, spp - 1, 0).to(torch.int32),
-        sord=torch.zeros((w0,), **i32), active=in_image,
-        sample_rad=torch.zeros((w0, 3), **f32d),
-        slot_rad=torch.zeros((w0, pix_mux, 3), **f32d),
-        prev_loc=torch.zeros((w0, 3), **f32d),
-        action=torch.full((w0,), -1, **i64))
-    image = torch.zeros((n_local, 3), **f32d)
-    zero = lambda dt: torch.zeros((), dtype=dt, device=device)  # noqa: E731
-    stats = {"path_sum": zero(torch.float64), "zclp": zero(torch.int64),
-             "loss_sum": zero(torch.float32),
-             "td_sq_sum": zero(torch.float32),
-             "light_hits": zero(torch.int64),
-             "light_path_sum": zero(torch.float64)}
+    with span("trace_frame_deep_wavefront.slots"):
+        cos_tbl = sector_cos_thetas(gr, device)
+        if mlp_dtype == "bf16":
+            fwd_net = copy.deepcopy(net).to(torch.bfloat16)
+            verts = scene.vertices_flat.to(torch.bfloat16)
+        with profiling.host_sync("camera", tris):
+            cam_o = torch.tensor(camera.position, **f32d)
+        lane = torch.arange(1, w0 + 1, **i32)
+        pix0 = pix_lo + torch.arange(w0, **i64)
+        in_image = (pix0 < n_pix) & (pix0 < pix_end)
+        st = _State(
+            o=cam_o.expand(w0, 3).clone(),
+            d=_primary_dirs(gen, pix0, camera, cfg),
+            tp=torch.ones((w0, 3), **f32d), pixel=pix0,
+            kmx=torch.zeros((w0,), **i64), bounce=torch.zeros((w0,), **i32),
+            remaining=torch.where(in_image, spp - 1, 0).to(torch.int32),
+            sord=torch.zeros((w0,), **i32), active=in_image,
+            sample_rad=torch.zeros((w0, 3), **f32d),
+            slot_rad=torch.zeros((w0, pix_mux, 3), **f32d),
+            prev_loc=torch.zeros((w0, 3), **f32d),
+            action=torch.full((w0,), -1, **i64))
+        image = torch.zeros((n_local, 3), **f32d)
+        zero = lambda dt: torch.zeros((), dtype=dt, device=device)  # noqa
+        stats = {"path_sum": zero(torch.float64), "zclp": zero(torch.int64),
+                 "loss_sum": zero(torch.float32),
+                 "td_sq_sum": zero(torch.float32),
+                 "light_hits": zero(torch.int64),
+                 "light_path_sum": zero(torch.float64)}
+        no_iters = zero(torch.int64)   # a phase's count starts here
 
     def step(c: _State, wp: int, rec: dict | None) -> _State:
         act = c.active
@@ -293,8 +303,9 @@ def trace_frame_deep_wavefront(generator_or_seed, scene: Scene,
                 on_step = None
                 if rec is not None:
                     trained = []
-                    rec.update(td=td, pending=pending, trained=trained,
-                               before=flat_state(net, opt_state))
+                    with span("trace_frame_deep_wavefront.capture"):
+                        rec.update(td=td, pending=pending, trained=trained,
+                                   before=flat_state(net, opt_state))
 
                     def on_step():
                         trained.append(flat_state(net, opt_state))
@@ -321,9 +332,10 @@ def trace_frame_deep_wavefront(generator_or_seed, scene: Scene,
                                                 u_rr, u_pix, cos_tbl, stats,
                                                 fr)
         if rec is not None:
-            rec.update(state=c, t=t, tri=tri, mrow=mrow, qpos=qpos, qs=qs,
-                       u=u, eps=lane_epsilon(c.sord, fr.epsilon),
-                       sector=sector, pdf=pdf, out=out, live=act.any())
+            with span("trace_frame_deep_wavefront.capture"):
+                rec.update(state=c, t=t, tri=tri, mrow=mrow, qpos=qpos,
+                           qs=qs, u=u, eps=lane_epsilon(c.sord, fr.epsilon),
+                           sector=sector, pdf=pdf, out=out, live=act.any())
         return out
 
     widths = _phase_widths(w0, DRAIN_FACTOR, MIN_DRAIN_W)
@@ -333,14 +345,15 @@ def trace_frame_deep_wavefront(generator_or_seed, scene: Scene,
         cap.w0 = w0
     for i, wp in enumerate(widths):
         w_next = widths[i + 1] if i + 1 < len(widths) else 0
-        iters = torch.zeros((), **i64)
+        iters = no_iters
         n = 0
         while n % SYNC_EVERY or _live_above(st.active, w_next, mesh):
-            iters = iters + st.active.any()
-            rec = None if cap is None else cap.want(k, w_next == 0)
-            if rec is not None:
-                rec.update(step=k, phase=i, width=wp)
-            st = step(st, wp, rec)
+            with span("trace_frame_deep_wavefront.step"):
+                iters = iters + st.active.any()
+                rec = None if cap is None else cap.want(k, w_next == 0)
+                if rec is not None:
+                    rec.update(step=k, phase=i, width=wp)
+                st = step(st, wp, rec)
             n += 1
             k += 1
         phase_iters.append(iters)
@@ -356,21 +369,22 @@ def trace_frame_deep_wavefront(generator_or_seed, scene: Scene,
                 with profiling.host_sync("flush", image, waits=2):
                     _flush(image, st.pixel[w_next:], st.kmx[w_next:],
                            st.slot_rad[w_next:], w0, pix_lo)
-            st = _State(*(a[:w_next] for a in st))
+                st = _State(*(a[:w_next] for a in st))
     with span("trace_frame_deep_wavefront.flush"):
         if cap is not None:
             cap.flush(st.pixel, st.kmx, st.slot_rad)
         with profiling.host_sync("flush", image, waits=2):
             _flush(image, st.pixel, st.kmx, st.slot_rad, w0, pix_lo)
-    stats.update(phase_iterations=torch.stack(phase_iters),
-                 phase_widths=tuple(widths))
-    if counting:
-        rec_.counts["deep_wavefront.frames"] += 1
-        rec_.counts["deep_wavefront.steps"] += k
-        rec_.counts["deep_wavefront.transport_launches"] += (
-            TRANSPORT.launches - launches)
-        rec_.tally("deep_wavefront.iterations",
-                   stats["phase_iterations"].sum())
+    with span("trace_frame_deep_wavefront.totals"):
+        stats.update(phase_iterations=torch.stack(phase_iters),
+                     phase_widths=tuple(widths))
+        if counting:
+            rec_.counts["deep_wavefront.frames"] += 1
+            rec_.counts["deep_wavefront.steps"] += k
+            rec_.counts["deep_wavefront.transport_launches"] += (
+                TRANSPORT.launches - launches)
+            rec_.tally("deep_wavefront.iterations",
+                       stats["phase_iterations"].sum())
     if cap is not None:
         cap.steps = k
     return image, stats
@@ -401,9 +415,10 @@ def render_frame_pretrained_wavefront(generator_or_seed, scene: Scene,
     image_sum, stats = trace_frame_deep_wavefront(
         generator_or_seed, scene, camera, net, cfg, rl, dl, train=False,
         pix_mux=pix_mux, mlp_dtype=mlp_dtype)
-    img = (image_sum / cfg.samples_per_pixel).reshape(cfg.height, cfg.width,
-                                                      3)
-    return img, _aux(stats, cfg)
+    with profiling.span("render_frame_pretrained_wavefront.assemble"):
+        img = (image_sum / cfg.samples_per_pixel).reshape(
+            cfg.height, cfg.width, 3)
+        return img, _aux(stats, cfg)
 
 
 def render_frame_neural_q_wavefront(generator_or_seed, scene: Scene,
@@ -421,12 +436,13 @@ def render_frame_neural_q_wavefront(generator_or_seed, scene: Scene,
         generator_or_seed, scene, camera, net, cfg, rl, dl,
         opt_state=opt_state, epsilon=epsilon, train=True, pix_mux=pix_mux,
         train_batching=train_batching)
-    img = (image_sum / cfg.samples_per_pixel).reshape(cfg.height, cfg.width,
-                                                      3)
-    aux = _aux(stats, cfg)
-    aux.update(loss=stats["loss_sum"],
-               loss_rel=stats["loss_sum"]
-               / torch.clamp(stats["td_sq_sum"], min=1e-12),
-               td_sq=stats["td_sq_sum"])
+    with profiling.span("render_frame_neural_q_wavefront.assemble"):
+        img = (image_sum / cfg.samples_per_pixel).reshape(
+            cfg.height, cfg.width, 3)
+        aux = _aux(stats, cfg)
+        aux.update(loss=stats["loss_sum"],
+                   loss_rel=stats["loss_sum"]
+                   / torch.clamp(stats["td_sq_sum"], min=1e-12),
+                   td_sq=stats["td_sq_sum"])
     eps_next = decay_epsilon(epsilon, cfg.samples_per_pixel, dl)
     return img, net, opt_state, eps_next, aux

@@ -386,9 +386,8 @@ def train_on_batches(net: DQNetwork, opt_state: AdamState, scene: Scene,
     and the replay) and ``.capture`` each capture, whose host wait is
     ``sync.graph_capture``; ``profiling.RECORDER`` counts the
     minibatches, the replays (``train.graph_replays``), the captures
-    (``train.graph_captures``), the rows with a nonzero weight
-    (``train.rows``) and the Adam steps taken (``train.adam_steps``; the
-    rest were skipped), the last two on the device."""
+    (``train.graph_captures``) and the rows with a nonzero weight
+    (``train.rows``, on the device)."""
     r = prev_loc.shape[0]
     b = min(dl.batch_size, r)
     if weights is None:
@@ -401,7 +400,6 @@ def train_on_batches(net: DQNetwork, opt_state: AdamState, scene: Scene,
         rec = profiling.RECORDER
         rec.counts["train.minibatches"] += -(-r // b) if b else 0
         rec.tally("train.rows", (weights != 0).sum())
-        count0 = opt_state.count.clone()
     graphs = (_graphs_of(opt_state) if _graphed(tds.device, mesh)
               else None)
     if graphs is not None:
@@ -440,7 +438,6 @@ def train_on_batches(net: DQNetwork, opt_state: AdamState, scene: Scene,
     if counting:
         rec.counts["train.graph_replays"] += replays
         rec.counts["train.graph_captures"] += captures
-        rec.tally("train.adam_steps", opt_state.count - count0)
     return loss_sum
 
 

@@ -61,22 +61,26 @@ the sampler's, Russian roulette's, the regenerated camera rays' jitter.
 
 Tracing (``utils.profiling``), only while a profiler records: spans
 ``trace_frame_sarsa_wavefront.<phase>`` (pack: the packed tables, the
-tree, the carried CDF rows and the scratch; hit, volume, td: a step's
-closest hit, nearest volume, and TD targets, scatter, apply and
-irradiance refresh; sample: the step's uniforms (and the
-two-level sampler's draw); transport: the kernel's launch, or its twins
-on the CPU; compact and flush: a drain) and
-``render_frame_sarsa_wavefront.rebuild``; the host waits ``sync.live_count``
-(the live-count read), ``sync.flush`` (the flush's two masked indexes),
-``sync.camera`` (the origin's copy to the card) and ``sync.class_ids``
-(the class table's range check in ``pack_scene_mxu``); the counts
-``sarsa_wavefront.frames``, ``.steps``, ``.transport_launches`` (host:
-the launches of the sample-and-transport kernel), ``.td_kernel_steps``
-(host: the steps whose lookup and TD update ran on the kernels) and
-``.iterations``, ``.rays``, ``.td_rows`` (device: live iterations, live
-rays traced, pending updates applied).  A ``Capture`` in the module
-attribute ``CAPTURE`` keeps chosen steps' tensors for a comparison from
-outside; without one the frame checks the attribute once a step.
+tree, the carried CDF rows and the scratch; slots: the slot state, the
+image and the statistics; step: one step of the loop, its iteration count
+and tallies around the stages hit, volume, td: its closest hit, nearest
+volume, and TD targets, scatter, apply and irradiance refresh; sample: its
+uniforms (and the two-level sampler's draw); transport: the kernel's
+launch, or its twins on the CPU; compact and flush: a drain; capture: an
+armed step's copies for ``CAPTURE``; totals: the phases' iteration counts
+and the counters) and ``render_frame_sarsa_wavefront.rebuild`` and
+``.assemble`` (the image's division and the aux); the host waits
+``sync.live_count`` (the live-count reduction and read), ``sync.flush``
+(the flush's two masked indexes), ``sync.camera`` (the origin's copy to
+the card) and ``sync.class_ids`` (the class table's range check in
+``pack_scene_mxu``); the counts ``sarsa_wavefront.frames``, ``.steps``,
+``.transport_launches`` (host: the launches of the sample-and-transport
+kernel), ``.td_kernel_steps`` (host: the steps whose lookup and TD update
+ran on the kernels) and ``.iterations``, ``.rays`` (device: live
+iterations, live rays traced).  Every op of a frame lies inside one of
+these spans or a helper's.  A ``Capture`` in the module attribute
+``CAPTURE`` keeps chosen steps' tensors for a comparison from outside;
+without one the frame checks the attribute once a step.
 """
 
 from __future__ import annotations
@@ -205,10 +209,9 @@ class Capture:
 
 def _live_above(active: torch.Tensor, width: int, mesh) -> bool:
     """Whether more than ``width`` slots are live (on any rank): the
-    loop's one read of the card."""
-    flag = active.sum() > width
-    with profiling.host_sync("live_count", flag):
-        return any_rank(flag, mesh)
+    loop's one read of the card, its reduction inside the wait's span."""
+    with profiling.host_sync("live_count", active):
+        return any_rank(active.sum() > width, mesh)
 
 
 def _compact(s, wp: int):
@@ -340,30 +343,33 @@ def trace_frame_sarsa_wavefront(generator_or_seed, scene: Scene,
     pix_end = pix_lo + n_local
     spp = cfg.samples_per_pixel
     w0 = -(-n_local // pix_mux)        # slots; slot i owns i + k*w0, k<mux
-    lane = torch.arange(1, w0 + 1, **i32)
     fr = Frame(w0=w0, n_pix=n_pix, pix_end=pix_end, pix_mux=pix_mux,
                spp=spp, camera=camera, cfg=cfg, gr=rl.grid_resolution,
                grid_rho=rl.grid_rho)
     frames = vols.frame if frame_mode == "volume" else None
     launches = TRANSPORT.launches
 
-    pix0 = pix_lo + torch.arange(w0, **i64)
-    in_image = (pix0 < n_pix) & (pix0 < pix_end)
-    st = _State(
-        o=cam_o.expand(w0, 3).clone(),
-        d=_primary_dirs(gen, pix0, camera, cfg),
-        tp=torch.ones((w0, 3), **f32), pixel=pix0,
-        kmx=torch.zeros((w0,), **i64), bounce=torch.zeros((w0,), **i32),
-        remaining=torch.where(in_image, spp - 1, 0).to(torch.int32),
-        active=in_image, sample_rad=torch.zeros((w0, 3), **f32),
-        slot_rad=torch.zeros((w0, pix_mux, 3), **f32),
-        cur_vol=torch.zeros((w0,), **i64),
-        cur_sector=torch.full((w0,), -1, **i64),
-        cur_brdf=torch.zeros((w0,), **f32))
-    image = torch.zeros((n_local, 3), **f32)
-    stats = {"path_sum": torch.zeros((), dtype=torch.float64, device=device),
-             "zclp": torch.zeros((), **i64)}
-    td_count = torch.zeros((), **i64)
+    with span("trace_frame_sarsa_wavefront.slots"):
+        lane = torch.arange(1, w0 + 1, **i32)
+        pix0 = pix_lo + torch.arange(w0, **i64)
+        in_image = (pix0 < n_pix) & (pix0 < pix_end)
+        st = _State(
+            o=cam_o.expand(w0, 3).clone(),
+            d=_primary_dirs(gen, pix0, camera, cfg),
+            tp=torch.ones((w0, 3), **f32), pixel=pix0,
+            kmx=torch.zeros((w0,), **i64), bounce=torch.zeros((w0,), **i32),
+            remaining=torch.where(in_image, spp - 1, 0).to(torch.int32),
+            active=in_image, sample_rad=torch.zeros((w0, 3), **f32),
+            slot_rad=torch.zeros((w0, pix_mux, 3), **f32),
+            cur_vol=torch.zeros((w0,), **i64),
+            cur_sector=torch.full((w0,), -1, **i64),
+            cur_brdf=torch.zeros((w0,), **f32))
+        image = torch.zeros((n_local, 3), **f32)
+        stats = {"path_sum": torch.zeros((), dtype=torch.float64,
+                                         device=device),
+                 "zclp": torch.zeros((), **i64)}
+        td_count = torch.zeros((), **i64)
+        no_iters = torch.zeros((), **i64)   # a phase's count starts here
 
     def step(c: _State, wp: int, rec: dict | None) -> _State:
         nonlocal vols, td_count
@@ -402,9 +408,11 @@ def trace_frame_sarsa_wavefront(generator_or_seed, scene: Scene,
                 next_vol = find_closest_volume_grid(grid, hit_pos, normal)
         if rec is not None:
             # copies: the kernels update the tables in place
-            rec.update(state=c, t=t, tri=tri, mrow=mrow, next_vol=next_vol,
-                       q=vols.q.clone(), visits=vols.visits.clone(),
-                       cdfplus=cdfplus.clone())
+            with span("trace_frame_sarsa_wavefront.capture"):
+                rec.update(state=c, t=t, tri=tri, mrow=mrow,
+                           next_vol=next_vol, q=vols.q.clone(),
+                           visits=vols.visits.clone(),
+                           cdfplus=cdfplus.clone())
 
         with span("trace_frame_sarsa_wavefront.td"):
             # TD update of the previously chosen sector, its bootstrap the
@@ -420,8 +428,6 @@ def trace_frame_sarsa_wavefront(generator_or_seed, scene: Scene,
                                                 next_vol, cdfplus,
                                                 cfg.environment_light)
                 td_add = pending.sum()
-                if counting:
-                    rec_.tally("sarsa_wavefront.td_rows", td_add)
                 sum_t, cnt = sarsa_contributions(c.cur_vol, c.cur_sector,
                                                  target, pending, v, s,
                                                  scratch)
@@ -434,10 +440,11 @@ def trace_frame_sarsa_wavefront(generator_or_seed, scene: Scene,
                 cdfplus[:, -1] = irradiance_estimates(vols, sec_cos).to(
                     cdfplus.dtype)
         if rec is not None:
-            rec.update(target=target, pending=pending,
-                       q_after=vols.q.clone(),
-                       visits_after=vols.visits.clone(),
-                       irr=cdfplus[:, -1].clone())
+            with span("trace_frame_sarsa_wavefront.capture"):
+                rec.update(target=target, pending=pending,
+                           q_after=vols.q.clone(),
+                           visits_after=vols.visits.clone(),
+                           irr=cdfplus[:, -1].clone())
 
         with span("trace_frame_sarsa_wavefront.sample"):
             # the step's uniforms: the sampler's, Russian roulette's, the
@@ -467,8 +474,9 @@ def trace_frame_sarsa_wavefront(generator_or_seed, scene: Scene,
                                                     r, u, u_rr, u_pix, stats,
                                                     fr)
         if rec is not None:
-            rec.update(r=r, u=u, sector=sector, pdf=pdf, u_pix=u_pix,
-                       out=out, live=act.any())
+            with span("trace_frame_sarsa_wavefront.capture"):
+                rec.update(r=r, u=u, sector=sector, pdf=pdf, u_pix=u_pix,
+                           out=out, live=act.any())
         return out
 
     widths = _phase_widths(w0, drain_factor, min_drain_w)
@@ -478,14 +486,15 @@ def trace_frame_sarsa_wavefront(generator_or_seed, scene: Scene,
         cap.w0 = w0
     for i, wp in enumerate(widths):
         w_next = widths[i + 1] if i + 1 < len(widths) else 0
-        iters = torch.zeros((), **i64)
+        iters = no_iters
         n = 0
         while n % SYNC_EVERY or _live_above(st.active, w_next, mesh):
-            iters = iters + st.active.any()
-            rec = None if cap is None else cap.want(k, w_next == 0)
-            if rec is not None:
-                rec.update(step=k, phase=i, width=wp)
-            st = step(st, wp, rec)
+            with span("trace_frame_sarsa_wavefront.step"):
+                iters = iters + st.active.any()
+                rec = None if cap is None else cap.want(k, w_next == 0)
+                if rec is not None:
+                    rec.update(step=k, phase=i, width=wp)
+                st = step(st, wp, rec)
             n += 1
             k += 1
         phase_iters.append(iters)
@@ -501,29 +510,29 @@ def trace_frame_sarsa_wavefront(generator_or_seed, scene: Scene,
                 with profiling.host_sync("flush", image, waits=2):
                     _flush(image, st.pixel[w_next:], st.kmx[w_next:],
                            st.slot_rad[w_next:], w0, pix_lo)
-            st = _State(*(a[:w_next] for a in st))
+                st = _State(*(a[:w_next] for a in st))
     with span("trace_frame_sarsa_wavefront.flush"):
         if cap is not None:
             cap.flush(st.pixel, st.kmx, st.slot_rad)
         with profiling.host_sync("flush", image, waits=2):
             _flush(image, st.pixel, st.kmx, st.slot_rad, w0, pix_lo)
-    phase_iters = torch.stack(phase_iters)
-    if td is not None:
-        td_count = td.count
-    if counting:
-        rec_.counts["sarsa_wavefront.frames"] += 1
-        rec_.counts["sarsa_wavefront.steps"] += k
-        rec_.counts["sarsa_wavefront.transport_launches"] += (
-            TRANSPORT.launches - launches)
-        rec_.counts["sarsa_wavefront.td_kernel_steps"] += (
-            k if td is not None else 0)
-        rec_.tally("sarsa_wavefront.iterations", phase_iters.sum())
+    with span("trace_frame_sarsa_wavefront.totals"):
+        phase_iters = torch.stack(phase_iters)
+        iters = phase_iters.sum()
         if td is not None:
-            rec_.tally("sarsa_wavefront.td_rows", td_count)
+            td_count = td.count
+        if counting:
+            rec_.counts["sarsa_wavefront.frames"] += 1
+            rec_.counts["sarsa_wavefront.steps"] += k
+            rec_.counts["sarsa_wavefront.transport_launches"] += (
+                TRANSPORT.launches - launches)
+            rec_.counts["sarsa_wavefront.td_kernel_steps"] += (
+                k if td is not None else 0)
+            rec_.tally("sarsa_wavefront.iterations", iters)
     if cap is not None:
         cap.steps = k
-    return (image, vols, stats["path_sum"], stats["zclp"], phase_iters.sum(),
-            td_count, phase_iters, tuple(widths))
+    return (image, vols, stats["path_sum"], stats["zclp"], iters, td_count,
+            phase_iters, tuple(widths))
 
 
 def render_frame_sarsa_wavefront(generator_or_seed, scene: Scene,
@@ -558,13 +567,14 @@ def render_frame_sarsa_wavefront(generator_or_seed, scene: Scene,
                            rl.defensive_mix)
     if cap is not None:
         cap.cdf = vols.cdf
-    spp = cfg.samples_per_pixel
-    img = (image / spp).reshape(cfg.height, cfg.width, 3)
-    aux = {"avg_path_length": path_sum / (cfg.n_pixels * spp),
-           "zero_contribution_light_paths": zclp,
-           "wavefront_iterations": iters,
-           "td_scatter_count": td_count,
-           "phase_iterations": phase_iters,
-           "phase_widths": widths}
+    with profiling.span("render_frame_sarsa_wavefront.assemble"):
+        spp = cfg.samples_per_pixel
+        img = (image / spp).reshape(cfg.height, cfg.width, 3)
+        aux = {"avg_path_length": path_sum / (cfg.n_pixels * spp),
+               "zero_contribution_light_paths": zclp,
+               "wavefront_iterations": iters,
+               "td_scatter_count": td_count,
+               "phase_iterations": phase_iters,
+               "phase_widths": widths}
     return img, vols, aux
 

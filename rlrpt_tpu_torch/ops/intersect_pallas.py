@@ -47,6 +47,7 @@ from rlrpt_tpu_torch.ops.intersect import Hit
 from rlrpt_tpu_torch.ops.megakernel import (INF, closest_hit_mt, hit_rows,
                                              pack_scene)
 from rlrpt_tpu_torch.scene.scene import AREA_LIGHT, NOTHING, SURFACE, Scene
+from rlrpt_tpu_torch.utils import profiling
 
 # The plain twin holds ~20 (rays, T) float32 temporaries per block of rays;
 # a block has at most PLAIN_RAY_TILE rays and PLAIN_TILE_PAIRS (ray,
@@ -225,8 +226,12 @@ def closest_hit_mat_mxu(o: torch.Tensor, d: torch.Tensor, tris: torch.Tensor,
                         bvh: Bvh | None = None):
     """Closest hit plus material row (B4a) over pack_scene_mxu's tables.
     Returns (t (R,), tri_idx (R,) int32, mat (R, 16) f32); a miss or a
-    skipped ray has a zero row."""
-    return _closest_hit(KERNEL_MAT, o, d, tris, active_count, mat, bvh=bvh)
+    skipped ray has a zero row.  While a profiler records, the span
+    ``closest_hit_mat_mxu.launch`` holds the checks, the outputs and the
+    launch (or the twin on the CPU)."""
+    with profiling.span("closest_hit_mat_mxu.launch"):
+        return _closest_hit(KERNEL_MAT, o, d, tris, active_count, mat,
+                            bvh=bvh)
 
 
 def _hit_record(o, d, scene: Scene, t, tri, normal):

@@ -16,7 +16,13 @@ frames with SDL_GetTicks (main.cu:43-49).  Here:
   profiler's clock, into its trace.  Off, a span costs one check of the
   profiler's flag and an empty ``with``.  Spans are named
   ``<launcher>.<phase>`` after the public launcher whose phase they time
-  (``render_default_mega.pack``), host waits ``sync.<site>``;
+  (``render_default_mega.pack``), host waits ``sync.<site>``.  A trace
+  labels a device gap by the latest-starting span that holds its start,
+  looking back over a bounded number of spans (``benchmark/tracing.py``:
+  64), so no span holds more than ~50 spans directly: a frame loop puts
+  each step under a ``<loop>.step`` span (5-7 stage spans), and a deep
+  step's ``.train`` holds one ``train_on_batches.replay`` a minibatch (32
+  at the published 4096-row minibatches of 129,600 lanes);
 * ``RECORDER`` also counts the lookups and hits of the host helpers'
   table cache (``utils.prep_cache``) by table, and owns the buffer of
   kernel B2's phase clock, which
@@ -169,12 +175,14 @@ def span(name: str):
 
 
 def host_sync(site: str, tensor: torch.Tensor, waits: int = 1):
-    """Wraps a place where the host waits for the card on ``tensor``: a
-    span ``sync.<site>`` that counts ``waits`` waits at ``site``, for a
-    CUDA tensor while a profiler records (nothing for a CPU tensor)."""
-    if not recording() or not tensor.is_cuda:
+    """Wraps a place where the host waits for the card on ``tensor``: while
+    a profiler records, a span ``sync.<site>`` that counts ``waits`` waits
+    at ``site`` for a CUDA tensor (a CPU tensor is computed already: the
+    span, no wait), so a CPU trace has the card's spans."""
+    if not recording():
         return _OFF
-    RECORDER.syncs[site] += waits
+    if tensor.is_cuda:
+        RECORDER.syncs[site] += waits
     return _Span("sync." + site)
 
 

@@ -10,6 +10,8 @@ build their inputs with the port alone.  Run them on the card with
 keeps JAX on the CPU there too.
 """
 
+import collections
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -65,6 +67,24 @@ def assert_same_frame(a, b) -> None:
     for name, x, y in zip(("rad", "path_sum", "iters"), a, b):
         assert torch.equal(x, y), name
     assert float(a[1].double().sum()) > 0
+
+
+def ops_outside(prof, prefixes) -> dict:
+    """The top-level ``aten::`` ops of a torch.profiler profile (no aten op
+    above them) whose innermost enclosing span starts with none of
+    ``prefixes``, counted by that span's name (None: in no span)."""
+    outside = collections.Counter()
+    for e in prof.events():
+        if not e.name.startswith("aten::"):
+            continue
+        holder, p = None, e.cpu_parent
+        while p is not None and not p.name.startswith("aten::"):
+            if holder is None and p.is_user_annotation:
+                holder = p.name
+            p = p.cpu_parent
+        if p is None and not (holder or "").startswith(tuple(prefixes)):
+            outside[holder] += 1
+    return dict(outside)
 
 
 def kernel_seed(key) -> int:

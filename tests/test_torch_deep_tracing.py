@@ -10,6 +10,7 @@ minibatch graphs' captures wait there)."""
 
 import collections
 import sys
+import types
 import warnings
 from pathlib import Path
 
@@ -24,7 +25,7 @@ from rlrpt_tpu_torch.deep import deep_wavefront as dw
 from rlrpt_tpu_torch.deep import neural_q as nq
 from rlrpt_tpu_torch.scene import cornell_box
 from rlrpt_tpu_torch.utils import profiling
-from _torch_parity import card  # noqa: F401
+from _torch_parity import card, ops_outside  # noqa: F401
 
 CFG = RenderConfig(width=16, height=16, samples_per_pixel=1,
                    max_ray_bounces=5)
@@ -33,6 +34,10 @@ RL = RadianceVolumeConfig(grid_resolution=6)
 CAM = Camera.create([0.0, 0.0, -3.0])
 STAGES = ("pack", "hit", "forward", "td", "train", "sample", "transport",
           "flush")
+# the spans an op of a frame may lie in: the loop's, its host waits', the
+# closest-hit launcher's and the training's
+SPANS = ("trace_frame_deep_wavefront.", "render_frame_neural_q_wavefront.",
+         "sync.", "closest_hit_mat_mxu.", "train_on_batches.")
 
 
 @pytest.fixture(autouse=True)
@@ -67,11 +72,35 @@ def _frames(n=2, device="cpu", cfg=CFG, dl=DL, rl=RL, made=None):
     return imgs, state, auxes, count0
 
 
-def test_nothing_is_recorded_without_a_profiler():
+def test_nothing_is_recorded_without_a_profiler(monkeypatch):
+    def no_clock():
+        raise AssertionError("a span opened with no profiler")
+
+    monkeypatch.setattr(profiling, "time",
+                        types.SimpleNamespace(perf_counter_ns=no_clock))
     _frames(1)
     rec = profiling.RECORDER
     assert not rec.calls and not rec.ns and not rec.syncs
     assert not rec.counts and not rec.tallies
+    assert "trace_frame_deep_wavefront.step" not in rec.calls
+
+
+def test_every_op_of_a_frame_lies_in_a_span():
+    scene, net, opt = _net()
+    dw.CAPTURE = dw.Capture(iterations=(1,), tail=True)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        dw.render_frame_neural_q_wavefront(10, scene, CAM, net, opt, 0.05,
+                                           CFG, RL, DL, pix_mux=4)
+    assert ops_outside(prof, SPANS) == {}
+    rec = profiling.RECORDER
+    steps = rec.counts["deep_wavefront.steps"]
+    assert rec.calls["trace_frame_deep_wavefront.step"] == steps > 0
+    for name in ("slots", "totals"):
+        assert rec.calls[f"trace_frame_deep_wavefront.{name}"] == 1
+    assert rec.calls["render_frame_neural_q_wavefront.assemble"] == 1
+    assert rec.calls["closest_hit_mat_mxu.launch"] == steps
+    # two copies of each armed step: step 1 and the final phase's
+    assert rec.calls["trace_frame_deep_wavefront.capture"] >= 2 * 2
 
 
 def test_counters_equal_the_frames_own_aux():
@@ -97,8 +126,7 @@ def test_counters_equal_the_frames_own_aux():
     # on the CPU every step runs op by op: no CUDA graph
     assert rec.counts["train.graph_replays"] == 0
     assert rec.counts["train.graph_captures"] == 0
-    taken = n["train.adam_steps"]
-    assert taken == int(state[-1]) - int(count0)
+    taken = int(state[-1]) - int(count0)    # the Adam steps taken
     assert 0 < taken < minibatches          # the first steps have none
     assert n["deep_wavefront.rays"] >= n["deep_wavefront.rows_forwarded"] > 0
     assert 0 < n["train.rows"] <= n["deep_wavefront.rays"]

@@ -9,6 +9,7 @@ step launches the sector-draw-and-transport kernel once and takes the
 lookup and TD kernels, and with no profiler nothing records."""
 
 import collections
+import types
 import warnings
 from pathlib import Path
 
@@ -24,13 +25,17 @@ from rlrpt_tpu_torch.radiance.grid_bucket import build_volume_class_table
 from rlrpt_tpu_torch.radiance.volumes import build_radiance_volumes
 from rlrpt_tpu_torch.scene import cornell_box
 from rlrpt_tpu_torch.utils import profiling
-from _torch_parity import card  # noqa: F401
+from _torch_parity import card, ops_outside  # noqa: F401
 
 CFG = RenderConfig(width=32, height=32, samples_per_pixel=2,
                    max_ray_bounces=6)
 RL = RadianceVolumeConfig(area_per_sample=0.02)
 CAM = Camera.create([0.0, 0.0, -3.0])
 STAGES = ("hit", "volume", "td", "sample", "transport")
+# the spans an op of a frame may lie in: the loop's, its host waits', the
+# closest-hit launcher's
+SPANS = ("trace_frame_sarsa_wavefront.", "render_frame_sarsa_wavefront.",
+         "sync.", "closest_hit_mat_mxu.")
 
 
 @pytest.fixture(autouse=True)
@@ -63,11 +68,40 @@ def _frames(made, n=2, cfg=CFG, rl=RL, min_drain_w=64):
     return imgs, tables, auxes
 
 
-def test_nothing_is_recorded_without_a_profiler(made):
+def test_nothing_is_recorded_without_a_profiler(made, monkeypatch):
+    def no_clock():
+        raise AssertionError("a span opened with no profiler")
+
+    monkeypatch.setattr(profiling, "time",
+                        types.SimpleNamespace(perf_counter_ns=no_clock))
     _frames(made, 1)
     rec = profiling.RECORDER
     assert not rec.calls and not rec.ns and not rec.syncs
     assert not rec.counts and not rec.tallies
+    assert "trace_frame_sarsa_wavefront.step" not in rec.calls
+
+
+def test_every_op_of_a_frame_lies_in_a_span(made):
+    sw.CAPTURE = cap = sw.Capture(iterations=(1,), tail=True)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _frames(made, 1)
+    assert ops_outside(prof, SPANS) == {}
+    rec = profiling.RECORDER
+    steps = rec.counts["sarsa_wavefront.steps"]
+    assert rec.calls["trace_frame_sarsa_wavefront.step"] == steps > 0
+    # three copies of each armed step: step 1 and the final phase's
+    armed = 1 + sum(1 for r in cap.tail_records if r["step"] != 1)
+    assert rec.calls["trace_frame_sarsa_wavefront.capture"] >= 3 * armed
+    for name in ("slots", "totals"):
+        assert rec.calls[f"trace_frame_sarsa_wavefront.{name}"] == 1
+    assert rec.calls["render_frame_sarsa_wavefront.assemble"] == 1
+    assert rec.calls["closest_hit_mat_mxu.launch"] == steps
+    # the step's stages and copies are its children: its self time leaves
+    # them out
+    step = "trace_frame_sarsa_wavefront.step"
+    assert rec.self_ns[step] == rec.ns[step] - sum(
+        rec.ns[f"trace_frame_sarsa_wavefront.{s}"]
+        for s in STAGES + ("capture",)) > 0
 
 
 def test_counters_equal_the_frames_own_aux(made):
@@ -80,9 +114,8 @@ def test_counters_equal_the_frames_own_aux(made):
     assert n["sarsa_wavefront.iterations"] == sum(
         int(a["wavefront_iterations"]) for a in auxes)
     assert steps >= n["sarsa_wavefront.iterations"] > 0
-    assert n["sarsa_wavefront.td_rows"] == sum(
-        int(a["td_scatter_count"]) for a in auxes) > 0
-    assert n["sarsa_wavefront.rays"] > n["sarsa_wavefront.td_rows"]
+    td_rows = sum(int(a["td_scatter_count"]) for a in auxes)
+    assert n["sarsa_wavefront.rays"] > td_rows > 0
     for stage in STAGES:
         assert rec.calls[f"trace_frame_sarsa_wavefront.{stage}"] == steps
     assert rec.calls["trace_frame_sarsa_wavefront.pack"] == 2
@@ -153,7 +186,8 @@ def test_every_host_wait_of_a_frame_is_counted(card):
     assert not profiling.RECORDER.calls         # no profiler: no record
     profiling.RECORDER.reset()
     launches = [k.launches for k in td_ops.KERNELS]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         torch.cuda.set_sync_debug_mode("warn")
         try:
             with warnings.catch_warnings(record=True) as caught:
@@ -190,3 +224,6 @@ def test_every_host_wait_of_a_frame_is_counted(card):
     assert rec.syncs["live_count"] == (
         rec.counts["sarsa_wavefront.steps"] // 2 + phases)
     assert rec.syncs["flush"] == 2 * phases
+    # the kernel route's ops lie in the loop's spans too
+    assert ops_outside(prof, SPANS) == {}
+    assert rec.calls["trace_frame_sarsa_wavefront.step"] == steps

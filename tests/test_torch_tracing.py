@@ -135,15 +135,17 @@ def test_nothing_recorded_without_a_profiler(case, tmp_path, monkeypatch):
 def test_host_sync_counts_only_card_tensors():
     card = types.SimpleNamespace(is_cuda=True)   # what host_sync reads
     with profile(activities=[ProfilerActivity.CPU]):
-        with profiling.host_sync("site", torch.zeros(2)):
-            pass
         with profiling.span("outer.phase"):
+            with profiling.host_sync("site", torch.zeros(2)):
+                pass
             with profiling.host_sync("site", card):
                 sum(range(20000))
     rec = profiling.RECORDER
     assert dict(rec.syncs) == {"site": 1}
-    assert rec.calls["sync.site"] == 1
-    # the phase's self time leaves out the wait inside it
+    # the span opens for both, so a CPU trace has the card's spans; only
+    # the card's tensor is a wait
+    assert rec.calls["sync.site"] == 2
+    # the phase's self time leaves out the spans inside it
     assert rec.self_ns["outer.phase"] == (rec.ns["outer.phase"]
                                           - rec.ns["sync.site"])
     with profiling.host_sync("site", card):   # no profiler: nothing
