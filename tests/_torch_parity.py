@@ -11,6 +11,8 @@ keeps JAX on the CPU there too.
 """
 
 import collections
+import json
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +24,7 @@ from rlrpt_tpu.scene import build_scene as jax_build_scene
 from rlrpt_tpu.scene import cornell_box as jax_cornell_box
 from rlrpt_tpu.scene import obj_importer as jobj
 from rlrpt_tpu.scene import presets as jpresets
+from benchmark.tracing import kernel_name
 from rlrpt_tpu_torch.ops.guided_mega_train import init_bin_q
 from rlrpt_tpu_torch.scene import build_scene, cornell_box, generated, presets
 from rlrpt_tpu_torch.scene.scene import morton_sort_surfaces
@@ -85,6 +88,23 @@ def ops_outside(prof, prefixes) -> dict:
         if p is None and not (holder or "").startswith(tuple(prefixes)):
             outside[holder] += 1
     return dict(outside)
+
+
+#: The fine-map SARSA step's kernels, T2-T6, each run once a step
+STEP_KERNELS = ("rlrpt_sarsa::sarsa_transport_kernel",
+                "rlrpt_td::lookup_kernel", "rlrpt_td::targets_kernel",
+                "rlrpt_td::scatter_kernel", "rlrpt_td::apply_kernel")
+
+
+def device_kernels(prof, path) -> collections.Counter:
+    """The device kernels a profile ran, counted by name without template
+    arguments (``benchmark.tracing.kernel_name``), from its Chrome
+    trace."""
+    prof.export_chrome_trace(str(path))
+    events = json.loads(pathlib.Path(path).read_text())["traceEvents"]
+    return collections.Counter(
+        kernel_name(e["name"]).split("<")[0] for e in events
+        if e.get("ph") == "X" and e.get("cat") == "kernel")
 
 
 def kernel_seed(key) -> int:

@@ -5,8 +5,9 @@ the frames' own aux; frames, tables and stats bit for bit the same with
 tracing on or off and with the capture hook armed or not.  On the card
 (``-m chip``), every host wait of a 720x720 8-spp learning frame is one the
 program counts, site for site, against torch's sync debug mode, every
-step launches the sector-draw-and-transport kernel once and takes the
-lookup and TD kernels, and with no profiler nothing records."""
+step is replayed from a CUDA graph that runs the sector-draw-and-transport
+kernel and the lookup and TD kernels once (launched by no wrapper), and
+with no profiler nothing records."""
 
 import collections
 import types
@@ -25,7 +26,8 @@ from rlrpt_tpu_torch.radiance.grid_bucket import build_volume_class_table
 from rlrpt_tpu_torch.radiance.volumes import build_radiance_volumes
 from rlrpt_tpu_torch.scene import cornell_box
 from rlrpt_tpu_torch.utils import profiling
-from _torch_parity import card, ops_outside  # noqa: F401
+from _torch_parity import (STEP_KERNELS, card, device_kernels,  # noqa: F401
+                           ops_outside)
 
 CFG = RenderConfig(width=32, height=32, samples_per_pixel=2,
                    max_ray_bounces=6)
@@ -173,7 +175,7 @@ SITE_FILES = {"live_count": "mesh.py", "flush": "sarsa_wavefront.py",
 
 
 @pytest.mark.chip
-def test_every_host_wait_of_a_frame_is_counted(card):
+def test_every_host_wait_of_a_frame_is_counted(card, tmp_path):
     cfg = RenderConfig(width=720, height=720, samples_per_pixel=8,
                        max_ray_bounces=80)
     rl = RadianceVolumeConfig()
@@ -209,14 +211,20 @@ def test_every_host_wait_of_a_frame_is_counted(card):
     assert seen == counted
     assert set(rec.syncs) == set(SITE_FILES)
     # the step's sector draw and transport: one launch, no wait; its
-    # lookup and TD update on the kernels, no wait; each stage once a step
+    # lookup and TD update on the kernels, no wait; every step replayed
+    # (the first frame captured each width), so no stage span opens and
+    # no wrapper launches, but the device runs each kernel once a step
     steps = rec.counts["sarsa_wavefront.steps"]
     assert rec.counts["sarsa_wavefront.transport_launches"] == steps
     assert rec.counts["sarsa_wavefront.td_kernel_steps"] == steps
+    assert rec.counts["sarsa_wavefront.graph_steps"] == steps
     for stage in STAGES:
-        assert rec.calls[f"trace_frame_sarsa_wavefront.{stage}"] == steps
+        assert f"trace_frame_sarsa_wavefront.{stage}" not in rec.calls
     assert [k.launches - n for k, n in zip(td_ops.KERNELS, launches)] == [
-        steps] * len(td_ops.KERNELS)
+        0] * len(td_ops.KERNELS)
+    ran = device_kernels(prof, tmp_path / "trace.json")
+    assert {name: ran[name] for name in STEP_KERNELS} == dict.fromkeys(
+        STEP_KERNELS, steps)
     assert rec.syncs["bvh_info"] == rec.syncs["camera"] == 1
     assert rec.syncs["class_ids"] == 1
     # a read every SYNC_EVERY (2) steps of a phase, and its last
@@ -224,6 +232,7 @@ def test_every_host_wait_of_a_frame_is_counted(card):
     assert rec.syncs["live_count"] == (
         rec.counts["sarsa_wavefront.steps"] // 2 + phases)
     assert rec.syncs["flush"] == 2 * phases
-    # the kernel route's ops lie in the loop's spans too
+    # the graph route's ops lie in the loop's spans too
     assert ops_outside(prof, SPANS) == {}
     assert rec.calls["trace_frame_sarsa_wavefront.step"] == steps
+    assert rec.calls["trace_frame_sarsa_wavefront.replay"] == steps
